@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's main path, on one CUDA card.
+
+Runs `image_to_data` at the default `OcrConfig()` (bf16) with
+`evals/production_weights` on the four main-path pages, warms up, then
+traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
+
+* the card (nvidia-smi name and power limit);
+* wall time per page, split into detect (canvas, CRAFT, post-processing)
+  and recognize (crops, PARSEQ, confidence) as the engine records them;
+* device busy time per page (union of CUDA kernel and memcpy intervals on
+  the trace) and the device's idle share of the wall time;
+* the CUDA kernels with the most device time, grouped by name, and the
+  number of kernel launches per page.
+
+Writes the chrome trace to build/profile_torch_port.json.
+Usage: python3 scripts/profile_torch_port.py [--reps N]
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WEIGHTS = os.path.join(ROOT, "evals", "production_weights")
+PAGES = ("resume_example", "funsd_0001129658", "funsd_91372360", "table_english")
+
+
+def busy_us(events):
+    """Length of the union of [start, end) intervals, in microseconds."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.utils.image import load_image
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"card: {smi.stdout.strip()}")
+    pages = [load_image(os.path.join(ROOT, "images", f"{n}.png")) for n in PAGES]
+    engine = tuatara_tpu_torch.api.get_engine(tuatara_tpu_torch.OcrConfig(), WEIGHTS)
+    for img in pages:  # warm-up: cuDNN plans, allocator, kernel build
+        tuatara_tpu_torch.image_to_data(img, WEIGHTS)
+    torch.cuda.synchronize()
+
+    n_pages = args.reps * len(pages)
+    stages = {"detect_s": 0.0, "recognize_s": 0.0}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            for img in pages:
+                tuatara_tpu_torch.image_to_data(img, WEIGHTS)
+                for k in stages:
+                    stages[k] += engine.last_timings[k]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, "profile_torch_port.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in events if e["cat"] == "kernel"]
+    busy = busy_us(events) / 1e3
+    by_name = {}
+    for e in kernels:
+        d = by_name.setdefault(e["name"], [0.0, 0])
+        d[0] += e["dur"] / 1e3
+        d[1] += 1
+    print(f"wall: {wall / n_pages * 1e3:.2f} ms/page ({n_pages / wall:.2f} pages/s); "
+          f"detect {stages['detect_s'] / n_pages * 1e3:.2f} ms, recognize "
+          f"{stages['recognize_s'] / n_pages * 1e3:.2f} ms")
+    print(f"device busy: {busy / n_pages:.2f} ms/page; idle share "
+          f"{1 - busy / (wall * 1e3):.3f}; kernel launches/page "
+          f"{len(kernels) / n_pages:.0f}")
+    total_k = sum(v[0] for v in by_name.values())
+    print(f"kernel time: {total_k / n_pages:.2f} ms/page")
+    for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"  {ms / n_pages:8.3f} ms/page {cnt / n_pages:7.1f} launches/page "
+              f"{ms / total_k * 100:5.1f}%  {name[:110]}")
+    ours = {n: v for n, v in by_name.items()
+            if any(k in n for k in ("cc_", "area_", "slots_", "stats_accumulate"))}
+    print("port kernels: " + json.dumps(
+        {n: {"ms_per_page": v[0] / n_pages, "launches_per_page": v[1] / n_pages}
+         for n, v in ours.items()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

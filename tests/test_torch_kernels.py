@@ -1,0 +1,177 @@
+"""The port's kernel modules on the CPU: their plain versions against the
+JAX package's Pallas kernels (interpret mode) and XLA paths, bit for bit.
+
+The CUDA kernels themselves run only on the card; `chip_smoke.py` holds
+them against these plain versions there. Here the wrappers must take the
+plain path for CPU tensors and count no launch.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from tuatara_tpu.ops.connected_components import (
+    component_roots_filtered as jax_roots_filtered,
+    label_components_aux as jax_label_aux,
+)
+from tuatara_tpu.ops.pallas.cc import area_ok_pallas, label_components_pallas_aux
+from tuatara_tpu.ops.pallas.stats import component_stats_nopeak as pallas_stats_nopeak
+from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+from tuatara_tpu_torch.kernels import cc as tcc
+from tuatara_tpu_torch.kernels import stats as tstats
+from tuatara_tpu_torch.ops import connected_components as tplain
+
+BIG = 2**30
+
+
+def _snake(h=32, w=128):
+    """One component winding through every other row (the JAX labeler's
+    slow case, tests/test_pallas.py)."""
+    m = np.zeros((h, w), bool)
+    for i in range(0, h, 2):
+        m[i, :] = True
+    for i in range(0, h - 2, 4):
+        m[i + 1, -1] = True
+    for i in range(2, h - 1, 4):
+        m[i + 1, 0] = True
+    return m
+
+
+def _masks():
+    rng = np.random.default_rng(0)
+    cases = []
+    for p in (0.35, 0.55):
+        m = rng.random((64, 128)) < p
+        cases.append((f"random{p}", m, m & (rng.random((64, 128)) < 0.08)))
+    snake = _snake()
+    hot = np.zeros_like(snake)
+    hot[30, 5] = True  # one hot pixel far from the root
+    cases.append(("snake", snake, hot))
+    cases.append(("empty", np.zeros((32, 128), bool), np.zeros((32, 128), bool)))
+    return cases
+
+
+@pytest.mark.parametrize("name,mask,hot", _masks(), ids=lambda v: v if isinstance(v, str) else "")
+def test_label_components_aux_plain_matches_jax(name, mask, hot):
+    """K1's plain version == the Pallas kernel (interpret) == the XLA
+    fixpoint, exactly; the JAX labelers must have converged (< 64 sweeps)."""
+    ref_lab, ref_aux, iters = jax_label_aux(jnp.array(mask), jnp.array(hot))
+    pl_lab, pl_aux, pl_iters = label_components_pallas_aux(
+        jnp.array(mask), jnp.array(hot), interpret=True)
+    assert int(iters) < 64 and int(pl_iters) < 64
+    lab, aux = tcc.label_components_aux(torch.from_numpy(mask), torch.from_numpy(hot))
+    assert lab.dtype == torch.int32 and aux.dtype == torch.int32
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(ref_lab))
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(pl_lab))
+    np.testing.assert_array_equal(aux.numpy(), np.asarray(ref_aux))
+    np.testing.assert_array_equal(aux.numpy(), np.asarray(pl_aux))
+    # background and hot-less components hold exactly 2**30
+    assert (aux.numpy()[~mask] == BIG).all()
+
+
+def test_label_components_true_components():
+    """Union-find semantics: labels are the min raster index of the true
+    4-connected components (brute-force flood fill)."""
+    rng = np.random.default_rng(3)
+    m = rng.random((40, 50)) < 0.5
+    lab = tplain.label_components(torch.from_numpy(m)).numpy()
+    want = -np.ones(m.shape, np.int64)
+    h, w = m.shape
+    for start in range(h * w):
+        y, x = divmod(start, w)
+        if not m[y, x] or want[y, x] >= 0:
+            continue
+        stack = [(y, x)]
+        want[y, x] = start
+        while stack:
+            cy, cx = stack.pop()
+            for ny, nx in ((cy - 1, cx), (cy + 1, cx), (cy, cx - 1), (cy, cx + 1)):
+                if 0 <= ny < h and 0 <= nx < w and m[ny, nx] and want[ny, nx] < 0:
+                    want[ny, nx] = start
+                    stack.append((ny, nx))
+    np.testing.assert_array_equal(lab, want)
+
+
+@pytest.mark.parametrize("min_area", [1, 4, 10])
+def test_area_ok_plain_matches_pallas(min_area):
+    """K2's plain version (exact histogram) == the windowed Pallas kernel
+    (interpret), which is exact when 2m-1 <= min(H, W)."""
+    rng = np.random.default_rng(min_area)
+    m = rng.random((32, 128)) < 0.4
+    labels, _, _ = jax_label_aux(jnp.array(m), jnp.array(m))
+    ref = np.asarray(area_ok_pallas(labels, min_area, interpret=True))
+    got = tcc.area_ok(torch.from_numpy(np.array(labels)), min_area)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("h", [32, 40])
+def test_stats_nopeak_plain_matches_pallas(K, h):
+    """K3's plain version == the Pallas kernel (interpret), bit for bit,
+    with roots from the JAX filtered root selection (padded with 2**30)."""
+    rng = np.random.default_rng(h + K)
+    m = rng.random((h, 128)) < 0.3
+    hot = m & (rng.random((h, 128)) < 0.3)
+    labels, hot_min, _ = jax_label_aux(jnp.array(m), jnp.array(hot))
+    roots, _ = jax_roots_filtered(labels, K, 3, hot_min=hot_min, area_ok_map=None)
+    if K == 256:
+        assert int((np.asarray(roots) == BIG).sum()) > 0  # padding is exercised
+    keep = rng.random((h, 128)) < 0.8
+    ref = pallas_stats_nopeak(labels, jnp.array(keep), roots, interpret=True)
+    got = tstats.component_stats_nopeak(torch.from_numpy(np.array(labels)),
+                                        torch.from_numpy(keep),
+                                        torch.from_numpy(np.array(roots)))
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("K", [8, 256])
+def test_component_roots_filtered_matches_jax(K):
+    """Roots: the K smallest passing raster indices, ascending, padded with
+    2**30 — equal to the JAX selection (area filter by histogram)."""
+    rng = np.random.default_rng(K)
+    m = rng.random((64, 128)) < 0.4
+    hot = m & (rng.random((64, 128)) < 0.1)
+    labels, hot_min, _ = jax_label_aux(jnp.array(m), jnp.array(hot))
+    ref, ref_n = jax_roots_filtered(labels, K, 5, hot_min=hot_min, area_ok_map=None)
+    t_lab = torch.from_numpy(np.array(labels))
+    got, n = tplain.component_roots_filtered(
+        t_lab, K, torch.from_numpy(np.array(hot_min)), tplain.area_ok(t_lab, 5))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(n) == int(ref_n)
+
+
+def test_wrappers_take_plain_path_on_cpu_without_launching():
+    """CPU tensors go to the plain versions: no build, no launch counted."""
+    reset_launches()
+    m = torch.from_numpy(_snake())
+    lab, aux = tcc.label_components_aux(m, m)
+    ok = tcc.area_ok(lab, 10)
+    roots, _ = tplain.component_roots_filtered(lab, 16, aux, ok)
+    tstats.component_stats_nopeak(lab, torch.ones_like(m), roots)
+    assert sum(LAUNCHES.values()) == 0
+
+
+def test_build_names_sources_without_compiling(tmp_path, monkeypatch):
+    """The build step hashes each source with its flags into the library
+    name (an edited source gets a new library) and builds nothing at
+    import."""
+    from tuatara_tpu_torch.kernels import _build
+
+    assert set(_build.SOURCES) == {"cc", "stats"}
+    for name in _build.SOURCES:
+        target = _build._target(name)
+        assert target.startswith(_build.BUILD_DIR) and target.endswith(".so")
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not _build._libs
+    src = tmp_path / "cc.cu"
+    src.write_text("// a")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    first = _build._target("cc")
+    src.write_text("// b")
+    assert _build._target("cc") != first

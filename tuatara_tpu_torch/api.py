@@ -1,0 +1,301 @@
+"""Engine + public API: image in -> word boxes + transcripts out.
+
+Port of `tuatara_tpu/api.py` on the default path: `image_to_data(image)` ->
+`OcrEngine.run_pages`, axis-aligned boxes, greedy AR decode with one cloze
+refinement. A batch of same-sized pages goes through
+
+1. canvas prep and the CRAFT forward, batched;
+2. per page: `extract_boxes` (the CUDA kernels K1-K3 on the card), scaling
+   to image coordinates, crop windows, and compaction of the valid boxes to
+   the front (stable, so component raster order is kept);
+3. one recognition slab over all pages' live boxes, padded to the
+   `rec_buckets` ladder, its rows ordered by box aspect ratio (a pure
+   permutation, undone before decoding);
+4. PARSEQ, the sequence confidence (product of per-step max probability up
+   to and including the first EOS), and the tokenizer on the host.
+
+Models load once per engine and stay on the device. The engine runs on the
+card unless the caller passes `device="cpu"`.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tuatara_tpu_torch.config import DEFAULT_CONFIG, CraftConfig, OcrConfig, ParseqConfig
+from tuatara_tpu_torch.models.craft import Craft
+from tuatara_tpu_torch.models.layers import set_compute_dtype
+from tuatara_tpu_torch.models.parseq import Parseq, confidence
+from tuatara_tpu_torch.ops.boxes import extract_boxes, scale_boxes, tesseract_bbox
+from tuatara_tpu_torch.ops.resize import canvas_prep, canvas_shape
+from tuatara_tpu_torch.ops.warp import crop_rects, extract_crops_batched
+from tuatara_tpu_torch.tokenizer import Tokenizer
+from tuatara_tpu_torch.utils import weights as W
+from tuatara_tpu_torch.weights import craft_state_dict, parseq_state_dict
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """None -> the first CUDA card; raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the engine runs on the GPU by default; pass "
+                "device='cpu' to run it on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def content_mask(h: int, w: int, cfg: OcrConfig, device) -> torch.Tensor:
+    """[hm_h, hm_w] bool: the heatmap pixels inside the page's /32-padded
+    content extent (the canvas beyond it is padding, masked out of boxes)."""
+    canvas_h, canvas_w, ch, cw, _ = canvas_shape(h, w, cfg)
+    r = cfg.ratio_net
+    rows = torch.arange(canvas_h // r, device=device) < ch // r
+    cols = torch.arange(canvas_w // r, device=device) < cw // r
+    return rows[:, None] & cols[None, :]
+
+
+class OcrEngine:
+    """Persistent two-stage OCR engine (CRAFT detect + PARSEQ recognize)."""
+
+    def __init__(self, config: OcrConfig = DEFAULT_CONFIG,
+                 craft_config: Optional[CraftConfig] = None,
+                 parseq_config: Optional[ParseqConfig] = None,
+                 weights_dir: Optional[str] = None, device: Optional[str] = None):
+        self.device = resolve_device(device)
+        self.config = config
+        for field, ported in (("decode_mode", "greedy"), ("box_mode", "axis")):
+            if getattr(config, field) != ported:
+                raise NotImplementedError(
+                    f"OcrConfig.{field}={getattr(config, field)!r} is not ported "
+                    f"yet (only {ported!r}; see ROADMAP.md)")
+        if config.tiled_detection or config.quantized_serving:
+            raise NotImplementedError("tiled detection and int8 serving are not ported yet")
+        if config.encoder_impl not in (None, "xla") or config.decode_impl not in (None, "xla"):
+            raise NotImplementedError("only the default encoder/decode lowering is ported")
+        if config.compute_dtype not in _DTYPES:
+            raise ValueError(f"unknown compute_dtype {config.compute_dtype!r}")
+        self.dtype = _DTYPES[config.compute_dtype]
+
+        stored_craft = stored_parseq = stored_charset = None
+        if weights_dir:
+            stored_craft, stored_parseq, stored_charset = W.load_configs(weights_dir)
+        self.craft_config = craft_config or stored_craft or CraftConfig()
+        self.parseq_config = parseq_config or stored_parseq or ParseqConfig(
+            max_label_length=config.max_label_length)
+
+        # Decode table: explicit charset > explicit reference_charset > the
+        # charset stored with the weights > the standard table.
+        charset = config.charset
+        if charset is None and not config.reference_charset:
+            charset = stored_charset
+        if charset is not None:
+            self.tokenizer = Tokenizer(charset=charset)
+        else:
+            self.tokenizer = Tokenizer(reference_charset=config.reference_charset)
+        n_tokens = self.parseq_config.num_tokens
+        bug_compat = charset is None and config.reference_charset
+        ok = (self.tokenizer.vocab_size >= n_tokens) if bug_compat \
+            else (self.tokenizer.vocab_size == n_tokens)
+        if not ok:
+            raise ValueError(
+                f"tokenizer/recognizer mismatch: the recognizer head emits "
+                f"{n_tokens} classes (ParseqConfig.charset_size="
+                f"{self.parseq_config.charset_size}) but the resolved decode "
+                f"table has {self.tokenizer.vocab_size} entries "
+                f"({len(self.tokenizer.charset)} chars). Pass "
+                f"OcrConfig(charset=...) matching the training charset")
+        if tuple(self.parseq_config.img_size) != (config.rec_height, config.rec_width):
+            raise ValueError(
+                f"crop/recognizer geometry mismatch: OcrConfig rec_height/"
+                f"rec_width = ({config.rec_height}, {config.rec_width}) but "
+                f"the resolved ParseqConfig.img_size is "
+                f"{tuple(self.parseq_config.img_size)}. Set OcrConfig("
+                f"rec_width=...) to the recognizer's trained crop width")
+
+        if not weights_dir:
+            raise ValueError("weights_dir is required: the port has no random "
+                             "initialisation (e.g. evals/production_weights)")
+        craft_tree, parseq_tree = W.load_weights_dir(weights_dir)
+        self.craft = Craft(self.craft_config)
+        self.craft.load_state_dict(craft_state_dict(craft_tree, self.craft_config.bn_eps))
+        self.parseq = Parseq(self.parseq_config)
+        self.parseq.load_state_dict(parseq_state_dict(parseq_tree))
+        for m in (self.craft, self.parseq):
+            m.eval().requires_grad_(False)
+            set_compute_dtype(m, self.dtype)
+            m.to(self.device)
+        self.weights_dir = weights_dir
+        self.last_timings: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+
+    def run(self, image: np.ndarray, outputs_dir: Optional[str] = None) -> List[Dict]:
+        """OCR one image [H, W, 3] uint8 RGB (or [H, W] gray) ->
+        [{"text", "bbox": [x0, y0, x1, y1], "confidence"}]. `outputs_dir`
+        is accepted for signature parity and ignored, as in the reference."""
+        return self.run_pages(np.asarray(image)[None])[0]
+
+    @staticmethod
+    def _batch_geometry(images) -> Tuple[np.ndarray, int, int, int, int]:
+        """[B,H,W,3] / [B,H,W,1] / [B,H,W] / [H,W,3] / [H,W] -> (images,
+        b, h, w, channels), as the JAX package reads them."""
+        images = np.asarray(images)
+        if images.ndim == 2:
+            images = images[None]
+        if images.ndim == 3 and images.shape[-1] in (1, 3):
+            images = images[None]
+        if images.ndim == 3:
+            images = images[..., None]
+        if images.ndim != 4 or images.shape[-1] not in (1, 3):
+            raise ValueError(
+                f"expected an image batch [B, H, W, 3|1] (or [B, H, W] / "
+                f"[H, W] grayscale, [H, W, 3] RGB), got {images.shape}")
+        b, h, w, c = images.shape
+        return images, b, h, w, c
+
+    def _bucket(self, count: int) -> int:
+        for b in self.config.rec_buckets:
+            if count <= b and b <= self.config.max_boxes:
+                return b
+        return self.config.max_boxes
+
+    @torch.inference_mode()
+    def detect(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Device pages [B, H, W, C] uint8 -> per-slot bbox [B, K, 4], crop
+        rects [B, K, 4], valid [B, K] (valid first, raster order kept),
+        count [B], and the heatmaps [B, h, w, 2]."""
+        cfg = self.config
+        b, h, w, c = images.shape
+        ratio = canvas_shape(h, w, cfg)[4]
+        canvases = torch.stack([canvas_prep(images[i], cfg) for i in range(b)])
+        scores, _ = self.craft(canvases)
+        content = content_mask(h, w, cfg, images.device)
+        out = collections.defaultdict(list)
+        for i in range(b):
+            det = extract_boxes(scores[i, :, :, 0], scores[i, :, :, 1], content, cfg)
+            scaled = scale_boxes(det["boxes"], ratio, cfg)
+            order = torch.argsort((~det["valid"]).to(torch.int8), stable=True)
+            out["bbox"].append(tesseract_bbox(scaled)[order])
+            out["rects"].append(crop_rects(scaled, h, w)[order])
+            out["valid"].append(det["valid"][order])
+            out["count"].append(det["count"])
+        res = {k: torch.stack(v) for k, v in out.items()}
+        res["scores"] = scores
+        return res
+
+    @torch.inference_mode()
+    def recognize_slab(self, images: torch.Tensor, rects: torch.Tensor,
+                       valid: torch.Tensor, bucket: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Crops of the live boxes (padded to `bucket` rows) through PARSEQ.
+        -> (ids [bucket, T], conf [bucket]) in (page, slot) raster order of
+        the live boxes."""
+        cfg = self.config
+        b, k = valid.shape
+        flat_valid = valid.reshape(-1)
+        raster = torch.argsort((~flat_valid).to(torch.int8), stable=True)[:bucket]
+        if cfg.rec_sort_by_width:
+            r = rects.reshape(b * k, 4)
+            aspect = (r[:, 2] - r[:, 0]) / torch.clamp(r[:, 3] - r[:, 1], min=1.0)
+            key = torch.where(flat_valid, aspect, torch.full_like(aspect, float("inf")))
+            order = torch.argsort(key, stable=True)[:bucket]
+            rank = torch.zeros(b * k, dtype=torch.long, device=valid.device)
+            rank[order] = torch.arange(bucket, device=valid.device)
+            inv = rank[raster]
+        else:
+            order = raster
+            inv = None
+        rc = rects.reshape(b * k, 4)[order]
+        crops = extract_crops_batched(images, order // k, rc, cfg.rec_height, cfg.rec_width)
+        if crops.shape[-1] == 1:
+            crops = crops.expand(-1, -1, -1, 3)
+        if cfg.channel_mode == "cpp":
+            crops = crops.flip(-1)
+        ids, conf = confidence(self.parseq(crops))
+        if inv is not None:
+            ids, conf = ids[inv], conf[inv]
+        return ids, conf
+
+    def run_pages(self, images: np.ndarray) -> List[List[Dict]]:
+        """OCR a batch of same-sized pages [B, H, W, 3] uint8 RGB (or gray
+        [B, H, W] / [B, H, W, 1]) -> one result list per page."""
+        images, b, h, w, c = self._batch_geometry(images)
+        if images.dtype != np.uint8:
+            raise TypeError(
+                f"image dtype must be uint8 (0-255), got {images.dtype}; scale "
+                f"and cast float images with (img * 255).clip(0, 255).astype('uint8')")
+        if images.size == 0:
+            raise ValueError("empty image")
+        K = self.config.max_boxes
+        t0 = time.perf_counter()
+        images_d = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        det = self.detect(images_d)
+        counts = det["count"].tolist()
+        bboxes = det["bbox"].cpu().numpy()
+        t1 = time.perf_counter()
+        total = sum(counts)
+        results: List[List[Dict]] = [[] for _ in range(b)]
+        if total == 0:
+            self.last_timings = {"detect_s": t1 - t0, "recognize_s": 0.0,
+                                 "decode_s": 0.0, "boxes": 0}
+            return results
+        gran = self.config.rec_slab_multiple or K
+        bucket = (self._bucket(total) if total <= K
+                  else gran * ((total + gran - 1) // gran))
+        bucket = min(max(bucket, self.config.rec_buckets[0]), b * K)
+        ids_d, conf_d = self.recognize_slab(images_d, det["rects"], det["valid"], bucket)
+        ids, conf = ids_d.cpu().numpy(), conf_d.cpu().numpy()
+        t2 = time.perf_counter()
+        texts = self.tokenizer.decode_ids(ids[:total])
+        off = 0
+        for i in range(b):
+            for j in range(counts[i]):
+                results[i].append({
+                    "text": texts[off + j],
+                    "bbox": [float(v) for v in bboxes[i, j]],
+                    "confidence": float(conf[off + j]),
+                })
+            off += counts[i]
+        self.last_timings = {"detect_s": t1 - t0, "recognize_s": t2 - t1,
+                             "decode_s": time.perf_counter() - t2, "boxes": total}
+        return results
+
+
+_engines: "collections.OrderedDict[Any, OcrEngine]" = collections.OrderedDict()
+ENGINE_CACHE_MAX = 4
+
+
+def get_engine(config: OcrConfig = DEFAULT_CONFIG, weights_dir: Optional[str] = None,
+               device: Optional[str] = None) -> OcrEngine:
+    """Process-wide engine cache keyed by (config, weights_dir, device),
+    least-recently-used first out."""
+    key = (config, weights_dir or "", str(resolve_device(device)))
+    eng = _engines.get(key)
+    if eng is None:
+        eng = OcrEngine(config, weights_dir=weights_dir, device=device)
+        _engines[key] = eng
+        while len(_engines) > ENGINE_CACHE_MAX:
+            _engines.popitem(last=False)
+    else:
+        _engines.move_to_end(key)
+    return eng
+
+
+def image_to_data(image: np.ndarray, weights_dir: Optional[str] = None,
+                  outputs_dir: Optional[str] = None, config: OcrConfig = DEFAULT_CONFIG,
+                  device: Optional[str] = None) -> List[Dict]:
+    """Text and boxes of one image: 3-D uint8 RGB array in, list of
+    {text, bbox, confidence} out (the reference's `pytuatara.image_to_data`
+    contract). Engines are cached per (config, weights_dir, device)."""
+    image = np.asarray(image)
+    if image.ndim != 3:
+        raise ValueError("Input array should have 3 dimensions")
+    return get_engine(config, weights_dir, device).run(image, outputs_dir)

@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels of the port and their launch counts.
+
+Each wrapper (in `cc.py`, `stats.py`) takes a tensor on the card to its
+CUDA kernel and a tensor on the CPU to the plain PyTorch version beside it.
+`LAUNCHES[name]` counts the kernel launches only, so a run can show that
+the main path went through the kernels.
+"""
+
+from collections import Counter
+
+LAUNCHES: Counter = Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()

@@ -1,0 +1,135 @@
+"""CRAFT text detector as a PyTorch module (NCHW inside, NHWC at the edge).
+
+Port of `tuatara_tpu/models/craft.py` (`craft_forward` / `_craft_apply`) for
+serving: the weights arrive with every BatchNorm already folded into its
+conv (`tuatara_tpu_torch.weights.craft_state_dict`), so the trunk is
+conv -> ReLU chains. Architecture:
+
+* VGG16-BN trunk; the skips f2..f5 are the pre-ReLU outputs of the second
+  conv of stages 2-5. conv5_3 and the last pool are dropped; a stride-1 3x3
+  max-pool, a rate-6 dilated 3x3 "fc6" and a 1x1 "fc7" follow.
+* U-Net decoder: at each level the trunk side is bilinearly upsampled
+  (half-pixel) to the skip's size, then a 1x1 conv over concat(trunk, skip)
+  + ReLU and a 3x3 conv + ReLU. The 1x1 conv runs as two convs summed, one
+  per side of the concat (`conv1_split`), in the reference op order:
+  upsample, then conv.
+* Head: 3x[3x3 conv + ReLU] -> 1x1 conv + ReLU -> 1x1 conv to 2 channels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tuatara_tpu_torch.config import CraftConfig
+from tuatara_tpu_torch.models.layers import Conv
+
+_STAGE_COUNTS = (2, 2, 3, 3, 2)
+
+
+def vgg_plan(cfg: CraftConfig):
+    """[(name, cin, cout, pool_before, skip_tag)] trunk table."""
+    plan = []
+    cin = 3
+    for s, (count, cout) in enumerate(zip(_STAGE_COUNTS, cfg.stage_channels)):
+        for i in range(count):
+            name = f"conv{s + 1}_{i + 1}"
+            skip = f"f{s + 1}" if (s >= 1 and i == 1) else None
+            plan.append((name, cin, cout, s >= 1 and i == 0, skip))
+            cin = cout
+    return plan
+
+
+def upsample_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear resize with half-pixel (align_corners=False) semantics."""
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+
+
+class Craft(nn.Module):
+    """BN-folded CRAFT. Parameter names follow the JAX parameter tree."""
+
+    def __init__(self, cfg: CraftConfig = CraftConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = vgg_plan(cfg)
+        self.vgg = nn.ModuleDict({
+            name: nn.ModuleDict({"conv": Conv(cin, cout, 3)})
+            for name, cin, cout, _, _ in self.plan
+        })
+        s = cfg.stage_channels
+        self.fc = nn.ModuleDict({
+            "fc6": Conv(s[4], cfg.fc_channels, 3, dilation=6),
+            "fc7": Conv(cfg.fc_channels, cfg.fc_channels, 1),
+        })
+        in_chs = [cfg.fc_channels + s[4], cfg.up_channels[0][1] + s[3],
+                  cfg.up_channels[1][1] + s[2], cfg.up_channels[2][1] + s[1]]
+        self.up = nn.ModuleDict({
+            f"upconv{i}": nn.ModuleDict({"conv1": Conv(cin, mid, 1),
+                                         "conv2": Conv(mid, out, 3)})
+            for i, ((mid, out), cin) in enumerate(zip(cfg.up_channels, in_chs), 1)
+        })
+        hc = cfg.head_channels
+        self.head = nn.ModuleDict({
+            "conv1": Conv(cfg.up_channels[-1][1], hc[0], 3),
+            "conv2": Conv(hc[0], hc[1], 3),
+            "conv3": Conv(hc[1], hc[2], 3),
+            "conv4": Conv(hc[2], hc[3], 1),
+            "conv5": Conv(hc[3], cfg.num_classes, 1),
+        })
+
+    def _double_conv(self, block: str, y: torch.Tensor, skip: torch.Tensor
+                     ) -> torch.Tensor:
+        if y.shape[-2:] != skip.shape[-2:]:
+            y = upsample_to(y, skip.shape[-2], skip.shape[-1])
+        c1 = self.up[block]["conv1"]
+        ca = y.shape[1]
+        w = c1.weight
+        ya = F.conv2d(y.to(w.dtype), w[:, :ca], c1.bias)
+        yb = F.conv2d(skip.to(w.dtype), w[:, ca:])
+        y = F.relu(ya + yb)
+        return F.relu(self.up[block]["conv2"](y))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: [B, H, W, C] float in [0, 1], C = 3 or 1 (gray is broadcast to
+        conv1_1's input channels). Returns (scores [B, H/2, W/2, 2] fp32 —
+        region, affinity — and feature [B, H/2, W/2, 32] fp32)."""
+        cfg = self.cfg
+        h = x.permute(0, 3, 1, 2)
+        if cfg.input_mean:
+            if h.shape[1] == 1 and len(cfg.input_mean) > 1:
+                h = h.expand(-1, len(cfg.input_mean), -1, -1)
+            mean = torch.tensor(cfg.input_mean, dtype=torch.float32, device=h.device)
+            std = torch.tensor(cfg.input_std or (1.0,) * len(cfg.input_mean),
+                               dtype=torch.float32, device=h.device)
+            h = (h.float() - mean[:, None, None]) / std[:, None, None]
+        cin = self.vgg["conv1_1"]["conv"].weight.shape[1]
+        if h.shape[1] == 1 and cin != 1:
+            h = h.expand(-1, cin, -1, -1)
+        skips: Dict[str, torch.Tensor] = {}
+        for name, _, _, pool_before, skip in self.plan:
+            if pool_before:
+                h = F.max_pool2d(h, 2, 2)
+            h = self.vgg[name]["conv"](h)
+            if skip is not None:
+                skips[skip] = h  # pre-ReLU
+            h = F.relu(h)
+
+        h = F.max_pool2d(h, 3, 1, padding=1)  # -inf padding, as in JAX
+        h = self.fc["fc6"](h)
+        h = self.fc["fc7"](h)
+
+        y = self._double_conv("upconv1", h, skips["f5"])
+        y = self._double_conv("upconv2", y, skips["f4"])
+        y = self._double_conv("upconv3", y, skips["f3"])
+        feat = self._double_conv("upconv4", y, skips["f2"])
+        hd = self.head
+        y = F.relu(hd["conv1"](feat))
+        y = F.relu(hd["conv2"](y))
+        y = F.relu(hd["conv3"](y))
+        y = F.relu(hd["conv4"](y))
+        y = hd["conv5"](y)
+        return (y.float().permute(0, 2, 3, 1).contiguous(),
+                feat.float().permute(0, 2, 3, 1).contiguous())

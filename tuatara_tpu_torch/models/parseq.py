@@ -1,0 +1,215 @@
+"""PARSEQ scene-text recognizer as a PyTorch module.
+
+Port of `tuatara_tpu/models/parseq.py` on its default (XLA) lowering:
+
+* `encode`: ViT-S encoder. Crops [N, 32, 128, 3] in [0, 1] are cut into
+  4x8 patches (a reshape + one linear layer, the patch-embed conv written
+  as a product), `pos_embed` is added, 12 pre-norm blocks and a final
+  LayerNorm follow -> memory [N, 128, 384].
+* `greedy_decode`: autoregressive argmax decode with a KV cache. The
+  decoder has depth 1, so the content stream's self-attention K/V are
+  per-token functions of (token id, position) and are cached; each step
+  runs one single-query attention over the cache, cross-attention over the
+  memory, the MLP, the final norm and the head. The loop stops once every
+  sequence has emitted EOS; positions never reached get EOS-certain logits
+  (+30 at id 0, -30 elsewhere), as the JAX early-exit path does.
+* `refine`: one cloze pass over the AR output: content [BOS, argmax[:-1]],
+  each query blind to its own input position and to positions at or after
+  the first EOS.
+
+Vocabulary: [EOS=0, charset..., BOS, PAD]; the head emits charset_size + 1
+classes (EOS + charset).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from tuatara_tpu_torch.config import ParseqConfig
+from tuatara_tpu_torch.models.layers import (
+    MHA, LayerNorm, Linear, VitBlock, attention_core, gelu, merge_heads,
+)
+
+
+class DecoderLayer(nn.Module):
+    """Query stream of PARSEQ's dual-stream decoder layer (pre-norm)."""
+
+    def __init__(self, dim: int, heads: int, hidden: int, eps: float):
+        super().__init__()
+        self.norm_q = LayerNorm(dim, eps)
+        self.norm_c = LayerNorm(dim, eps)
+        self.self_attn = MHA(dim, heads)
+        self.norm1 = LayerNorm(dim, eps)
+        self.cross_attn = MHA(dim, heads)
+        self.norm2 = LayerNorm(dim, eps)
+        self.linear1 = Linear(dim, hidden)
+        self.linear2 = Linear(hidden, dim)
+
+    def ff(self, x: torch.Tensor) -> torch.Tensor:
+        h = gelu(self.linear1(self.norm2(x)))
+        return x + self.linear2(h)
+
+
+class Parseq(nn.Module):
+    """PARSEQ. Parameter names follow the JAX parameter tree."""
+
+    def __init__(self, cfg: ParseqConfig = ParseqConfig()):
+        super().__init__()
+        if cfg.dec_depth != 1:
+            raise NotImplementedError("the KV-cached decode assumes dec_depth == 1")
+        self.cfg = cfg
+        D = cfg.embed_dim
+        eps = cfg.layer_norm_eps
+        ph, pw = cfg.patch_size
+        T = cfg.max_label_length + 1
+        self.patch_embed = Linear(ph * pw * 3, D)
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.seq_len, D))
+        self.enc = nn.ModuleList([
+            VitBlock(D, cfg.enc_heads, cfg.enc_mlp_ratio, eps)
+            for _ in range(cfg.enc_depth)
+        ])
+        self.enc_norm = LayerNorm(D, eps)
+        self.text_embed = nn.Parameter(torch.zeros(cfg.num_tokens, D))
+        self.pos_queries = nn.Parameter(torch.zeros(1, T, D))
+        self.dec = nn.ModuleList([
+            DecoderLayer(D, cfg.dec_heads, int(D * cfg.dec_mlp_ratio), eps)
+        ])
+        self.dec_norm = LayerNorm(D, eps)
+        self.head = Linear(D, cfg.charset_size + 1)
+
+    # ---- encoder ----
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        """Crops [N, H, W, 3] float in [0, 1] -> memory [N, S, D] fp32."""
+        cfg = self.cfg
+        if cfg.input_mean:
+            mean = torch.tensor(cfg.input_mean, dtype=torch.float32, device=images.device)
+            std = torch.tensor(cfg.input_std or (1.0,) * len(cfg.input_mean),
+                               dtype=torch.float32, device=images.device)
+            images = (images.float() - mean) / std
+        n, h, w, c = images.shape
+        ph, pw = cfg.patch_size
+        gh, gw = h // ph, w // pw
+        x = images.reshape(n, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(n, gh * gw, ph * pw * c)
+        x = self.patch_embed(x) + self.pos_embed
+        for blk in self.enc:
+            x = blk(x)
+        return self.enc_norm(x)
+
+    # ---- decoder ----
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return math.sqrt(self.cfg.embed_dim) * self.text_embed[ids]
+
+    def decode(self, memory: torch.Tensor, tgt_ids: torch.Tensor,
+               query: Optional[torch.Tensor] = None,
+               query_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence decode: content ids [N, L] (BOS first) -> logits
+        [N, Lq, C]. query_mask broadcastable to [N, heads, Lq, L]."""
+        layer = self.dec[0]
+        N, L_ = tgt_ids.shape
+        pos = self.pos_queries[0, : L_ - 1]
+        pos = torch.cat([torch.zeros_like(pos[:1]), pos], dim=0)
+        content = self._embed(tgt_ids) + pos[None]
+        if query is None:
+            query = self.pos_queries[:, :L_].expand(N, L_, -1)
+        cn = layer.norm_c(content)
+        qn = layer.norm_q(query)
+        q = query + layer.self_attn(qn, cn, query_mask)
+        q = q + layer.cross_attn(layer.norm1(q), memory)
+        q = layer.ff(q)
+        return self.head(self.dec_norm(q))
+
+    def greedy_decode(self, memory: torch.Tensor) -> torch.Tensor:
+        """KV-cached greedy AR decode with batch early exit -> logits
+        [N, T, C] fp32 (T = max_label_length + 1)."""
+        cfg = self.cfg
+        layer = self.dec[0]
+        N, S, D = memory.shape
+        H = cfg.dec_heads
+        hd = D // H
+        T = cfg.max_label_length + 1
+        C = cfg.charset_size + 1
+        bos_id = cfg.num_tokens - 2
+        dev = memory.device
+
+        mem_k, mem_v = layer.cross_attn.kv(memory)
+        pos_q = self.pos_queries[0]  # [T, D]
+        # Query side of the self-attention is token-independent: all steps
+        # up front.
+        q_all = layer.self_attn.q(layer.norm_q(pos_q[:, None]))  # [T, 1, D]
+        q_all = q_all.reshape(T, H, 1, hd)
+        pos_table = torch.cat([torch.zeros_like(pos_q[:1]), pos_q[: T - 1]], dim=0)
+
+        kv_dtype = q_all.dtype
+        k_cache = torch.zeros(N, H, T, hd, dtype=kv_dtype, device=dev)
+        v_cache = torch.zeros(N, H, T, hd, dtype=kv_dtype, device=dev)
+        logits = torch.full((N, T, C), -30.0, dtype=torch.float32, device=dev)
+        logits[:, :, 0] = 30.0
+        tok = torch.full((N,), bos_id, dtype=torch.long, device=dev)
+        seen_eos = torch.zeros(N, dtype=torch.bool, device=dev)
+        steps = torch.arange(T, device=dev)
+        for i in range(T):
+            e = self._embed(tok) + pos_table[i]
+            cn = layer.norm_c(e[:, None])  # [N, 1, D]
+            k_cache[:, :, i] = layer.self_attn.k(cn).reshape(N, H, hd).to(kv_dtype)
+            v_cache[:, :, i] = layer.self_attn.v(cn).reshape(N, H, hd).to(kv_dtype)
+            qh = q_all[i][None].expand(N, H, 1, hd)
+            mask = (steps <= i)[None, None, None, :]
+            attn = attention_core(qh, k_cache, v_cache, mask)
+            x = pos_q[i][None, None] + layer.self_attn.o(merge_heads(attn))
+            x = x + layer.cross_attn.attend(layer.norm1(x), mem_k, mem_v)
+            x = layer.ff(x)
+            logits_i = self.head(self.dec_norm(x))[:, 0].float()  # [N, C]
+            logits[:, i] = logits_i
+            tok = torch.argmax(logits_i, dim=-1)
+            seen_eos |= tok == 0
+            if bool(seen_eos.all()):
+                break
+        return logits
+
+    def refine(self, memory: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+        """One cloze-refinement pass over AR logits."""
+        N, T, _ = logits.shape
+        bos_id = self.cfg.num_tokens - 2
+        prev = torch.argmax(logits, dim=-1)
+        tgt_in = torch.cat(
+            [torch.full((N, 1), bos_id, dtype=prev.dtype, device=prev.device),
+             prev[:, :-1]], dim=1)
+        pad = torch.cumsum((tgt_in == 0).to(torch.int32), dim=1) > 0  # [N, T]
+        mask = refine_mask(T, logits.device)[None, None] & ~pad[:, None, None, :]
+        query = self.pos_queries[:, :T].expand(N, T, -1)
+        return self.decode(memory, tgt_in, query=query, query_mask=mask).float()
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """Crops [N, 32, 128, 3] in [0, 1] -> logits [N, T, C] fp32: greedy
+        AR decode, then `refine_iters` cloze passes."""
+        memory = self.encode(images)
+        logits = self.greedy_decode(memory)
+        for _ in range(self.cfg.refine_iters):
+            logits = self.refine(memory, logits)
+        return logits
+
+
+def refine_mask(T: int, device=None) -> torch.Tensor:
+    """Query i may attend every content position except j == i + 1."""
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    return j != i + 1
+
+
+def confidence(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits [N, T, C] -> (ids [N, T], conf [N]): conf is the product of
+    the per-position max softmax probability up to and including the first
+    EOS."""
+    ids = torch.argmax(logits, dim=-1)
+    pmax = torch.softmax(logits, dim=-1).amax(dim=-1)
+    eos = (ids == 0).to(torch.int32)
+    before = (torch.cumsum(eos, dim=-1) - eos) == 0
+    conf = torch.where(before, pmax, torch.ones_like(pmax)).prod(dim=-1)
+    return ids, conf
