@@ -13,16 +13,41 @@ line without a CUDA device or outside the repo.
              are zeroed just before and read just after: every kernel must
              have run. Every page must give boxes with text. Prints boxes,
              first words and warm pages/sec.
+3b. latency: the same pages through `image_to_data(..., config=
+             OcrConfig.latency())`: the /32 canvas, the 16-first slab ladder
+             and the fused recognizer kernels K6 (`vit_blocks`) and K7
+             (`greedy_decode`). Counts zeroed just before and read just
+             after: K1-K3, K6 and K7 must each have run. Then warm pages/sec
+             of the default and the latency path, in turns in this call.
 4. kernels:  each kernel against its plain PyTorch version on the card, on
              the inputs the main path gives it (the four pages) and on
              seeded random masks at 384x384 and 512x384 with K = 256. All
              outputs must be equal. Times with CUDA events after warm-up;
              prints one {"kernels": [...]} line.
+4b. recognizer kernels: K6 and K7 against their plain versions on the
+             slabs the latency path gives them on the four pages and on a
+             seeded random [32, 128, 384]: K6's output, and the final
+             memory (after the encoder's last LayerNorm), within a relative
+             (Frobenius) error of 7e-3 (bf16 roundings flipped by another
+             sum order grow through 12 blocks), and a control that must
+             exceed it: the default lowering's eager block chain (erf GELU)
+             on the same input; K7's ids equal up to the first EOS on >= 99%
+             of crops and its step-0 logits within 5e-2. Times, bounds
+             (K7's bytes counted from the tiles' steps and tokens on each
+             input), beside K6 the eager block chain (cuBLAS) at the same N,
+             and K7's time at 2, 4, 8 and 16 crops per tile.
 5. parity:   the same pages at compute_dtype float32 (TF32 off for convs
              and matmuls) against the JAX package's float32 result
              (tests/fixtures/torch_reference_production.json): at least
              95% of the reference words per page must be matched by a word
              with the same bbox and text.
+6. synthetic: the 16 held-out synthetic pages of
+             tests/fixtures/torch_synthetic_pages.npz through
+             `latency(canvas_size=256, max_boxes=32, rec_buckets=(32,))`:
+             at least 98% of the JAX engine's recorded words matched by a
+             distinct word with the same text and bbox IoU >= 0.5, and word
+             accuracy against the truths at most 0.02 below the JAX
+             engine's recorded accuracy.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -39,12 +64,21 @@ faulthandler.dump_traceback_later(1000, exit=True)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "evals", "production_weights")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_reference_production.json")
+SYNTHETIC = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")
 PAGES = ("resume_example", "funsd_0001129658", "funsd_91372360", "table_english")
 MIN_WORD_SHARE = 0.95
-# H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate, and the vector
-# (non-tensor-core) rate used for the kernels' compares, adds and atomics.
+K6_MAX_REL = 7e-3
+K7_MIN_IDS = 0.99
+K7_MAX_STEP0 = 5e-2
+K7_TILES = (2, 4, 8, 16)
+MIN_AGREEMENT = 0.98
+MAX_ACC_DROP = 0.02
+# H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate, the vector
+# (non-tensor-core) rate used for the kernels' compares, adds and atomics,
+# and the bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -184,6 +218,289 @@ def word_share(ref_words, got_words) -> float:
     return hit / max(len(ref_words), 1)
 
 
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def capture_slabs(engine, pages):
+    """Run the latency path once more with K6/K7 wrapped, keeping each page's
+    inputs to them: [(page, x, (mem_k, mem_v))]."""
+    from tuatara_tpu_torch.kernels import decode, vit
+
+    seen = {"x": [], "mem": []}
+    k6, k7 = vit.vit_blocks, decode.greedy_decode
+
+    def vit_spy(x, st, heads, eps=1e-6):
+        seen["x"].append(x.clone())
+        return k6(x, st, heads, eps)
+
+    def decode_spy(mem_k, mem_v, *args, **kw):
+        seen["mem"].append((mem_k.clone(), mem_v.clone()))
+        return k7(mem_k, mem_v, *args, **kw)
+
+    vit.vit_blocks, decode.greedy_decode = vit_spy, decode_spy
+    try:
+        for img in pages.values():
+            engine.run(img)
+    finally:
+        vit.vit_blocks, decode.greedy_decode = k6, k7
+    return list(zip(pages, seen["x"], seen["mem"]))
+
+
+def tile_steps(logits, tb):
+    """[(first crop, crops, steps)] of each K7 tile: a tile runs until every
+    crop in it has emitted EOS, or all T steps."""
+    ended = (logits.argmax(-1) == 0).int().cumsum(1) > 0
+    n, t = ended.shape
+    out = []
+    for t0 in range(0, n, tb):
+        done = ended[t0:t0 + tb].all(0).nonzero()
+        out.append((t0, min(tb, n - t0), int(done[0]) + 1 if len(done) else t))
+    return out
+
+
+def decode_ops(logits, tb, d, hidden, s, n_classes) -> int:
+    """Operations K7 needs on this input: every crop of a tile runs the
+    tile's steps."""
+    total = 0
+    for _, rows, steps in tile_steps(logits, tb):
+        per_crop = sum(2 * (3 * d * d + 2 * d * hidden + d * n_classes)
+                       + 4 * (i + 1) * d + 4 * s * d for i in range(steps))
+        total += per_crop * rows
+    return total
+
+
+def decode_bytes(logits, mem_k, mem_v, st, tb, bos) -> int:
+    """Bytes K7 must move on this input, each read or written once: the
+    memory K/V, the matmul weights, biases and LayerNorms, the rows of
+    pos_q / qh_all of the steps run, the distinct (position, token) rows of
+    the K/V table that those steps attend over, and the logits."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import decode
+
+    n, t, _ = logits.shape
+    d = mem_k.shape[2]
+    v = st["k_tab"].shape[1]
+    ids = logits.argmax(-1)
+    toks = torch.cat([torch.full_like(ids[:, :1], bos), ids[:, :-1]], dim=1)  # fed at j
+    keys, max_steps = [], 0
+    for t0, rows, steps in tile_steps(logits, tb):
+        j = torch.arange(steps, device=ids.device)
+        keys.append((j * v + toks[t0:t0 + rows, :steps]).reshape(-1))
+        max_steps = max(max_steps, steps)
+    table_rows = int(torch.unique(torch.cat(keys)).numel())
+    per_step = ("pos_q", "qh_all", "k_tab", "v_tab")
+    fixed = nbytes(st[k] for k in decode.WEIGHTS if k not in per_step)
+    step_rows = max_steps * d * (st["pos_q"].element_size() + st["qh_all"].element_size())
+    table = table_rows * d * (st["k_tab"].element_size() + st["v_tab"].element_size())
+    return nbytes((mem_k, mem_v)) + fixed + step_rows + table + logits.numel() * 4
+
+
+def first_eos_ids(logits):
+    """[N, T] ids with every position after the first EOS set to 0."""
+    ids = logits.argmax(-1)
+    eos = (ids == 0).int()
+    return ids.masked_fill((eos.cumsum(1) - eos) > 0, 0)
+
+
+def check_recognizer_kernels(lat, default, pages, launches):
+    """Phase 4b: K6 and K7 against their plain versions on the latency
+    path's slabs and on a seeded random [32, 128, 384]; times and bounds."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import decode, vit
+
+    pq = lat.parseq
+    cfg = pq.cfg
+    heads, eps = cfg.enc_heads, cfg.layer_norm_eps
+    T, C, bos = cfg.max_label_length + 1, cfg.charset_size + 1, cfg.num_tokens - 2
+    dargs = (pq.dec_stacked, cfg.dec_heads, T, C, bos, eps)
+    cases = capture_slabs(lat, pages)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xr = torch.randn(32, 128, cfg.embed_dim, device="cuda", generator=g)
+    with torch.no_grad():
+        mem = torch.randn(32, 128, cfg.embed_dim, device="cuda", generator=g)
+        ca = pq.dec[0].cross_attn
+        memr = (ca.k(mem).to(torch.bfloat16).contiguous(),
+                ca.v(mem).to(torch.bfloat16).contiguous())
+    cases.append(("random32", xr, memr))
+    st6 = pq.enc_stacked
+    w6 = nbytes(st6[k] for k in vit.WEIGHTS)
+    rows = {vit.K6: [], decode.K7: []}
+    for label, x, (mk, mv) in cases:
+        n, s, d = x.shape
+        got = vit.vit_blocks(x, st6, heads, eps)
+        ref = vit.vit_blocks_plain(x, st6, heads, eps)
+        with torch.no_grad():  # the final memory: the encoder's last LayerNorm
+            mem_ref = pq.enc_norm(ref)
+        torch.cuda.synchronize()
+        hidden = st6["f1_w"].shape[2]
+        nb = st6["qkv_w"].shape[0]
+        ops = 2 * n * nb * (s * d * (3 * d + d + 2 * hidden) + 2 * s * s * d)
+        b_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3 + w6 / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / BF16_OPS_PER_S * 1e3
+
+        def eager(x=x):
+            y = x
+            with torch.no_grad():
+                for blk in default.parseq.enc:
+                    y = blk(y)
+            return y
+
+        def rels(y):
+            """Relative (Frobenius) error of y against the plain version, on
+            the blocks' output and on the final memory."""
+            y = y.float()
+            with torch.no_grad():
+                my = pq.enc_norm(y)
+            return (float((y - ref).norm() / ref.norm()),
+                    float((my - mem_ref).norm() / mem_ref.norm()))
+
+        rel, mem_rel = rels(got)
+        # Control: a plausibly wrong kernel, the default lowering's eager
+        # block chain (erf GELU, bf16 activations between modules), must
+        # fail the same tolerance, or the tolerance proves nothing.
+        ctl, mem_ctl = rels(eager())
+        err6 = float((got - ref).abs().max())
+        if not torch.isfinite(got).all() or max(rel, mem_rel) > K6_MAX_REL:
+            fail(f"{vit.K6} on {label}: relative error {rel} (blocks), {mem_rel} "
+                 f"(final memory) > {K6_MAX_REL}")
+        if max(ctl, mem_ctl) <= K6_MAX_REL:
+            fail(f"{vit.K6} tolerance {K6_MAX_REL} on {label} does not reject the eager erf "
+                 f"block chain: relative error {ctl} (blocks), {mem_ctl} (final memory)")
+        row = {"input": label, "n": n, "rel_err": rel, "memory_rel_err": mem_rel,
+               "control_rel_err": ctl, "control_memory_rel_err": mem_ctl,
+               "max_abs_err": err6,
+               "ms": cuda_ms(lambda: vit.vit_blocks(x, st6, heads, eps), 20),
+               "plain_ms": cuda_ms(lambda: vit.vit_blocks_plain(x, st6, heads, eps), 3, 1),
+               "eager_ms": cuda_ms(eager, 10),
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        rows[vit.K6].append(row)
+        print(f"kernel {vit.K6:24s} {label:18s} N={n} rel_err={rel:.2e} "
+              f"memory_rel_err={mem_rel:.2e} control={ctl:.2e}/{mem_ctl:.2e} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.3f} eager_ms={row['eager_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.5f}", flush=True)
+
+        lg = decode.greedy_decode(mk, mv, *dargs)
+        pl = decode.greedy_decode_plain(mk, mv, *dargs)
+        torch.cuda.synchronize()
+        same = float((first_eos_ids(lg) == first_eos_ids(pl)).all(1).float().mean())
+        err7 = float((lg[:, 0] - pl[:, 0]).abs().max())
+        if not torch.isfinite(lg).all() or same < K7_MIN_IDS or err7 > K7_MAX_STEP0:
+            fail(f"{decode.K7} on {label}: ids equal on {same:.4f} of crops, step-0 "
+                 f"max abs err {err7}")
+        b_ms = decode_bytes(lg, mk, mv, pq.dec_stacked, decode.TB, bos) / HBM_BYTES_PER_S * 1e3
+        o_ms = decode_ops(lg, decode.TB, d, pq.dec_stacked["f1_w"].shape[1], s, C) \
+            / BF16_OPS_PER_S * 1e3
+        row = {"input": label, "n": n, "ids_equal": same, "max_abs_err": err7,
+               "ms": cuda_ms(lambda: decode.greedy_decode(mk, mv, *dargs), 20),
+               "plain_ms": cuda_ms(lambda: decode.greedy_decode_plain(mk, mv, *dargs), 3, 1),
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+               "ms_by_tile": {}, "ids_equal_by_tile": {}}
+        for tb in K7_TILES:  # why the engine takes decode.TB crops per tile
+            lt = decode.greedy_decode(mk, mv, *dargs, tb=tb)
+            row["ids_equal_by_tile"][tb] = float(
+                (first_eos_ids(lt) == first_eos_ids(pl)).all(1).float().mean())
+            row["ms_by_tile"][tb] = cuda_ms(lambda: decode.greedy_decode(mk, mv, *dargs, tb=tb),
+                                            10)
+        rows[decode.K7].append(row)
+        print(f"kernel {decode.K7:24s} {label:18s} N={n} ids_equal={same:.4f} "
+              f"step0_err={err7:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
+              f"bound_ms={row['bound_ms']:.5f} ms_by_tile="
+              f"{json.dumps(row['ms_by_tile'])}", flush=True)
+
+    sources = {vit.K6: ("tuatara_tpu_torch/csrc/vit.cu", "tuatara_tpu/ops/pallas/vit.py:181"),
+               decode.K7: ("tuatara_tpu_torch/csrc/decode.cu",
+                           "tuatara_tpu/ops/pallas/decode.py:271")}
+    out = []
+    for name, rs in rows.items():
+        main_rows = [r for r in rs if not r["input"].startswith("random")]
+
+        def mean(key):
+            return sum(r[key] for r in main_rows) / len(main_rows)
+
+        row = {"name": name, "route": "cuda", "source": sources[name][0],
+               "replaces": sources[name][1], "launches": launches.get(name, 0),
+               "max_abs_err": max(r["max_abs_err"] for r in rs),
+               "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+               "bound_by": main_rows[0]["bound_by"], "library_ms": None,
+               "timed_on": "mean over the latency path's slabs of the four pages",
+               "per_input": rs}
+        if name == vit.K6:
+            row["eager_ms"] = mean("eager_ms")
+        out.append(row)
+    return out
+
+
+def check_synthetic(weights):
+    """Phase 6: the 16 synthetic pages through the latency path against the
+    JAX record."""
+    import numpy as np
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.utils.metrics import transcript_agreement, word_accuracy
+
+    pages = np.load(SYNTHETIC + ".npz")["pages"]
+    with open(SYNTHETIC + ".json") as f:
+        ref = json.load(f)
+    cfg = tuatara_tpu_torch.OcrConfig.latency(canvas_size=256, max_boxes=32, rec_buckets=(32,))
+    got = [tuatara_tpu_torch.image_to_data(p, weights, config=cfg) for p in pages]
+    hit = sum(transcript_agreement(r, g)[0] for r, g in zip(ref["words"], got))
+    total = sum(len(r) for r in ref["words"])
+    acc = word_accuracy(got, ref["truths"])
+    print(f"synthetic: {hit}/{total} JAX words matched ({hit / total:.4f}); word accuracy "
+          f"{acc:.4f} (JAX record {ref['word_acc']:.4f})", flush=True)
+    if hit / total < MIN_AGREEMENT:
+        fail(f"synthetic pages: transcript agreement {hit / total:.4f} < {MIN_AGREEMENT}")
+    if acc < ref["word_acc"] - MAX_ACC_DROP:
+        fail(f"synthetic pages: word accuracy {acc:.4f} more than {MAX_ACC_DROP} below "
+             f"the JAX record's {ref['word_acc']:.4f}")
+
+
+def drive(config, pages, required):
+    """Run `image_to_data` on every page with launch counts zeroed just
+    before and read just after; every kernel in `required` must have run
+    and every page must give boxes with text."""
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    results = {n: tuatara_tpu_torch.image_to_data(img, WEIGHTS, config=config)
+               for n, img in pages.items()}
+    launches = dict(LAUNCHES)
+    for name in required:
+        if launches.get(name, 0) < 1:
+            fail(f"kernel {name} was not launched on the path")
+    for name, words in results.items():
+        if not words or not any(w["text"] for w in words):
+            fail(f"page {name}: no boxes with text")
+    return results, launches
+
+
+def warm_rates(engines, pages, reps=3):
+    """Warm ms/page of each engine, in turns, with its detect/recognize
+    split."""
+    import torch
+
+    acc = {k: {"s": 0.0, "detect_s": 0.0, "recognize_s": 0.0} for k in engines}
+    for _ in range(reps):
+        for name, engine in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for img in pages.values():
+                engine.run(img)
+                for k in ("detect_s", "recognize_s"):
+                    acc[name][k] += engine.last_timings[k]
+            torch.cuda.synchronize()
+            acc[name]["s"] += time.perf_counter() - t0
+    n = reps * len(pages)
+    for name, a in acc.items():
+        print(f"{name} warm: {n / a['s']:.3f} pages/s ({a['s'] / n * 1e3:.1f} ms/page; detect "
+              f"{a['detect_s'] / n * 1e3:.1f} ms, recognize {a['recognize_s'] / n * 1e3:.1f} ms)",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -192,7 +509,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import tuatara_tpu_torch
-    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
     from tuatara_tpu_torch.kernels._build import build_all
     from tuatara_tpu_torch.utils.image import load_image
 
@@ -212,38 +528,31 @@ def main() -> int:
     if not os.path.isdir(WEIGHTS):
         fail(f"weights not found: {WEIGHTS}")
     pages = {n: load_image(os.path.join(ROOT, "images", f"{n}.png")) for n in PAGES}
+    post = ("label_components_aux", "area_ok", "component_stats_nopeak")
     t0 = time.perf_counter()
-    engine = tuatara_tpu_torch.api.get_engine(tuatara_tpu_torch.OcrConfig(), WEIGHTS)
+    default = tuatara_tpu_torch.OcrConfig()
+    engine = tuatara_tpu_torch.api.get_engine(default, WEIGHTS)
     print(f"engine load: {time.perf_counter() - t0:.1f} s", flush=True)
-    reset_launches()
-    results = {n: tuatara_tpu_torch.image_to_data(img, WEIGHTS) for n, img in pages.items()}
-    launches = dict(LAUNCHES)
+    results, launches = drive(default, pages, post)
     print(f"main path launches: {json.dumps(launches)}", flush=True)
-    for name in ("label_components_aux", "area_ok", "component_stats_nopeak"):
-        if launches.get(name, 0) < 1:
-            fail(f"kernel {name} was not launched on the main path")
     for name, words in results.items():
-        if not words or not any(w["text"] for w in words):
-            fail(f"page {name}: no boxes with text")
         print(f"bf16 {name}: {len(words)} boxes: "
               + " ".join(w["text"] for w in words[:10]), flush=True)
-    reps = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    stages = {"detect_s": 0.0, "recognize_s": 0.0}
-    for _ in range(reps):
-        for img in pages.values():
-            tuatara_tpu_torch.image_to_data(img, WEIGHTS)
-            for k in stages:
-                stages[k] += engine.last_timings[k]
-    dt = time.perf_counter() - t0
-    print(f"bf16 warm: {reps * len(pages) / dt:.3f} pages/s "
-          f"({dt / (reps * len(pages)) * 1e3:.1f} ms/page; detect "
-          f"{stages['detect_s'] / (reps * len(pages)) * 1e3:.1f} ms, recognize "
-          f"{stages['recognize_s'] / (reps * len(pages)) * 1e3:.1f} ms)", flush=True)
+
+    # 3b. the latency() preset: fused recognizer kernels
+    latency = tuatara_tpu_torch.OcrConfig.latency()
+    lat = tuatara_tpu_torch.api.get_engine(latency, WEIGHTS)
+    lat_results, lat_launches = drive(latency, pages, post + ("vit_blocks", "greedy_decode"))
+    print(f"latency path launches: {json.dumps(lat_launches)}", flush=True)
+    for name, words in lat_results.items():
+        same = sum(a["text"] == b["text"] for a, b in zip(words, results[name]))
+        print(f"latency {name}: {len(words)} boxes ({same} transcripts as the default "
+              f"path's): " + " ".join(w["text"] for w in words[:10]), flush=True)
+    warm_rates({"default": engine, "latency": lat}, pages)
 
     # 4. kernels vs their plain versions
     kernels = check_kernels(engine, pages, launches)
+    kernels += check_recognizer_kernels(lat, engine, pages, lat_launches)
 
     # 5. float32 parity with the JAX reference
     torch.backends.cudnn.allow_tf32 = False
@@ -259,6 +568,9 @@ def main() -> int:
               f"JAX words matched ({len(got)} port words)", flush=True)
         if share < MIN_WORD_SHARE:
             fail(f"fp32 parity on {name}: {share:.4f} < {MIN_WORD_SHARE}")
+
+    # 6. confident pages through the latency path
+    check_synthetic(WEIGHTS)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
-Runs `image_to_data` at the default `OcrConfig()` (bf16) with
-`evals/production_weights` on the four main-path pages, warms up, then
-traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
+Runs `OcrEngine.run` (what `image_to_data` calls) at the default
+`OcrConfig()` (bf16), or with `--config latency` at `OcrConfig.latency()`
+(fused recognizer kernels K6, K7), with `evals/production_weights` on the
+four main-path pages, warms up, then traces `--reps` passes with
+`torch.profiler` (CPU + CUDA activity). Prints:
 
 * the card (nvidia-smi name and power limit);
 * wall time per page, split into detect (canvas, CRAFT, post-processing)
@@ -13,8 +15,8 @@ traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
 * the CUDA kernels with the most device time, grouped by name, and the
   number of kernel launches per page.
 
-Writes the chrome trace to build/profile_torch_port.json.
-Usage: python3 scripts/profile_torch_port.py [--reps N]
+Writes the chrome trace to build/profile_torch_port_<config>.json.
+Usage: python3 scripts/profile_torch_port.py [--reps N] [--config default|latency]
 """
 
 import argparse
@@ -48,6 +50,7 @@ def busy_us(events):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--config", choices=("default", "latency"), default="default")
     args = ap.parse_args()
 
     import torch
@@ -62,10 +65,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {smi.stdout.strip()}")
+    print(f"config: {args.config}")
     pages = [load_image(os.path.join(ROOT, "images", f"{n}.png")) for n in PAGES]
-    engine = tuatara_tpu_torch.api.get_engine(tuatara_tpu_torch.OcrConfig(), WEIGHTS)
+    config = (tuatara_tpu_torch.OcrConfig.latency() if args.config == "latency"
+              else tuatara_tpu_torch.OcrConfig())
+    engine = tuatara_tpu_torch.api.get_engine(config, WEIGHTS)
     for img in pages:  # warm-up: cuDNN plans, allocator, kernel build
-        tuatara_tpu_torch.image_to_data(img, WEIGHTS)
+        engine.run(img)
     torch.cuda.synchronize()
 
     n_pages = args.reps * len(pages)
@@ -75,7 +81,7 @@ def main() -> int:
         t0 = time.perf_counter()
         for _ in range(args.reps):
             for img in pages:
-                tuatara_tpu_torch.image_to_data(img, WEIGHTS)
+                engine.run(img)
                 for k in stages:
                     stages[k] += engine.last_timings[k]
         torch.cuda.synchronize()
@@ -83,7 +89,7 @@ def main() -> int:
 
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
-    trace = os.path.join(out_dir, "profile_torch_port.json")
+    trace = os.path.join(out_dir, f"profile_torch_port_{args.config}.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"]
@@ -107,7 +113,9 @@ def main() -> int:
         print(f"  {ms / n_pages:8.3f} ms/page {cnt / n_pages:7.1f} launches/page "
               f"{ms / total_k * 100:5.1f}%  {name[:110]}")
     ours = {n: v for n, v in by_name.items()
-            if any(k in n for k in ("cc_", "area_", "slots_", "stats_accumulate"))}
+            if any(f"(anonymous namespace)::{k}" in n
+                   for k in ("cc_", "area_", "slots_", "stats_accumulate", "ln_bf16",
+                             "gemm_bf16", "attention", "decode_kernel"))}
     print("port kernels: " + json.dumps(
         {n: {"ms_per_page": v[0] / n_pages, "launches_per_page": v[1] / n_pages}
          for n, v in ours.items()}))

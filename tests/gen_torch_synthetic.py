@@ -1,0 +1,65 @@
+"""Write the confident-input parity fixture for the port's `latency()` path.
+
+Renders the 16 held-out TrueType synthetic pages of
+`scripts/eval_parity_configs.py` (the JAX package's `synthetic_text_pages`:
+rng 888, 256x256, 8 words of 2-8 characters per page, style "font") once,
+and records from those very renders the JAX engine's bf16 result at
+`OcrConfig(canvas_size=256, max_boxes=32, rec_buckets=(32,))` on
+`evals/production_weights`: every page's words (text + bbox) and the
+engine's word accuracy against the truths (`utils/metrics.evaluate_engine`,
+IoU 0.5). The pages are stored as uint8, so no later comparison depends on
+the fonts or PIL of the machine that reads them.
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/gen_torch_synthetic.py
+
+Writes tests/fixtures/torch_synthetic_pages.npz (pages) and .json (truths,
+JAX words, JAX word accuracy).
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WEIGHTS = os.path.join(ROOT, "evals", "production_weights")
+OUT = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")
+N_PAGES = 16
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    from tuatara_tpu.api import OcrEngine
+    from tuatara_tpu.config import OcrConfig
+    from tuatara_tpu.utils.data import synthetic_text_pages
+    from tuatara_tpu.utils.metrics import evaluate_engine
+
+    engine = OcrEngine(OcrConfig(canvas_size=256, max_boxes=32, rec_buckets=(32,)),
+                       weights_dir=WEIGHTS)
+    held = synthetic_text_pages(N_PAGES, engine.tokenizer, np.random.default_rng(888),
+                                size=256, words_per_page=8, max_len=8, style="font")
+    pages = (held["pages"] * 255).astype(np.uint8)
+    words = [[{"text": w["text"], "bbox": [float(v) for v in w["bbox"]]}
+              for w in engine.run(img)] for img in pages]
+    scores = evaluate_engine(engine, list(pages), held["truths"], iou_threshold=0.5)
+    truths = [[{"text": t["text"], "bbox": [float(v) for v in t["bbox"]]} for t in page]
+              for page in held["truths"]]
+    np.savez_compressed(OUT + ".npz", pages=pages)
+    with open(OUT + ".json", "w") as f:
+        json.dump({
+            "what": ("JAX engine bf16 words on 16 held-out TrueType synthetic pages "
+                     "(synthetic_text_pages rng 888, size 256, 8 words/page, font); "
+                     "pages in the .npz as uint8"),
+            "config": {"canvas_size": 256, "max_boxes": 32, "rec_buckets": [32],
+                       "compute_dtype": "bfloat16"},
+            "weights": "evals/production_weights",
+            "word_acc": scores["word_acc"], "matched": scores["matched"],
+            "truths": truths, "words": words}, f, indent=1)
+    print(f"wrote {OUT}.npz/.json: word_acc {scores['word_acc']:.4f}, "
+          f"{sum(len(w) for w in words)} JAX words")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

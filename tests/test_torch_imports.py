@@ -35,7 +35,9 @@ def test_no_jax_imports(path):
 def test_port_has_modules():
     names = {os.path.relpath(p, ROOT) for p in FILES}
     for want in ("tuatara_tpu_torch/api.py", "tuatara_tpu_torch/kernels/cc.py",
-                 "tuatara_tpu_torch/kernels/stats.py", "tuatara_tpu_torch/ops/boxes.py"):
+                 "tuatara_tpu_torch/kernels/stats.py", "tuatara_tpu_torch/ops/boxes.py",
+                 "tuatara_tpu_torch/kernels/vit.py", "tuatara_tpu_torch/kernels/decode.py",
+                 "tuatara_tpu_torch/utils/metrics.py"):
         assert want in names
 
 

@@ -1,8 +1,9 @@
 """Engine + public API: image in -> word boxes + transcripts out.
 
-Port of `tuatara_tpu/api.py` on the default path: `image_to_data(image)` ->
-`OcrEngine.run_pages`, axis-aligned boxes, greedy AR decode with one cloze
-refinement. A batch of same-sized pages goes through
+Port of `tuatara_tpu/api.py` on the default path and the `latency()`
+preset: `image_to_data(image)` -> `OcrEngine.run_pages`, axis-aligned
+boxes, greedy AR decode with one cloze refinement. A batch of same-sized
+pages goes through
 
 1. canvas prep and the CRAFT forward, batched;
 2. per page: `extract_boxes` (the CUDA kernels K1-K3 on the card), scaling
@@ -12,7 +13,10 @@ refinement. A batch of same-sized pages goes through
    `rec_buckets` ladder, its rows ordered by box aspect ratio (a pure
    permutation, undone before decoding);
 4. PARSEQ, the sequence confidence (product of per-step max probability up
-   to and including the first EOS), and the tokenizer on the host.
+   to and including the first EOS), and the tokenizer on the host. With
+   `encoder_impl` / `decode_impl` "pallas" at bf16 (the `latency()` preset)
+   the encoder blocks and the greedy decode run as the fused CUDA kernels
+   K6 and K7, their weight bundles stacked once at construction.
 
 Models load once per engine and stay on the device. The engine runs on the
 card unless the caller passes `device="cpu"`.
@@ -21,6 +25,7 @@ card unless the caller passes `device="cpu"`.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -78,8 +83,11 @@ class OcrEngine:
                     f"yet (only {ported!r}; see ROADMAP.md)")
         if config.tiled_detection or config.quantized_serving:
             raise NotImplementedError("tiled detection and int8 serving are not ported yet")
-        if config.encoder_impl not in (None, "xla") or config.decode_impl not in (None, "xla"):
-            raise NotImplementedError("only the default encoder/decode lowering is ported")
+        for field in ("encoder_impl", "decode_impl"):
+            if getattr(config, field) not in (None, "xla", "pallas"):
+                raise NotImplementedError(
+                    f"OcrConfig.{field}={getattr(config, field)!r} is not ported "
+                    f"(None, 'xla' or 'pallas')")
         if config.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {config.compute_dtype!r}")
         self.dtype = _DTYPES[config.compute_dtype]
@@ -90,6 +98,12 @@ class OcrEngine:
         self.craft_config = craft_config or stored_craft or CraftConfig()
         self.parseq_config = parseq_config or stored_parseq or ParseqConfig(
             max_label_length=config.max_label_length)
+        # Serving-level lowering overrides, applied to the resolved
+        # ParseqConfig as the JAX engine does.
+        impl = {k: getattr(config, k) for k in ("encoder_impl", "decode_impl")
+                if getattr(config, k) is not None}
+        if impl:
+            self.parseq_config = dataclasses.replace(self.parseq_config, **impl)
 
         # Decode table: explicit charset > explicit reference_charset > the
         # charset stored with the weights > the standard table.
@@ -128,6 +142,7 @@ class OcrEngine:
         self.craft.load_state_dict(craft_state_dict(craft_tree, self.craft_config.bn_eps))
         self.parseq = Parseq(self.parseq_config)
         self.parseq.load_state_dict(parseq_state_dict(parseq_tree))
+        self.parseq.prestack(self.dtype)  # from the fp32 weights, before the cast
         for m in (self.craft, self.parseq):
             m.eval().requires_grad_(False)
             set_compute_dtype(m, self.dtype)

@@ -7,10 +7,13 @@ they are parity-critical (reference: tuatara.cpp:352-353 canvas size / mag
 ratio, tuatara.cpp:397-399 thresholds, tuatara.cpp:440 crop size,
 tuatara.cpp:148 min component area, tuatara.cpp:166 dilation formula).
 
-The `latency()` / `production()` presets of the JAX package are not carried
-over yet: they pick lowerings by the JAX backend. Fields that select such
-lowerings (`encoder_impl`, `decode_impl`, `use_pallas`) are kept for
-signature parity; the port refuses the values it does not implement.
+Lowering fields keep the JAX value strings, so one configuration and the
+stored `config.json` read the same in both packages: `encoder_impl="pallas"`
+and `decode_impl="pallas"` select the port's counterparts of those Pallas
+kernels (the hand-written CUDA kernels K6 `kernels/vit.py` and K7
+`kernels/decode.py`), "xla" or None the plain PyTorch lowering. The port
+refuses any other value. `OcrConfig.latency()` is carried over;
+`production()` waits for int8 serving (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -104,6 +107,19 @@ class OcrConfig:
     # "cpp":    CRAFT sees RGB, PARSEQ sees BGR
     # "rgb":    both models see RGB
     channel_mode: str = "python"
+
+    @classmethod
+    def latency(cls, **overrides) -> "OcrConfig":
+        """Batch-1 single-image serving preset (the JAX package's
+        `OcrConfig.latency()`): the detect canvas fitted to the page's /32
+        geometry, a finer first recognition bucket, and the fused
+        recognizer kernels. Unlike the JAX preset it does not read a
+        backend: the kernel wrappers launch on CUDA tensors and take their
+        plain versions on CPU ones. Keyword overrides win."""
+        base = dict(canvas_bucket=32, rec_buckets=(16, 32, 64, 128, 256),
+                    encoder_impl="pallas", decode_impl="pallas", page_batch=1)
+        base.update(overrides)
+        return cls(**base)
 
     @property
     def heatmap_size(self) -> Tuple[int, int]:

@@ -1,6 +1,6 @@
 """PARSEQ scene-text recognizer as a PyTorch module.
 
-Port of `tuatara_tpu/models/parseq.py` on its default (XLA) lowering:
+Port of `tuatara_tpu/models/parseq.py`. The default (XLA) lowering:
 
 * `encode`: ViT-S encoder. Crops [N, 32, 128, 3] in [0, 1] are cut into
   4x8 patches (a reshape + one linear layer, the patch-embed conv written
@@ -17,6 +17,13 @@ Port of `tuatara_tpu/models/parseq.py` on its default (XLA) lowering:
   each query blind to its own input position and to positions at or after
   the first EOS.
 
+With `encoder_impl="pallas"` / `decode_impl="pallas"` at bf16 compute (the
+JAX gates that mean something on the card), `prestack` builds the weight
+bundles of the fused kernels K6 (`kernels/vit.py`, the 12 blocks) and K7
+(`kernels/decode.py`, the whole greedy loop) once, and `encode` /
+`greedy_decode` go through them. At float32 the plain lowering stays, as
+in JAX.
+
 Vocabulary: [EOS=0, charset..., BOS, PAD]; the head emits charset_size + 1
 classes (EOS + charset).
 """
@@ -24,15 +31,30 @@ classes (EOS + charset).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from tuatara_tpu_torch.config import ParseqConfig
+from tuatara_tpu_torch.kernels import decode as K7
+from tuatara_tpu_torch.kernels import vit as K6
 from tuatara_tpu_torch.models.layers import (
     MHA, LayerNorm, Linear, VitBlock, attention_core, gelu, merge_heads,
 )
+
+
+class Bundle(nn.Module):
+    """A fused kernel's weight tensors as non-persistent buffers: they move
+    with the module (`.to(device)`) and stay out of its state dict."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for k, v in tensors.items():
+            self.register_buffer(k, v, persistent=False)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        return getattr(self, key)
 
 
 class DecoderLayer(nn.Module):
@@ -80,6 +102,23 @@ class Parseq(nn.Module):
         ])
         self.dec_norm = LayerNorm(D, eps)
         self.head = Linear(D, cfg.charset_size + 1)
+        self.enc_stacked: Optional[Bundle] = None
+        self.dec_stacked: Optional[Bundle] = None
+
+    def prestack(self, compute_dtype: torch.dtype) -> None:
+        """Build the fused kernels' weight bundles from the fp32 parameters
+        (before `set_compute_dtype`), as the JAX engine pre-stacks at
+        construction: K6's when encoder_impl == "pallas", K7's when
+        decode_impl == "pallas", both only at bf16 compute. Once K6's bundle
+        is built, `encode` no longer reads the per-block modules, so they are
+        released rather than kept as a second copy of the encoder."""
+        if compute_dtype != torch.bfloat16:
+            return
+        if self.cfg.encoder_impl == "pallas":
+            self.enc_stacked = Bundle(K6.stack_vit_block_weights(self.enc))
+            self.enc = nn.ModuleList()
+        if self.cfg.decode_impl == "pallas":
+            self.dec_stacked = Bundle(K7.stack_decode_weights(self))
 
     # ---- encoder ----
 
@@ -97,8 +136,12 @@ class Parseq(nn.Module):
         x = images.reshape(n, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(n, gh * gw, ph * pw * c)
         x = self.patch_embed(x) + self.pos_embed
-        for blk in self.enc:
-            x = blk(x)
+        if self.enc_stacked is not None:
+            x = K6.vit_blocks(x.float().contiguous(), self.enc_stacked, cfg.enc_heads,
+                              cfg.layer_norm_eps)
+        else:
+            for blk in self.enc:
+                x = blk(x)
         return self.enc_norm(x)
 
     # ---- decoder ----
@@ -137,6 +180,15 @@ class Parseq(nn.Module):
         C = cfg.charset_size + 1
         bos_id = cfg.num_tokens - 2
         dev = memory.device
+
+        if self.dec_stacked is not None:
+            # The memory K/V projections stay outside the kernel, as JAX
+            # computes them outside pallas_call.
+            ca = layer.cross_attn
+            mem_k = ca.k(memory).to(torch.bfloat16).contiguous()
+            mem_v = ca.v(memory).to(torch.bfloat16).contiguous()
+            return K7.greedy_decode(mem_k, mem_v, self.dec_stacked, H, T, C, bos_id,
+                                    cfg.layer_norm_eps)
 
         mem_k, mem_v = layer.cross_attn.kv(memory)
         pos_q = self.pos_queries[0]  # [T, D]
