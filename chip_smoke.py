@@ -19,11 +19,21 @@ line without a CUDA device or outside the repo.
              (`greedy_decode`). Counts zeroed just before and read just
              after: K1-K3, K6 and K7 must each have run. Then warm pages/sec
              of the default and the latency path, in turns in this call.
+3c. path A:  the same pages at `OcrConfig(text_threshold=0.3)`, the
+             detection branch text_threshold < low_text: counts zeroed just
+             before and read just after, K4 (`label_components`), K2 and K5
+             (`component_stats`) must have run on every page and K1, K3 not
+             at all. Prints each page's box count beside the default
+             path's.
 4. kernels:  each kernel against its plain PyTorch version on the card, on
              the inputs the main path gives it (the four pages) and on
              seeded random masks at 384x384 and 512x384 with K = 256. All
              outputs must be equal. Times with CUDA events after warm-up;
              prints one {"kernels": [...]} line.
+4c. K4, K5:  the same, on path A's inputs (hot at text_threshold 0.3, the
+             normalized region map): labels, the four count planes and the
+             peak (-1e30 in empty slots) equal bit for bit; ms/call, device
+             ms/page (ms/call x launches/page in 3c) and the byte bound.
 4b. recognizer kernels: K6 and K7 against their plain versions on the
              slabs the latency path gives them on the four pages and on a
              seeded random [32, 128, 384]: K6's output, and the final
@@ -35,12 +45,22 @@ line without a CUDA device or outside the repo.
              of crops and its step-0 logits within 5e-2. Times, bounds
              (K7's bytes counted from the tiles' steps and tokens on each
              input), beside K6 the eager block chain (cuBLAS) at the same N,
-             and K7's time at 2, 4, 8 and 16 crops per tile.
+             and K7's time at 2, 4, 8 and 16 crops per tile. K6 also runs
+             on S = 64 slabs, each real slab's first 64 token rows (the
+             32x64 crops of `rec_width=64`), under the same limit and
+             control.
+4d. K8:      `fused_conv_pool` on the four pages' real conv1_1 -> ReLU
+             activations (the default canvases, B = 1, in the trunk's
+             channels_last layout) against its plain version: relative
+             (Frobenius) error within 1e-3, and a control that must exceed
+             it, the plain version with the 3x3 taps flipped. Timed beside the cuDNN chain the port runs otherwise
+             (bf16 conv2d -> relu -> max_pool2d).
 5. parity:   the same pages at compute_dtype float32 (TF32 off for convs
              and matmuls) against the JAX package's float32 result
              (tests/fixtures/torch_reference_production.json): at least
              95% of the reference words per page must be matched by a word
-             with the same bbox and text.
+             with the same bbox and text. The same for path A against
+             tests/fixtures/torch_reference_lowthresh.json.
 6. synthetic: the 16 held-out synthetic pages of
              tests/fixtures/torch_synthetic_pages.npz through
              `latency(canvas_size=256, max_boxes=32, rec_buckets=(32,))`:
@@ -48,6 +68,13 @@ line without a CUDA device or outside the repo.
              distinct word with the same text and bbox IoU >= 0.5, and word
              accuracy against the truths at most 0.02 below the JAX
              engine's recorded accuracy.
+6b. path B:  `models.craft.FUSED_STAGE1 = "on"`: phase 6 again with counts
+             zeroed just before and read just after (K8 must have run),
+             under the same gates; then the default path's transcripts of
+             the four pages with K8, beside those without (informational),
+             and the two gray pages read as [H, W] (a 1-channel canvas
+             broadcast to conv1_1): K8 must run on each and every page must
+             give boxes with text. The gate is restored after.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -59,18 +86,20 @@ import subprocess
 import sys
 import time
 
-faulthandler.dump_traceback_later(1000, exit=True)
-
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "evals", "production_weights")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_reference_production.json")
+FIXTURE_LOW = os.path.join(ROOT, "tests", "fixtures", "torch_reference_lowthresh.json")
+LOW_THRESHOLD = 0.3  # text_threshold of path A, below the default low_text 0.4
 SYNTHETIC = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")
 PAGES = ("resume_example", "funsd_0001129658", "funsd_91372360", "table_english")
+GRAY_PAGES = ("funsd_0001129658", "funsd_91372360")  # gray PNG files
 MIN_WORD_SHARE = 0.95
 K6_MAX_REL = 7e-3
 K7_MIN_IDS = 0.99
 K7_MAX_STEP0 = 5e-2
 K7_TILES = (2, 4, 8, 16)
+K8_MAX_REL = 1e-3
 MIN_AGREEMENT = 0.98
 MAX_ACC_DROP = 0.02
 # H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate, the vector
@@ -102,8 +131,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def kernel_cases(engine, pages):
-    """(label, comb, hot, keep) on the card: each page's binarized heatmap
-    from the main path's detector, then seeded random masks."""
+    """(label, comb, hot, keep, tn, hot_low) on the card: each page's
+    binarized heatmap from the main path's detector (hot_low: the hot
+    pixels at path A's text_threshold), then seeded random masks."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -111,25 +143,31 @@ def kernel_cases(engine, pages):
     from tuatara_tpu_torch.ops.boxes import binarize
 
     cfg = engine.config
+    low = dataclasses.replace(cfg, text_threshold=LOW_THRESHOLD)
     cases = []
     for name, img in pages.items():
         h, w = img.shape[:2]
         scores = engine.detect(torch.from_numpy(img[None]).cuda())["scores"][0]
-        comb, keep, hot = binarize(scores[:, :, 0], scores[:, :, 1],
-                                   content_mask(h, w, cfg, "cuda"), cfg)
-        cases.append((name, comb.contiguous(), hot.contiguous(), keep.contiguous()))
+        mask = content_mask(h, w, cfg, "cuda")
+        comb, keep, hot, tn = binarize(scores[:, :, 0], scores[:, :, 1], mask, cfg)
+        hot_low = binarize(scores[:, :, 0], scores[:, :, 1], mask, low)[2]
+        cases.append((name,) + tuple(t.contiguous() for t in (comb, hot, keep, tn, hot_low)))
     rng = np.random.default_rng(0)
     for hh, ww in ((384, 384), (512, 384)):
         comb = rng.random((hh, ww)) < 0.55   # near the percolation threshold
         hot = comb & (rng.random((hh, ww)) < 0.05)
         keep = rng.random((hh, ww)) < 0.8
+        tn = rng.random((hh, ww)).astype(np.float32)
+        hot_low = comb & (rng.random((hh, ww)) < 0.2)
         cases.append((f"random{hh}x{ww}",) + tuple(
-            torch.from_numpy(a).cuda() for a in (comb, hot, keep)))
+            torch.from_numpy(a).cuda() for a in (comb, hot, keep, tn, hot_low)))
     return cases
 
 
-def check_kernels(engine, pages, launches):
-    """Phase 4: every kernel equal to its plain version; times and bounds."""
+def check_kernels(engine, pages, launches, low_launches):
+    """Phases 4 and 4c: every kernel of detection post-processing equal to
+    its plain version; times and bounds. K1-K3 on the default path's
+    inputs, K4 and K5 on path A's."""
     import torch
 
     from tuatara_tpu_torch.kernels import cc, stats
@@ -137,8 +175,8 @@ def check_kernels(engine, pages, launches):
 
     K = engine.config.max_boxes
     m = engine.config.min_component_area
-    rows = {n: [] for n in (cc.K1, cc.K2, stats.K3)}
-    for label, comb, hot, keep in kernel_cases(engine, pages):
+    rows = {n: [] for n in (cc.K1, cc.K2, stats.K3, cc.K4, stats.K5)}
+    for label, comb, hot, keep, tn, hot_low in kernel_cases(engine, pages):
         h, w = comb.shape
         n = h * w
         lab, aux = cc.label_components_aux(comb, hot)
@@ -148,6 +186,12 @@ def check_kernels(engine, pages, launches):
         roots, _ = plain.component_roots_filtered(lab, K, aux, ok_map)
         got = stats.component_stats_nopeak(lab, keep, roots)
         ref = stats.component_stats_nopeak_plain(lab, keep, roots)
+        lab4 = cc.label_components(comb)
+        plab4 = plain.label_components(comb)
+        roots5, _ = plain.component_roots_filtered(lab4, K, None, cc.area_ok(lab4, m),
+                                                   hot=hot_low, keep=keep)
+        got5 = stats.component_stats(lab4, tn, keep, roots5)
+        ref5 = stats.component_stats_plain(lab4, tn, keep, roots5)
         torch.cuda.synchronize()
         n_roots = int((roots < plain.BIG).sum())
         checks = {
@@ -161,6 +205,12 @@ def check_kernels(engine, pages, launches):
                        lambda: stats.component_stats_nopeak(lab, keep, roots),
                        lambda: stats.component_stats_nopeak_plain(lab, keep, roots),
                        n * 5 + K * 4 + (2 * h + 2 * w) * K * 4, n * 8),
+            cc.K4: ([lab4], [plab4], lambda: cc.label_components(comb),
+                    lambda: plain.label_components(comb), n * (1 + 4), n * 6),
+            stats.K5: (list(got5), list(ref5),
+                       lambda: stats.component_stats(lab4, tn, keep, roots5),
+                       lambda: stats.component_stats_plain(lab4, tn, keep, roots5),
+                       n * (4 + 4 + 1) + 4 * (h + w) * K * 4 + 8 * K, n * 9),
         }
         for name, (outs, refs, kfn, pfn, nbytes, nops) in checks.items():
             err = max(float((a.long() - b.long()).abs().max()) if not a.is_floating_point()
@@ -169,7 +219,7 @@ def check_kernels(engine, pages, launches):
             if not equal:
                 fail(f"{name} differs from its plain version on {label} "
                      f"(max abs err {err})")
-            ms = cuda_ms(kfn, 50)
+            ms = cuda_ms(kfn, 30)
             pms = cuda_ms(pfn, 3, warmup=1)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / VECTOR_OPS_PER_S * 1e3
             rows[name].append({"input": label, "shape": [h, w], "roots": n_roots,
@@ -178,21 +228,30 @@ def check_kernels(engine, pages, launches):
                                "max_abs_err": err})
             print(f"kernel {name:24s} {label:18s} {h}x{w} ms={ms:.4f} "
                   f"plain_ms={pms:.3f} bound_ms={max(bytes_ms, ops_ms):.5f}", flush=True)
+        empty = int((got5[4] == stats.EMPTY_PEAK).sum())
+        print(f"kernel {stats.K5:24s} {label:18s} roots={int((roots5 < plain.BIG).sum())} "
+              f"empty_peak_slots={empty}", flush=True)
 
     sources = {cc.K1: ("tuatara_tpu_torch/csrc/cc.cu", "tuatara_tpu/ops/pallas/cc.py:213"),
                cc.K2: ("tuatara_tpu_torch/csrc/cc.cu", "tuatara_tpu/ops/pallas/cc.py:146"),
                stats.K3: ("tuatara_tpu_torch/csrc/stats.cu",
-                          "tuatara_tpu/ops/pallas/stats.py:172")}
+                          "tuatara_tpu/ops/pallas/stats.py:172"),
+               cc.K4: ("tuatara_tpu_torch/csrc/cc.cu", "tuatara_tpu/ops/pallas/cc.py:89"),
+               stats.K5: ("tuatara_tpu_torch/csrc/stats.cu",
+                          "tuatara_tpu/ops/pallas/stats.py:120")}
     out = []
     for name, rs in rows.items():
         main = [r for r in rs if not r["input"].startswith("random")]
+        path = launches if name in (cc.K1, cc.K2, stats.K3) else low_launches
 
         def mean(key):
             return sum(r[key] for r in main) / len(main)
 
+        per_page = path.get(name, 0) / len(pages)
         out.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches.get(name, 0),
+            "replaces": sources[name][1], "launches": path.get(name, 0),
+            "launches_per_page": per_page, "device_ms_per_page": mean("ms") * per_page,
             "equal": True, "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": mean("ms"), "kernel_ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"), "bound_by": main[0]["bound_by"],
@@ -200,6 +259,84 @@ def check_kernels(engine, pages, launches):
             "random_ms": {r["input"]: r["ms"] for r in rs if r["input"].startswith("random")},
         })
     return out
+
+
+def stage1_inputs(engine, pages):
+    """Each page's conv1_1 -> ReLU activation [1, 64, H, W] bf16 on the
+    default path's canvas (a forward hook on conv1_1), in the memory layout
+    the trunk holds (channels_last)."""
+    import torch
+    import torch.nn.functional as F
+
+    seen = []
+    conv = engine.craft.vgg["conv1_1"]["conv"]
+    handle = conv.register_forward_hook(lambda mod, args, out: seen.append(F.relu(out)))
+    try:
+        for img in pages.values():
+            engine.detect(torch.from_numpy(img[None]).cuda())
+    finally:
+        handle.remove()
+    return list(zip(pages, seen))
+
+
+def check_stage1(engine, pages, launches):
+    """Phase 4d: K8 against its plain version on real activations, with a
+    control that must fail the limit; times beside the cuDNN chain."""
+    import torch
+    import torch.nn.functional as F
+
+    from tuatara_tpu_torch.kernels import stage1
+
+    c12 = engine.craft.vgg["conv1_2"]["conv"]
+    w, b = c12.weight, c12.bias
+    rows = []
+    for label, x in stage1_inputs(engine, pages):
+        bsz, c, h, wd = x.shape
+        o = w.shape[0]
+        got = stage1.fused_conv_pool(x, w, b)
+        ref = stage1.fused_conv_pool_plain(x, w, b)
+        flipped = stage1.fused_conv_pool_plain(x, w.flip(-1, -2).contiguous(), b)
+        torch.cuda.synchronize()
+
+        def rel(y):
+            return float((y.float() - ref.float()).norm() / ref.float().norm())
+
+        err, ctl = rel(got), rel(flipped)
+        if not torch.isfinite(got.float()).all() or err > K8_MAX_REL:
+            fail(f"{stage1.K8} on {label}: relative error {err} > {K8_MAX_REL}")
+        if ctl <= K8_MAX_REL:
+            fail(f"{stage1.K8} tolerance {K8_MAX_REL} on {label} does not reject the "
+                 f"flipped taps: relative error {ctl}")
+
+        def library():
+            return F.max_pool2d(F.relu(c12(x)), 2, 2)
+
+        nbytes = (bsz * h * wd * c + bsz * (h // 2) * (wd // 2) * o) * 2
+        ops = 2 * 9 * c * o * bsz * h * wd
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        row = {"input": label, "shape": [bsz, c, h, wd], "rel_err": err,
+               "control_rel_err": ctl,
+               "max_abs_err": float((got.float() - ref.float()).abs().max()),
+               "ms": cuda_ms(lambda: stage1.fused_conv_pool(x, w, b), 20),
+               "plain_ms": cuda_ms(lambda: stage1.fused_conv_pool_plain(x, w, b), 5, 1),
+               "library_ms": cuda_ms(library, 20),
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        rows.append(row)
+        print(f"kernel {stage1.K8:24s} {label:18s} {h}x{wd} rel_err={err:.2e} "
+              f"control={ctl:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
+              f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f}", flush=True)
+
+    def mean(key):
+        return sum(r[key] for r in rows) / len(rows)
+
+    return [{"name": stage1.K8, "route": "cuda", "source": "tuatara_tpu_torch/csrc/stage1.cu",
+             "replaces": "tuatara_tpu/ops/pallas/stage1.py:134",
+             "launches": launches.get(stage1.K8, 0),
+             "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": mean("ms"),
+             "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+             "bound_by": rows[0]["bound_by"], "library_ms": mean("library_ms"),
+             "library": "cuDNN conv2d -> relu -> max_pool2d, bf16",
+             "timed_on": "mean over the default path's four canvases", "per_input": rows}]
 
 
 def word_share(ref_words, got_words) -> float:
@@ -306,7 +443,8 @@ def first_eos_ids(logits):
 
 def check_recognizer_kernels(lat, default, pages, launches):
     """Phase 4b: K6 and K7 against their plain versions on the latency
-    path's slabs and on a seeded random [32, 128, 384]; times and bounds."""
+    path's slabs and on a seeded random [32, 128, 384], and K6 on each real
+    slab's first 64 tokens; times and bounds."""
     import torch
 
     from tuatara_tpu_torch.kernels import decode, vit
@@ -328,7 +466,8 @@ def check_recognizer_kernels(lat, default, pages, launches):
     st6 = pq.enc_stacked
     w6 = nbytes(st6[k] for k in vit.WEIGHTS)
     rows = {vit.K6: [], decode.K7: []}
-    for label, x, (mk, mv) in cases:
+
+    def check_k6(label, x):
         n, s, d = x.shape
         got = vit.vit_blocks(x, st6, heads, eps)
         ref = vit.vit_blocks_plain(x, st6, heads, eps)
@@ -341,7 +480,7 @@ def check_recognizer_kernels(lat, default, pages, launches):
         b_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3 + w6 / HBM_BYTES_PER_S * 1e3
         o_ms = ops / BF16_OPS_PER_S * 1e3
 
-        def eager(x=x):
+        def eager():
             y = x
             with torch.no_grad():
                 for blk in default.parseq.enc:
@@ -369,18 +508,26 @@ def check_recognizer_kernels(lat, default, pages, launches):
         if max(ctl, mem_ctl) <= K6_MAX_REL:
             fail(f"{vit.K6} tolerance {K6_MAX_REL} on {label} does not reject the eager erf "
                  f"block chain: relative error {ctl} (blocks), {mem_ctl} (final memory)")
-        row = {"input": label, "n": n, "rel_err": rel, "memory_rel_err": mem_rel,
+        row = {"input": label, "n": n, "s": s, "rel_err": rel, "memory_rel_err": mem_rel,
                "control_rel_err": ctl, "control_memory_rel_err": mem_ctl,
                "max_abs_err": err6,
                "ms": cuda_ms(lambda: vit.vit_blocks(x, st6, heads, eps), 20),
                "plain_ms": cuda_ms(lambda: vit.vit_blocks_plain(x, st6, heads, eps), 3, 1),
                "eager_ms": cuda_ms(eager, 10),
                "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
-        rows[vit.K6].append(row)
-        print(f"kernel {vit.K6:24s} {label:18s} N={n} rel_err={rel:.2e} "
+        print(f"kernel {vit.K6:24s} {label:18s} N={n} S={s} rel_err={rel:.2e} "
               f"memory_rel_err={mem_rel:.2e} control={ctl:.2e}/{mem_ctl:.2e} ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.3f} eager_ms={row['eager_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.5f}", flush=True)
+        return row
+
+    for label, x, (mk, mv) in cases:
+        n, s, d = x.shape
+        rows[vit.K6].append(check_k6(label, x))
+        if not label.startswith("random"):
+            # 64 tokens per crop (32x64 crops): each slab's first 64 token
+            # rows; every slab bucket is a multiple of 16, so N is even.
+            rows[vit.K6].append(check_k6(f"{label}/S=64", x[:, :64].contiguous()))
 
         lg = decode.greedy_decode(mk, mv, *dargs)
         pl = decode.greedy_decode_plain(mk, mv, *dargs)
@@ -420,6 +567,8 @@ def check_recognizer_kernels(lat, default, pages, launches):
         def mean(key):
             return sum(r[key] for r in main_rows) / len(main_rows)
 
+        s64 = [r for r in main_rows if r.get("s") == 64]
+        main_rows = [r for r in main_rows if r.get("s", 128) == 128]
         row = {"name": name, "route": "cuda", "source": sources[name][0],
                "replaces": sources[name][1], "launches": launches.get(name, 0),
                "max_abs_err": max(r["max_abs_err"] for r in rs),
@@ -429,6 +578,11 @@ def check_recognizer_kernels(lat, default, pages, launches):
                "per_input": rs}
         if name == vit.K6:
             row["eager_ms"] = mean("eager_ms")
+            row["s64"] = {k: sum(r[k] for r in s64) / len(s64)
+                          for k in ("ms", "plain_ms", "eager_ms", "bound_ms")}
+            row["s64"]["max_rel_err"] = max(max(r["rel_err"], r["memory_rel_err"]) for r in s64)
+            row["s64"]["min_control_rel_err"] = min(
+                max(r["control_rel_err"], r["control_memory_rel_err"]) for r in s64)
         out.append(row)
     return out
 
@@ -456,6 +610,46 @@ def check_synthetic(weights):
     if acc < ref["word_acc"] - MAX_ACC_DROP:
         fail(f"synthetic pages: word accuracy {acc:.4f} more than {MAX_ACC_DROP} below "
              f"the JAX record's {ref['word_acc']:.4f}")
+
+
+def check_fused_stage1(engine, pages, results):
+    """Phase 6b: FUSED_STAGE1 = "on"; the synthetic gate with launch counts
+    zeroed just before and read just after, then the default path's four
+    pages beside their transcripts without K8. -> the synthetic run's
+    launch counts."""
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.kernels.stage1 import K8
+    from tuatara_tpu_torch.models import craft
+    from tuatara_tpu_torch.utils.image import load_image
+
+    old = craft.FUSED_STAGE1
+    craft.FUSED_STAGE1 = "on"
+    try:
+        reset_launches()
+        check_synthetic(WEIGHTS)
+        launches = dict(LAUNCHES)
+        print(f"path B launches (16 synthetic pages): {json.dumps(launches)}", flush=True)
+        if launches.get(K8, 0) < 1:
+            fail(f"kernel {K8} was not launched on path B")
+        for name, img in pages.items():
+            words = engine.run(img)
+            same = sum(a["text"] == b["text"] for a, b in zip(words, results[name]))
+            print(f"path B default {name}: {len(words)} boxes ({len(results[name])} without "
+                  f"K8; {same} transcripts equal): "
+                  + " ".join(w["text"] for w in words[:10]), flush=True)
+        for name in GRAY_PAGES:
+            img = load_image(os.path.join(ROOT, "images", f"{name}.png"), keep_gray=True)
+            reset_launches()
+            words = engine.run(img)
+            if img.ndim != 2 or LAUNCHES[K8] < 1:
+                fail(f"path B gray page {name} {img.shape}: {K8} launched {LAUNCHES[K8]} times")
+            if not any(w["text"] for w in words):
+                fail(f"path B gray page {name}: no boxes with text")
+            print(f"path B gray {name}: {len(words)} boxes: "
+                  + " ".join(w["text"] for w in words[:10]), flush=True)
+    finally:
+        craft.FUSED_STAGE1 = old
+    return launches
 
 
 def drive(config, pages, required):
@@ -502,6 +696,7 @@ def warm_rates(engines, pages, reps=3):
 
 
 def main() -> int:
+    faulthandler.dump_traceback_later(1000, exit=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -550,27 +745,51 @@ def main() -> int:
               f"path's): " + " ".join(w["text"] for w in words[:10]), flush=True)
     warm_rates({"default": engine, "latency": lat}, pages)
 
-    # 4. kernels vs their plain versions
-    kernels = check_kernels(engine, pages, launches)
+    # 3c. path A: text_threshold < low_text (K4, K5)
+    low = tuatara_tpu_torch.OcrConfig(text_threshold=LOW_THRESHOLD)
+    low_results, low_launches = drive(low, pages, ("label_components", "area_ok",
+                                                   "component_stats"))
+    print(f"path A launches: {json.dumps(low_launches)}", flush=True)
+    for name in ("label_components", "area_ok", "component_stats"):
+        if low_launches.get(name, 0) < len(pages):
+            fail(f"path A: {name} launched {low_launches.get(name, 0)} times on "
+                 f"{len(pages)} pages")
+    for name in ("label_components_aux", "component_stats_nopeak"):
+        if low_launches.get(name, 0):
+            fail(f"path A launched {name}, a kernel of the other branch")
+    for name, words in low_results.items():
+        print(f"path A {name}: {len(words)} boxes (default path {len(results[name])}): "
+              + " ".join(w["text"] for w in words[:10]), flush=True)
+
+    # 4. kernels vs their plain versions (4, 4c, 4b; 4d after 6b, which
+    # gives K8's launches on its path)
+    kernels = check_kernels(engine, pages, launches, low_launches)
     kernels += check_recognizer_kernels(lat, engine, pages, lat_launches)
 
     # 5. float32 parity with the JAX reference
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    with open(FIXTURE) as f:
-        ref = json.load(f)["pages"]
-    f32 = tuatara_tpu_torch.OcrEngine(
-        tuatara_tpu_torch.OcrConfig(compute_dtype="float32"), weights_dir=WEIGHTS)
-    for name, img in pages.items():
-        got = f32.run(img)
-        share = word_share(ref[name]["words"], got)
-        print(f"fp32 parity {name}: {share:.4f} of {len(ref[name]['words'])} "
-              f"JAX words matched ({len(got)} port words)", flush=True)
-        if share < MIN_WORD_SHARE:
-            fail(f"fp32 parity on {name}: {share:.4f} < {MIN_WORD_SHARE}")
+    for tag, fixture, overrides in (("", FIXTURE, {}),
+                                    (" path A", FIXTURE_LOW, {"text_threshold": LOW_THRESHOLD})):
+        with open(fixture) as f:
+            ref = json.load(f)["pages"]
+        f32 = tuatara_tpu_torch.OcrEngine(
+            tuatara_tpu_torch.OcrConfig(compute_dtype="float32", **overrides),
+            weights_dir=WEIGHTS)
+        for name, img in pages.items():
+            got = f32.run(img)
+            share = word_share(ref[name]["words"], got)
+            print(f"fp32 parity{tag} {name}: {share:.4f} of {len(ref[name]['words'])} "
+                  f"JAX words matched ({len(got)} port words)", flush=True)
+            if share < MIN_WORD_SHARE:
+                fail(f"fp32 parity{tag} on {name}: {share:.4f} < {MIN_WORD_SHARE}")
 
     # 6. confident pages through the latency path
     check_synthetic(WEIGHTS)
+
+    # 6b. path B: the same with K8 in CRAFT's stage 1; then 4d
+    stage1_launches = check_fused_stage1(engine, pages, results)
+    kernels += check_stage1(engine, pages, stage1_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -2,10 +2,12 @@
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
 Runs `OcrEngine.run` (what `image_to_data` calls) at the default
-`OcrConfig()` (bf16), or with `--config latency` at `OcrConfig.latency()`
-(fused recognizer kernels K6, K7), with `evals/production_weights` on the
-four main-path pages, warms up, then traces `--reps` passes with
-`torch.profiler` (CPU + CUDA activity). Prints:
+`OcrConfig()` (bf16), with `--config latency` at `OcrConfig.latency()`
+(fused recognizer kernels K6, K7), or with `--config lowthresh` at
+`OcrConfig(text_threshold=0.3)` (detection kernels K4, K5), and with
+`--fused-stage1` with CRAFT's stage 1 through K8; on
+`evals/production_weights` and the four main-path pages, it warms up, then
+traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
 
 * the card (nvidia-smi name and power limit);
 * wall time per page, split into detect (canvas, CRAFT, post-processing)
@@ -16,7 +18,8 @@ four main-path pages, warms up, then traces `--reps` passes with
   number of kernel launches per page.
 
 Writes the chrome trace to build/profile_torch_port_<config>.json.
-Usage: python3 scripts/profile_torch_port.py [--reps N] [--config default|latency]
+Usage: python3 scripts/profile_torch_port.py [--reps N]
+       [--config default|latency|lowthresh] [--fused-stage1]
 """
 
 import argparse
@@ -50,7 +53,8 @@ def busy_us(events):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--config", choices=("default", "latency"), default="default")
+    ap.add_argument("--config", choices=("default", "latency", "lowthresh"), default="default")
+    ap.add_argument("--fused-stage1", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -60,15 +64,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import tuatara_tpu_torch
+    from tuatara_tpu_torch.models import craft
     from tuatara_tpu_torch.utils.image import load_image
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {smi.stdout.strip()}")
-    print(f"config: {args.config}")
+    print(f"config: {args.config}; fused stage 1: {args.fused_stage1}")
+    if args.fused_stage1:
+        craft.FUSED_STAGE1 = "on"
     pages = [load_image(os.path.join(ROOT, "images", f"{n}.png")) for n in PAGES]
-    config = (tuatara_tpu_torch.OcrConfig.latency() if args.config == "latency"
-              else tuatara_tpu_torch.OcrConfig())
+    config = {"default": tuatara_tpu_torch.OcrConfig,
+              "latency": tuatara_tpu_torch.OcrConfig.latency,
+              "lowthresh": lambda: tuatara_tpu_torch.OcrConfig(text_threshold=0.3)}[args.config]()
     engine = tuatara_tpu_torch.api.get_engine(config, WEIGHTS)
     for img in pages:  # warm-up: cuDNN plans, allocator, kernel build
         engine.run(img)
@@ -89,7 +97,8 @@ def main() -> int:
 
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
-    trace = os.path.join(out_dir, f"profile_torch_port_{args.config}.json")
+    trace = os.path.join(out_dir, f"profile_torch_port_{args.config}"
+                         f"{'_stage1' if args.fused_stage1 else ''}.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"]
@@ -114,8 +123,8 @@ def main() -> int:
               f"{ms / total_k * 100:5.1f}%  {name[:110]}")
     ours = {n: v for n, v in by_name.items()
             if any(f"(anonymous namespace)::{k}" in n
-                   for k in ("cc_", "area_", "slots_", "stats_accumulate", "ln_bf16",
-                             "gemm_bf16", "attention", "decode_kernel"))}
+                   for k in ("cc_", "area_", "slots_", "stats_accumulate", "peak_", "ln_bf16",
+                             "gemm_bf16", "attention", "decode_kernel", "fused_conv_pool"))}
     print("port kernels: " + json.dumps(
         {n: {"ms_per_page": v[0] / n_pages, "launches_per_page": v[1] / n_pages}
          for n, v in ours.items()}))

@@ -3,8 +3,11 @@
 `tuatara_tpu_torch.OcrEngine(device="cpu")` must give the same transcripts
 and bboxes as `tuatara_tpu.OcrEngine` at compute_dtype float32 on the
 reference pages with the committed golden weights; confidences agree to
-1e-4. One page also runs at full width on the trained production weights
-against the JAX float32 record that `chip_smoke.py` uses on the card.
+1e-4 (`tests/test_torch_engine_configs.py` holds the same at
+`text_threshold=0.3` and under other user configurations). One page also
+runs at full width on the trained production weights, at the default
+configuration and at `text_threshold=0.3`, against the JAX float32 records
+that `chip_smoke.py` uses on the card.
 """
 
 import json
@@ -90,6 +93,22 @@ def test_production_page_matches_jax_reference():
     engine = tuatara_tpu_torch.OcrEngine(OcrConfig(compute_dtype="float32"),
                                          weights_dir=PRODUCTION, device="cpu")
     got = engine.run(_image("resume_example"))
+    assert word_share(ref, got) >= MIN_WORD_SHARE
+
+
+def test_production_page_low_text_threshold_matches_jax_reference():
+    """The same at text_threshold 0.3 (path A) against its JAX float32
+    record, which `chip_smoke.py` holds the card to."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import FIXTURE_LOW, LOW_THRESHOLD, MIN_WORD_SHARE, word_share
+
+    with open(FIXTURE_LOW) as f:
+        ref = json.load(f)["pages"]["resume_example"]["words"]
+    engine = tuatara_tpu_torch.OcrEngine(
+        OcrConfig(compute_dtype="float32", text_threshold=LOW_THRESHOLD),
+        weights_dir=PRODUCTION, device="cpu")
+    got = engine.run(_image("resume_example"))
+    assert len(got) > 15  # the default path's record has 15 words on this page
     assert word_share(ref, got) >= MIN_WORD_SHARE
 
 

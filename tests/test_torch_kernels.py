@@ -1,5 +1,8 @@
 """The port's kernel modules on the CPU: their plain versions against the
-JAX package's Pallas kernels (interpret mode) and XLA paths, bit for bit.
+JAX package's Pallas kernels (interpret mode) and XLA paths, bit for bit:
+K1 (labels + aux), K4 (labels only), K2 (area filter), K3 (counts), K5
+(counts + peak, -1e30 in empty slots) and the filtered root selection of
+both detection branches.
 
 The CUDA kernels themselves run only on the card; `chip_smoke.py` holds
 them against these plain versions there. Here the wrappers must take the
@@ -15,9 +18,13 @@ import torch
 
 from tuatara_tpu.ops.connected_components import (
     component_roots_filtered as jax_roots_filtered,
+    label_components as jax_label,
     label_components_aux as jax_label_aux,
 )
-from tuatara_tpu.ops.pallas.cc import area_ok_pallas, label_components_pallas_aux
+from tuatara_tpu.ops.pallas.cc import (
+    area_ok_pallas, label_components_pallas, label_components_pallas_aux,
+)
+from tuatara_tpu.ops.pallas.stats import component_stats as pallas_stats
 from tuatara_tpu.ops.pallas.stats import component_stats_nopeak as pallas_stats_nopeak
 from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
 from tuatara_tpu_torch.kernels import cc as tcc
@@ -70,6 +77,19 @@ def test_label_components_aux_plain_matches_jax(name, mask, hot):
     np.testing.assert_array_equal(aux.numpy(), np.asarray(pl_aux))
     # background and hot-less components hold exactly 2**30
     assert (aux.numpy()[~mask] == BIG).all()
+
+
+@pytest.mark.parametrize("name,mask,hot", _masks(), ids=lambda v: v if isinstance(v, str) else "")
+def test_label_components_plain_matches_jax(name, mask, hot):
+    """K4's plain version == the Pallas kernel (interpret) == the XLA
+    fixpoint, exactly (the JAX labelers converged: < 64 sweeps)."""
+    ref, iters = jax_label(jnp.array(mask))
+    pl_lab, pl_iters = label_components_pallas(jnp.array(mask), interpret=True)
+    assert int(iters) < 64 and int(pl_iters) < 64
+    lab = tcc.label_components(torch.from_numpy(mask))
+    assert lab.dtype == torch.int32
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(pl_lab))
 
 
 def test_label_components_true_components():
@@ -130,6 +150,55 @@ def test_stats_nopeak_plain_matches_pallas(K, h):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("h", [32, 40])
+def test_stats_peak_plain_matches_pallas(K, h):
+    """K5's plain version == the Pallas kernel (interpret), bit for bit:
+    counts, and the peak of tn with exactly -1e30 in the padding slots,
+    with roots from the JAX selection of the text_threshold < low_text
+    branch."""
+    rng = np.random.default_rng(h * K)
+    m = rng.random((h, 128)) < 0.3
+    hot = m & (rng.random((h, 128)) < 0.3)
+    keep = rng.random((h, 128)) < 0.8
+    tn = rng.random((h, 128)).astype(np.float32)
+    labels, _ = jax_label(jnp.array(m))
+    roots, _ = jax_roots_filtered(labels, K, 3, jnp.array(hot), jnp.array(keep),
+                                  hot_implies_keep=False)
+    if K == 256:
+        assert int((np.asarray(roots) == BIG).sum()) > 0  # padding slots are exercised
+    ref = pallas_stats(labels, jnp.array(tn), jnp.array(keep), roots, interpret=True)
+    got = tstats.component_stats(torch.from_numpy(np.array(labels)), torch.from_numpy(tn),
+                                 torch.from_numpy(keep), torch.from_numpy(np.array(roots)))
+    assert len(got) == 5
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert (got[4].numpy()[np.asarray(roots) == BIG] == np.float32(-1e30)).all()
+
+
+@pytest.mark.parametrize("K", [8, 64, 256])
+def test_component_roots_filtered_hot_keep_matches_jax(K):
+    """Roots of the text_threshold < low_text branch, selected by the hot
+    and keep pixel masks (JAX's hot_implies_keep=False): equal to the JAX
+    selection, area filter by histogram there and by K2's plain version
+    here. Link-only hot pixels make presence of both differ from presence
+    of a pixel that is both."""
+    rng = np.random.default_rng(K)
+    m = rng.random((64, 128)) < 0.45
+    hot = m & (rng.random((64, 128)) < 0.05)
+    keep = rng.random((64, 128)) < 0.7
+    labels, _ = jax_label(jnp.array(m))
+    ref, ref_n = jax_roots_filtered(labels, K, 4, jnp.array(hot), jnp.array(keep),
+                                    hot_implies_keep=False)
+    t_lab = torch.from_numpy(np.array(labels))
+    got, n = tplain.component_roots_filtered(
+        t_lab, K, None, tplain.area_ok(t_lab, 4), hot=torch.from_numpy(hot),
+        keep=torch.from_numpy(keep))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(n) == int(ref_n)
+
+
 @pytest.mark.parametrize("K", [8, 256])
 def test_component_roots_filtered_matches_jax(K):
     """Roots: the K smallest passing raster indices, ascending, padded with
@@ -154,6 +223,8 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
     ok = tcc.area_ok(lab, 10)
     roots, _ = tplain.component_roots_filtered(lab, 16, aux, ok)
     tstats.component_stats_nopeak(lab, torch.ones_like(m), roots)
+    lab = tcc.label_components(m)
+    tstats.component_stats(lab, torch.rand(m.shape), torch.ones_like(m), roots)
     assert sum(LAUNCHES.values()) == 0
 
 
@@ -163,7 +234,7 @@ def test_build_names_sources_without_compiling(tmp_path, monkeypatch):
     import."""
     from tuatara_tpu_torch.kernels import _build
 
-    assert set(_build.SOURCES) == {"cc", "stats", "vit", "decode"}
+    assert set(_build.SOURCES) == {"cc", "stats", "vit", "decode", "stage1"}
     for name in _build.SOURCES:
         target = _build._target(name)
         assert target.startswith(_build.BUILD_DIR) and target.endswith(".so")

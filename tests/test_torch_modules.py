@@ -25,6 +25,7 @@ from tuatara_tpu.ops import boxes as jax_boxes
 from tuatara_tpu.ops import warp as jax_warp
 from tuatara_tpu.tokenizer import Tokenizer as JaxTokenizer
 from tuatara_tpu.utils import weights as jax_weights
+from tuatara_tpu_torch.api import content_mask
 from tuatara_tpu_torch.config import OcrConfig
 from tuatara_tpu_torch.models.craft import Craft
 from tuatara_tpu_torch.models.parseq import Parseq
@@ -188,6 +189,34 @@ def test_extract_boxes_matches_jax(seed, max_boxes):
         t_boxes.tesseract_bbox(t_boxes.scale_boxes(got["boxes"], ratio, OcrConfig())).numpy()[valid],
         np.asarray(jax_boxes.tesseract_bbox(jax_boxes.scale_boxes(
             ref["boxes"], ratio, cfg_j)))[valid])
+
+
+@pytest.mark.parametrize("name", ["funsd_0001129658", "table_english"])
+def test_extract_boxes_low_text_threshold_matches_jax(golden, name):
+    """The branch text_threshold < low_text (K4 labels, K5 stats with the
+    peak filter) on the golden CRAFT's fp32 heatmaps of a reference page:
+    boxes (of the valid slots), valid, count and num_components equal the
+    JAX XLA path's."""
+    img = load_image(os.path.join(ROOT, "images", f"{name}.png"))
+    cfg_j = JaxOcrConfig(text_threshold=0.3, use_pallas="off")
+    canvas = jax_canvas_prep(jnp.asarray(img), cfg_j)
+    scores, _ = craft_forward(golden["jct"], canvas[None], golden["jcc"],
+                              compute_dtype=jnp.float32)
+    text, link = np.asarray(scores[0, :, :, 0]), np.asarray(scores[0, :, :, 1])
+    cfg = OcrConfig(text_threshold=0.3)
+    mask = content_mask(img.shape[0], img.shape[1], cfg, "cpu")
+    assert mask.shape == text.shape
+    ref = jax_boxes.extract_boxes(jnp.array(text), jnp.array(link),
+                                  jnp.array(mask.numpy()), cfg_j)
+    assert int(ref["cc_iters"]) < 64
+    got = t_boxes.extract_boxes(torch.from_numpy(text), torch.from_numpy(link), mask, cfg)
+    valid = np.asarray(ref["valid"])
+    assert valid.sum() > 0
+    np.testing.assert_array_equal(got["valid"].numpy(), valid)
+    # The port zeroes the invalid slots' boxes; JAX leaves their extents.
+    np.testing.assert_array_equal(got["boxes"].numpy()[valid], np.asarray(ref["boxes"])[valid])
+    assert int(got["count"]) == int(ref["count"])
+    assert int(got["num_components"]) == int(ref["num_components"])
 
 
 def test_crops_match_jax():

@@ -4,7 +4,8 @@ stacking and plain version against the JAX package's Pallas kernel.
 * `stack_vit_block_weights` equals the JAX bundle bit for bit (casts and
   concatenations only).
 * `vit_blocks_plain` against `vit_blocks_pallas(..., interpret=True)` at
-  d = 128, S = 128, 4 heads, N = 16, 2 and 3 blocks, as
+  d = 128, S = 128 and S = 64 (32x64 crops), 4 heads, N = 16, 2 and 3
+  blocks, as
   tests/test_pallas_vit.py runs it. Both use the tanh GELU and round at the
   same places; what differs is the order of fp32 sums, and a bf16 rounding
   that this flips grows through the blocks: max abs err <= 1e-2 and mean
@@ -33,7 +34,7 @@ from tuatara_tpu.ops.pallas.vit import stack_vit_block_weights as jax_stack
 from tuatara_tpu.ops.pallas.vit import vit_blocks_pallas
 from tuatara_tpu_torch.config import ParseqConfig
 from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
-from tuatara_tpu_torch.kernels.vit import stack_vit_block_weights, vit_blocks
+from tuatara_tpu_torch.kernels.vit import check_geometry, stack_vit_block_weights, vit_blocks
 from tuatara_tpu_torch.models.parseq import Parseq
 from tuatara_tpu_torch.weights import parseq_state_dict
 
@@ -77,8 +78,8 @@ def test_stack_equals_jax_bundle():
 
 
 @pytest.mark.parametrize("n_blocks,tb", [(2, 4), (3, 8)])
-def test_plain_matches_pallas_interpret(n_blocks, tb):
-    d, s, heads, n = 128, 128, 4, 16
+def test_plain_matches_pallas_interpret(n_blocks, tb, s=128):
+    d, heads, n = 128, 4, 16
     blocks = [L.init_vit_block(k, d, 4.0) for k in jax.random.split(jax.random.PRNGKey(0), n_blocks)]
     x = np.random.default_rng(n_blocks).standard_normal((n, s, d)).astype(np.float32)
     st = jax_stack(blocks)
@@ -88,6 +89,11 @@ def test_plain_matches_pallas_interpret(n_blocks, tb):
     got = vit_blocks(torch.from_numpy(x), _to_torch(st), heads)
     assert LAUNCHES["vit_blocks"] == 0  # CPU tensor: the plain version
     _assert_close(got.numpy(), want)
+
+
+def test_plain_matches_pallas_interpret_64_tokens():
+    """32x64 crops: 64 tokens per crop."""
+    test_plain_matches_pallas_interpret(2, 4, s=64)
 
 
 def test_encode_pallas_matches_jax():
@@ -125,3 +131,32 @@ def test_prestack_gates():
     assert not any(k.startswith(("enc_stacked", "dec_stacked")) for k in m.state_dict())
     # The per-block encoder modules are released once K6's bundle holds them.
     assert len(m.enc) == 0 and not any(k.startswith("enc.") for k in m.state_dict())
+
+
+def test_kernel_geometry_checks():
+    """K6's CUDA kernel takes 64 or 128 tokens per crop (head width 64, D and
+    the MLP width multiples of 128); the check runs in the wrapper and, for
+    an engine on the card, when `prestack` builds the bundle."""
+    for s in (64, 128):
+        check_geometry(s, 384, 6, 1536)
+    for s in (32, 96, 256):
+        with pytest.raises(ValueError, match="S in"):
+            check_geometry(s, 384, 6, 1536)
+    with pytest.raises(ValueError, match="head width 64"):
+        check_geometry(128, 384, 12, 1536)
+
+    def port(width):
+        cfg = JaxParseqConfig(embed_dim=128, enc_depth=1, enc_heads=2, dec_heads=4,
+                              max_label_length=7, img_size=(32, width),
+                              encoder_impl="pallas")
+        return _port_parseq(init_parseq_params(jax.random.PRNGKey(3), cfg), cfg)
+
+    for width in (64, 128):
+        m = port(width)
+        m.prestack(torch.bfloat16, torch.device("cuda"))
+        assert m.enc_stacked is not None
+    with pytest.raises(ValueError, match="S in"):
+        port(96).prestack(torch.bfloat16, torch.device("cuda"))
+    m = port(96)
+    m.prestack(torch.bfloat16, torch.device("cpu"))  # the plain version takes any S
+    assert m.enc_stacked is not None

@@ -5,8 +5,10 @@ preset: `image_to_data(image)` -> `OcrEngine.run_pages`, axis-aligned
 boxes, greedy AR decode with one cloze refinement. A batch of same-sized
 pages goes through
 
-1. canvas prep and the CRAFT forward, batched;
-2. per page: `extract_boxes` (the CUDA kernels K1-K3 on the card), scaling
+1. canvas prep and the CRAFT forward, batched (conv1_2 + ReLU + pool1 as
+   the CUDA kernel K8 where `models.craft.FUSED_STAGE1` lets it);
+2. per page: `extract_boxes` (the CUDA kernels K1-K3 on the card, or K4,
+   K2 and K5 when text_threshold < low_text), scaling
    to image coordinates, crop windows, and compaction of the valid boxes to
    the front (stable, so component raster order is kept);
 3. one recognition slab over all pages' live boxes, padded to the
@@ -142,7 +144,7 @@ class OcrEngine:
         self.craft.load_state_dict(craft_state_dict(craft_tree, self.craft_config.bn_eps))
         self.parseq = Parseq(self.parseq_config)
         self.parseq.load_state_dict(parseq_state_dict(parseq_tree))
-        self.parseq.prestack(self.dtype)  # from the fp32 weights, before the cast
+        self.parseq.prestack(self.dtype, self.device)  # fp32 weights, before the cast
         for m in (self.craft, self.parseq):
             m.eval().requires_grad_(False)
             set_compute_dtype(m, self.dtype)

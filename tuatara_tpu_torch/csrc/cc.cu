@@ -1,11 +1,15 @@
 // Connected components of the detection heatmap, for Hopper (sm_90a).
 //
-// Replaces two Pallas kernels of the JAX package:
+// Replaces three Pallas kernels of the JAX package:
 //   * tt_label_components_aux replaces label_components_pallas_aux
 //     (tuatara_tpu/ops/pallas/cc.py:213): 4-connected labels of `mask`,
 //     each the smallest raster index of its component (-1 on background),
 //     plus `auxmin`, the smallest raster index of the component's `aux`
 //     pixels (exactly 2^30 on background and where the component has none).
+//   * tt_label_components replaces label_components_pallas (cc.py:89): the
+//     same labels without the aux channel (the branch text_threshold <
+//     low_text). The TPU kernel also returns its sweep count; union-find
+//     has none.
 //   * tt_area_ok replaces area_ok_pallas (cc.py:146): per pixel, whether its
 //     component's area is >= min_area.
 //
@@ -13,7 +17,8 @@
 // main path's 512x384 heatmap one int32 plane is 0.8 MB, far below the
 // 50 MB L2, so the passes below run mostly out of L2; the floor is the
 // bytes each function must move (mask + aux in, labels + auxmin out:
-// 10 B/pixel; labels in, a byte out: 5 B/pixel) at 3.35 TB/s.
+// 10 B/pixel; mask in, labels out: 5 B/pixel; labels in, a byte out:
+// 5 B/pixel) at 3.35 TB/s.
 //
 // Design. The TPU kernel sweeps a doubling segmented min over the whole
 // image in VMEM until nothing changes; a GPU block cannot hold the image
@@ -28,6 +33,7 @@
 //   3. flatten: parent[i] = find(i); hot pixels atomicMin their index into
 //      auxmin[root], which serves as the root-indexed scratch.
 //   4. gather: non-root pixels copy auxmin[root]; roots keep their own.
+// The labels-only entry runs passes 1-3 without the aux channel.
 // Union-find reaches the true components in one pass, with no sweep cap.
 // The area filter is a label-indexed histogram (warp-aggregated atomicAdd:
 // neighbouring pixels of a row mostly share a label) and a gather-compare,
@@ -69,12 +75,13 @@ __device__ __forceinline__ void unite(int* parent, int a, int b) {
   }
 }
 
+// auxmin and aux may be null (labels only).
 __global__ void cc_init(const uint8_t* __restrict__ mask, int* __restrict__ parent,
                         int* __restrict__ auxmin, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   parent[i] = mask[i] ? i : -1;
-  auxmin[i] = kBig;
+  if (auxmin) auxmin[i] = kBig;
 }
 
 __global__ void cc_merge(const uint8_t* __restrict__ mask, int* parent, int h, int w) {
@@ -91,7 +98,7 @@ __global__ void cc_flatten(const uint8_t* __restrict__ mask, const uint8_t* __re
   if (i >= n || !mask[i]) return;
   int r = find_root(parent, i);
   parent[i] = r;
-  if (aux[i]) atomicMin(auxmin + r, i);
+  if (aux && aux[i]) atomicMin(auxmin + r, i);
 }
 
 __global__ void cc_gather_aux(const int* __restrict__ labels, int* auxmin, int n) {
@@ -129,6 +136,15 @@ extern "C" int tt_label_components_aux(const uint8_t* mask, const uint8_t* aux, 
   cc_merge<<<blocks(n), kThreads, 0, stream>>>(mask, labels, h, w);
   cc_flatten<<<blocks(n), kThreads, 0, stream>>>(mask, aux, labels, auxmin, n);
   cc_gather_aux<<<blocks(n), kThreads, 0, stream>>>(labels, auxmin, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tt_label_components(const uint8_t* mask, int* labels, int h, int w,
+                                   cudaStream_t stream) {
+  int n = h * w;
+  cc_init<<<blocks(n), kThreads, 0, stream>>>(mask, labels, nullptr, n);
+  cc_merge<<<blocks(n), kThreads, 0, stream>>>(mask, labels, h, w);
+  cc_flatten<<<blocks(n), kThreads, 0, stream>>>(mask, nullptr, labels, nullptr, n);
   return (int)cudaGetLastError();
 }
 

@@ -27,9 +27,11 @@
 //                fp32 accumulators), cp.async double buffering, and an
 //                epilogue of bias -> bf16, bias + tanh-GELU -> bf16, or
 //                bias + residual add into the fp32 stream;
-//   attention    one CTA per (crop, head): Q, K, V [128 x 64] bf16 in
+//   attention    one CTA per (crop, head): Q, K, V [S x 64] bf16 in
 //                shared memory, S = Q K^T and P V on tensor cores, the
-//                fp32 softmax between them.
+//                fp32 softmax between them; instantiated for S = 64 and
+//                128 tokens per crop (the 32x64 and 32x128 crops).
+// The GEMM tiles need N * S to be a multiple of 128 (an even N at S = 64).
 // Later work: wgmma/TMA GEMMs and LayerNorm fused into the GEMM prologue.
 //
 // Launches on the caller's stream, allocates nothing, does not synchronise,
@@ -197,16 +199,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- Attention: one CTA per (crop, head), S = 128 tokens, head width 64.
-constexpr int S = 128, HD = 64;
-constexpr int LDQ = HD + 8, LDS = S + 4, LDP = S + 8;
-constexpr int kWarps = kThreads / 32;  // 8 warps x 16 query rows
-constexpr size_t kAttnSmem = sizeof(bf16) * 3 * S * LDQ + sizeof(float) * kWarps * 16 * LDS +
-                             sizeof(bf16) * kWarps * 16 * LDP;
+// ---- Attention: one CTA per (crop, head), S tokens (64 or 128), head width
+// 64; one warp per 16 query rows, so S / 16 warps.
+constexpr int HD = 64;
+constexpr int LDQ = HD + 8;
 
-__global__ void __launch_bounds__(kThreads)
+template <int S>
+struct Attn {
+  static constexpr int kWarps = S / 16;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int LDS = S + 4, LDP = S + 8;
+  static constexpr size_t kSmem = sizeof(bf16) * 3 * S * LDQ +
+                                  sizeof(float) * kWarps * 16 * LDS +
+                                  sizeof(bf16) * kWarps * 16 * LDP;
+};
+
+template <int S>
+__global__ void __launch_bounds__(Attn<S>::kThreads)
     attention(const bf16* __restrict__ qkv, bf16* __restrict__ att, int d, int heads,
               float scale) {
+  constexpr int kWarps = Attn<S>::kWarps, nthreads = Attn<S>::kThreads;
+  constexpr int LDS = Attn<S>::LDS, LDP = Attn<S>::LDP;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + S * LDQ;
@@ -217,7 +230,7 @@ __global__ void __launch_bounds__(kThreads)
   const int crop = blockIdx.x / heads, h = blockIdx.x % heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bf16* base = qkv + (size_t)crop * S * 3 * d;
-  for (int c = threadIdx.x; c < 3 * S * HD / 8; c += kThreads) {
+  for (int c = threadIdx.x; c < 3 * S * HD / 8; c += nthreads) {
     int mat = c / (S * HD / 8), rem = c % (S * HD / 8);
     int r = rem >> 3, cc = (rem & 7) * 8;
     cp_async16(&Qs[mat * S * LDQ + r * LDQ + cc], base + (size_t)r * 3 * d + mat * d + h * HD + cc);
@@ -299,26 +312,41 @@ void gemm(const bf16* A, const bf16* B, const float* bias, void* out, int M, int
   gemm_bf16<EPI><<<dim3(N / BN, M / BM), kThreads, 0, stream>>>(A, B, bias, out, M, N, K);
 }
 
+template <int S>
+cudaError_t set_attention_smem() {
+  return cudaFuncSetAttribute(attention<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)Attn<S>::kSmem);
+}
+
+template <int S>
+void launch_attention(const bf16* qkv, bf16* att, int n, int d, int heads, float scale,
+                      cudaStream_t stream) {
+  attention<S><<<n * heads, Attn<S>::kThreads, Attn<S>::kSmem, stream>>>(qkv, att, d, heads,
+                                                                        scale);
+}
+
 }  // namespace
 
-// x [n*128, d] fp32 is updated in place; h, qkv, att, hmid are scratch.
+// x [n*s, d] fp32 (s = 64 or 128 tokens per crop, n*s a multiple of 128) is
+// updated in place; h, qkv, att, hmid are scratch.
 // Weights carry a leading block dimension (stack_vit_block_weights).
 extern "C" int tt_vit_blocks(float* x, bf16* h, bf16* qkv, bf16* att, bf16* hmid,
                              const bf16* qkv_w, const float* qkv_b, const bf16* o_w,
                              const float* o_b, const bf16* f1_w, const float* f1_b,
                              const bf16* f2_w, const float* f2_b, const float* ln1_g,
                              const float* ln1_b, const float* ln2_g, const float* ln2_b,
-                             int n_blocks, int n, int d, int heads, int hidden, float eps,
-                             cudaStream_t stream) {
-  if (d != heads * HD || d % 128 || hidden % 128 || d > 1024) return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(attention, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kAttnSmem);
+                             int n_blocks, int n, int s, int d, int heads, int hidden,
+                             float eps, cudaStream_t stream) {
+  if (d != heads * HD || d % 128 || hidden % 128 || d > 1024 || (s != 64 && s != 128) ||
+      (n * s) % BM)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set[2] = {false, false};
+  if (!attr_set[s == 128]) {
+    cudaError_t e = s == 128 ? set_attention_smem<128>() : set_attention_smem<64>();
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[s == 128] = true;
   }
-  const int m = n * S;
+  const int m = n * s;
   const int ln_blocks = (m + kThreads / 32 - 1) / (kThreads / 32);
   const float scale = 1.0f / sqrtf((float)HD);
   for (int blk = 0; blk < n_blocks; ++blk) {
@@ -326,7 +354,10 @@ extern "C" int tt_vit_blocks(float* x, bf16* h, bf16* qkv, bf16* att, bf16* hmid
                                                 h, m, d, eps);
     gemm<kEpiBf16>(h, qkv_w + (size_t)blk * d * 3 * d, qkv_b + (size_t)blk * 3 * d, qkv, m, 3 * d,
                    d, stream);
-    attention<<<n * heads, kThreads, kAttnSmem, stream>>>(qkv, att, d, heads, scale);
+    if (s == 128)
+      launch_attention<128>(qkv, att, n, d, heads, scale, stream);
+    else
+      launch_attention<64>(qkv, att, n, d, heads, scale, stream);
     gemm<kEpiResidual>(att, o_w + (size_t)blk * d * d, o_b + (size_t)blk * d, x, m, d, d, stream);
     ln_bf16<<<ln_blocks, kThreads, 0, stream>>>(x, ln2_g + (size_t)blk * d, ln2_b + (size_t)blk * d,
                                                 h, m, d, eps);

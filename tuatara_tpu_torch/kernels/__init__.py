@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their launch counts.
 
-Each wrapper (in `cc.py`, `stats.py`, `vit.py`, `decode.py`) takes a
+Each wrapper (in `cc.py`, `stats.py`, `vit.py`, `decode.py`, `stage1.py`) takes a
 tensor on the card to its CUDA kernel and a tensor on the CPU to the plain
 PyTorch version beside it.
 `LAUNCHES[name]` counts the kernel launches only, so a run can show that

@@ -1,9 +1,11 @@
-"""Connected-component kernels K1 (labels + aux min) and K2 (area filter).
+"""Connected-component kernels K1 (labels + aux min), K4 (labels only) and
+K2 (area filter).
 
-`label_components_aux` and `area_ok` launch `csrc/cc.cu` for CUDA tensors
-and run the plain versions of `ops/connected_components.py` for CPU
-tensors. They replace the Pallas kernels `label_components_pallas_aux`
-(tuatara_tpu/ops/pallas/cc.py:213) and `area_ok_pallas` (cc.py:146).
+`label_components_aux`, `label_components` and `area_ok` launch
+`csrc/cc.cu` for CUDA tensors and run the plain versions of
+`ops/connected_components.py` for CPU tensors. They replace the Pallas
+kernels `label_components_pallas_aux` (tuatara_tpu/ops/pallas/cc.py:213),
+`label_components_pallas` (cc.py:89) and `area_ok_pallas` (cc.py:146).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from tuatara_tpu_torch.ops import connected_components as plain
 
 K1 = "label_components_aux"
 K2 = "area_ok"
+K4 = "label_components"
 
 
 def _check_2d(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -51,6 +54,23 @@ def label_components_aux(mask: torch.Tensor, aux: torch.Tensor
     _raise_on(err, "tt_label_components_aux")
     LAUNCHES[K1] += 1
     return labels, auxmin
+
+
+def label_components(mask: torch.Tensor) -> torch.Tensor:
+    """mask [H, W] bool -> labels [H, W] int32: each component's smallest
+    raster index, -1 on background. JAX's kernel also returns the number
+    of sweeps it ran; union-find has no sweeps, so there is none here."""
+    if not mask.is_cuda:
+        return plain.label_components(mask)
+    _check_2d(mask, torch.bool, "mask")
+    h, w = mask.shape
+    labels = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    fn = entry("cc", "tt_label_components", 2, 2)
+    err = fn(mask.data_ptr(), labels.data_ptr(), h, w,
+             torch.cuda.current_stream(mask.device).cuda_stream)
+    _raise_on(err, "tt_label_components")
+    LAUNCHES[K4] += 1
+    return labels
 
 
 def area_ok(labels: torch.Tensor, min_area: int) -> torch.Tensor:

@@ -95,20 +95,32 @@ def vit_blocks_plain(x: torch.Tensor, st: Dict[str, torch.Tensor], heads: int,
     return x.reshape(n, s, d)
 
 
+SEQ_LENS = (64, 128)
+
+
+def check_geometry(s: int, d: int, heads: int, hidden: int) -> None:
+    """Raise unless the CUDA kernel takes this encoder: S in {64, 128}
+    tokens per crop (32x64 and 32x128 crops), a head width of 64 and D,
+    hidden multiples of 128 (ViT-S: 6 heads x 64, 384 / 1536)."""
+    if s not in SEQ_LENS or d % heads or d // heads != 64 or d % 128 or hidden % 128:
+        raise ValueError(f"vit_blocks takes S in {SEQ_LENS}, head width 64 and D, hidden "
+                         f"multiples of 128; got S={s} D={d} heads={heads} hidden={hidden}")
+
+
 def vit_blocks(x: torch.Tensor, st: Dict[str, torch.Tensor], heads: int,
                eps: float = 1e-6) -> torch.Tensor:
     """x [N, S, D] fp32 -> [N, S, D] fp32 after every stacked block. The
-    CUDA kernel takes S = 128, a head width of 64 and D, hidden multiples of
-    128 (ViT-S: 128 tokens, 6 heads x 64, 384 / 1536)."""
+    CUDA kernel takes the geometries `check_geometry` accepts, with N * S a
+    multiple of 128 (its GEMM tile): an even N at S = 64."""
     if not x.is_cuda:
         return vit_blocks_plain(x, st, heads, eps)
     if x.dim() != 3 or x.dtype != torch.float32:
         raise ValueError(f"x: expected [N, S, D] float32, got {tuple(x.shape)} {x.dtype}")
     n, s, d = x.shape
     nb, _, hidden = st["f1_w"].shape
-    if s != 128 or d % heads or d // heads != 64 or d % 128 or hidden % 128:
-        raise ValueError(f"vit_blocks takes S = 128, head width 64 and D, hidden "
-                         f"multiples of 128; got S={s} D={d} heads={heads} hidden={hidden}")
+    check_geometry(s, d, heads, hidden)
+    if (n * s) % 128:
+        raise ValueError(f"vit_blocks needs N * S to be a multiple of 128; got N={n} S={s}")
     shapes = {"qkv_w": (nb, d, 3 * d), "qkv_b": (nb, 3 * d), "o_w": (nb, d, d),
               "o_b": (nb, d), "f1_w": (nb, d, hidden), "f1_b": (nb, hidden),
               "f2_w": (nb, hidden, d), "f2_b": (nb, d), "ln1_g": (nb, d),
@@ -129,9 +141,9 @@ def vit_blocks(x: torch.Tensor, st: Dict[str, torch.Tensor], heads: int,
     qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
     att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     hmid = torch.empty((m, hidden), dtype=torch.bfloat16, device=dev)
-    fn = entry("vit", "tt_vit_blocks", 17, 5, 1)
+    fn = entry("vit", "tt_vit_blocks", 17, 6, 1)
     err = fn(out.data_ptr(), h.data_ptr(), qkv.data_ptr(), att.data_ptr(), hmid.data_ptr(),
-             *(st[k].data_ptr() for k in WEIGHTS), nb, n, d, heads, hidden, float(eps),
+             *(st[k].data_ptr() for k in WEIGHTS), nb, n, s, d, heads, hidden, float(eps),
              torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "tt_vit_blocks")
     LAUNCHES[K6] += 1

@@ -14,6 +14,10 @@ conv -> ReLU chains. Architecture:
   per side of the concat (`conv1_split`), in the reference op order:
   upsample, then conv.
 * Head: 3x[3x3 conv + ReLU] -> 1x1 conv + ReLU -> 1x1 conv to 2 channels.
+
+`FUSED_STAGE1` gates kernel K8 (`kernels/stage1.py`), which runs conv1_2,
+its ReLU and pool1 as one pass, as the JAX package's gate of the same name
+does (`tuatara_tpu/models/craft.py:279-298`).
 """
 
 from __future__ import annotations
@@ -25,9 +29,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from tuatara_tpu_torch.config import CraftConfig
+from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool
 from tuatara_tpu_torch.models.layers import Conv
 
 _STAGE_COUNTS = (2, 2, 3, 3, 2)
+
+# "off" (the default, as in JAX): conv1_2 -> ReLU -> pool1 as three calls.
+# "on": K8 wherever `_fused_stage1_ok` holds (the plain version on the CPU).
+# "auto": K8 on the card only, as JAX's "auto" takes it on the TPU only.
+FUSED_STAGE1 = "off"
 
 
 def vgg_plan(cfg: CraftConfig):
@@ -92,6 +102,22 @@ class Craft(nn.Module):
         y = F.relu(ya + yb)
         return F.relu(self.up[block]["conv2"](y))
 
+    def _fused_stage1_ok(self, x: torch.Tensor) -> bool:
+        """JAX's gate (`models/craft.py:283-298`): serving (not training), a
+        folded tree (the port's always is: BatchNorms fold at load), conv1_1
+        and conv1_2 not quantized (float weights), bf16 compute, and the
+        canvas [B, H, W, C] with H % 16 == 0 and W % 2 == 0."""
+        if FUSED_STAGE1 == "off" or self.training:
+            return False
+        w11 = self.vgg["conv1_1"]["conv"].weight
+        w12 = self.vgg["conv1_2"]["conv"].weight
+        ok = (w11.is_floating_point() and w12.is_floating_point()
+              and w12.dtype == torch.bfloat16
+              and x.shape[1] % 16 == 0 and x.shape[2] % 2 == 0)
+        if FUSED_STAGE1 == "on":
+            return ok
+        return ok and x.is_cuda
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, H, W, C] float in [0, 1], C = 3 or 1 (gray is broadcast to
         conv1_1's input channels). Returns (scores [B, H/2, W/2, 2] fp32 —
@@ -109,8 +135,22 @@ class Craft(nn.Module):
         if h.shape[1] == 1 and cin != 1:
             h = h.expand(-1, cin, -1, -1)
         skips: Dict[str, torch.Tensor] = {}
-        for name, _, _, pool_before, skip in self.plan:
-            if pool_before:
+        start = 0
+        if self._fused_stage1_ok(x):
+            # conv1_1 -> ReLU as usual, then K8 runs conv1_2 + ReLU + pool1
+            # (stage 1 has no skip), so conv2_1 skips its pool. K8 reads
+            # channels_last: conv1_1's input already is (the NHWC canvas or
+            # its normalized copy) unless a gray canvas was broadcast to its
+            # channels, and the convolution keeps its input's layout.
+            h = h.contiguous(memory_format=torch.channels_last)
+            h = F.relu(self.vgg["conv1_1"]["conv"](h))
+            c12 = self.vgg["conv1_2"]["conv"]
+            h = fused_conv_pool(h, c12.weight, c12.bias)
+            start = 2
+        for idx, (name, _, _, pool_before, skip) in enumerate(self.plan):
+            if idx < start:
+                continue
+            if pool_before and not (start and idx == start):  # K8 pooled already
                 h = F.max_pool2d(h, 2, 2)
             h = self.vgg[name]["conv"](h)
             if skip is not None:

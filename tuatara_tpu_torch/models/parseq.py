@@ -105,16 +105,24 @@ class Parseq(nn.Module):
         self.enc_stacked: Optional[Bundle] = None
         self.dec_stacked: Optional[Bundle] = None
 
-    def prestack(self, compute_dtype: torch.dtype) -> None:
+    def prestack(self, compute_dtype: torch.dtype,
+                 device: Optional[torch.device] = None) -> None:
         """Build the fused kernels' weight bundles from the fp32 parameters
         (before `set_compute_dtype`), as the JAX engine pre-stacks at
         construction: K6's when encoder_impl == "pallas", K7's when
-        decode_impl == "pallas", both only at bf16 compute. Once K6's bundle
-        is built, `encode` no longer reads the per-block modules, so they are
-        released rather than kept as a second copy of the encoder."""
+        decode_impl == "pallas", both only at bf16 compute. For a CUDA
+        `device`, a geometry that K6's kernel does not take (e.g. S outside
+        {64, 128}) raises here, not at the first page; on the CPU the plain
+        version takes any. Once K6's bundle is built, `encode` no longer
+        reads the per-block modules, so they are released rather than kept
+        as a second copy of the encoder."""
         if compute_dtype != torch.bfloat16:
             return
         if self.cfg.encoder_impl == "pallas":
+            cfg = self.cfg
+            if device is not None and torch.device(device).type == "cuda":
+                K6.check_geometry(cfg.seq_len, cfg.embed_dim, cfg.enc_heads,
+                                  int(cfg.embed_dim * cfg.enc_mlp_ratio))
             self.enc_stacked = Bundle(K6.stack_vit_block_weights(self.enc))
             self.enc = nn.ModuleList()
         if self.cfg.decode_impl == "pallas":

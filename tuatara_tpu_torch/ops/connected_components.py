@@ -20,7 +20,7 @@ components: there is no sweep cap as in the JAX labeler.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -94,22 +94,43 @@ def area_ok(labels: torch.Tensor, min_area: int) -> torch.Tensor:
     return (fg & (area[tgt] >= min_area)).reshape(h, w)
 
 
+def _presence(tgt: torch.Tensor, pixels: torch.Tensor, n: int) -> torch.Tensor:
+    """[n] bool per raster index: the component rooted there holds a pixel
+    of `pixels` (a scatter-max keyed by root; background goes to slot n)."""
+    out = torch.zeros(n + 1, dtype=torch.int32, device=tgt.device)
+    out.scatter_reduce_(0, tgt, pixels.to(torch.int32), reduce="amax")
+    return out[:n] > 0
+
+
 def component_roots_filtered(labels: torch.Tensor, max_components: int,
-                             hot_min: torch.Tensor, area_ok_map: torch.Tensor
+                             hot_min: Optional[torch.Tensor], area_ok_map: torch.Tensor,
+                             hot: Optional[torch.Tensor] = None,
+                             keep: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raster-first roots of the components that pass the filters.
 
     A component passes when its area is >= min_area (`area_ok_map`) and it
-    holds a hot pixel (`hot_min < 2**30`). The filters run before the
-    budget, so sub-threshold specks cannot use up box slots. Returns
-    (roots [K] int32, number of raw components)."""
+    holds a hot pixel. With `hot_min` (the aux channel of K1, the branch
+    text_threshold >= low_text) that is `hot_min < 2**30`. Without it (the
+    branch text_threshold < low_text, labels from K4) the component must
+    hold a pixel of the `hot` mask and one of the `keep` mask, not
+    necessarily the same one: the JAX package's `hot_implies_keep=False`.
+    The filters run before the budget, so sub-threshold specks cannot use
+    up box slots. Returns (roots [K] int32, number of raw components)."""
     h, w = labels.shape
     n = h * w
     flat = labels.reshape(-1)
     idx = torch.arange(n, device=labels.device, dtype=torch.int32)
     is_root = (flat >= 0) & (flat == idx)
     n_raw = is_root.sum()
-    ok = is_root & area_ok_map.reshape(-1) & (hot_min.reshape(-1) < BIG)
+    if hot_min is not None:
+        present = hot_min.reshape(-1) < BIG
+    else:
+        fg = flat >= 0
+        tgt = torch.where(fg, flat.long(), torch.full_like(flat, n, dtype=torch.long))
+        present = (_presence(tgt, hot.reshape(-1) & fg, n)
+                   & _presence(tgt, keep.reshape(-1) & fg, n))
+    ok = is_root & area_ok_map.reshape(-1) & present
     scores = torch.where(ok, idx, torch.full_like(idx, BIG))
     k = min(max_components, n)
     # The k smallest passing indices, ascending: the set and order the JAX
