@@ -44,11 +44,17 @@ line without a CUDA device or outside the repo.
              on the same input; K7's ids equal up to the first EOS on >= 99%
              of crops and its step-0 logits within 5e-2. Times, bounds
              (K7's bytes counted from the tiles' steps and tokens on each
-             input), beside K6 the eager block chain (cuBLAS) at the same N,
-             and K7's time at 2, 4, 8 and 16 crops per tile. K6 also runs
-             on S = 64 slabs, each real slab's first 64 token rows (the
-             32x64 crops of `rec_width=64`), under the same limit and
-             control.
+             input), beside K6 the eager block chain (cuBLAS) at the same N.
+             K6's device time per encode split by launch role (LN1+QKV,
+             attention, out-projection, LN2+fc1, fc2; `torch.profiler`,
+             whose kernel records a call give the launches an encode), each
+             GEMM beside the device time of `torch.matmul` of its shapes;
+             K6 on seeded random blocks at an MLP width of 1280 (fc1's
+             64 x 128 tiles) under the same limit; K7's
+             time per step (the call over its longest tile's steps) and at
+             4, 8 and 16 crops x 4 and 6 CTAs per cluster. K6 also runs on
+             S = 64 slabs, each real slab's first 64 token rows (the 32x64
+             crops of `rec_width=64`), under the same limit and control.
 4d. K8:      `fused_conv_pool` on the four pages' real conv1_1 -> ReLU
              activations (the default canvases, B = 1, in the trunk's
              channels_last layout) against its plain version: relative
@@ -98,7 +104,7 @@ MIN_WORD_SHARE = 0.95
 K6_MAX_REL = 7e-3
 K7_MIN_IDS = 0.99
 K7_MAX_STEP0 = 5e-2
-K7_TILES = (2, 4, 8, 16)
+K7_TILES = ((4, 4), (4, 6), (8, 4), (8, 6), (16, 4), (16, 6))  # (crops, CTAs) per cluster
 K8_MAX_REL = 1e-3
 MIN_AGREEMENT = 0.98
 MAX_ACC_DROP = 0.02
@@ -113,6 +119,12 @@ BF16_OPS_PER_S = 989e12
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", flush=True)
     sys.exit(1)
+
+
+def mean_of(values):
+    """The mean of the values that were measured (not None), else None."""
+    have = [v for v in values if v is not None]
+    return sum(have) / len(have) if have else None
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -434,6 +446,124 @@ def decode_bytes(logits, mem_k, mem_v, st, tb, bos) -> int:
     return nbytes((mem_k, mem_v)) + fixed + step_rows + table + logits.numel() * 4
 
 
+def traced_kernels(fn, path, port_only):
+    """The kernel records of one `torch.profiler` trace of fn(), in start
+    order: the port's own kernels, or (port_only False) every kernel."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    if port_only:
+        events = [e for e in events
+                  if "(anonymous namespace)::" in e["name"] and "at::" not in e["name"]]
+    return sorted(events, key=lambda e: e["ts"])
+
+
+def k6_split(x, st, heads, eps, reps=3, gemm_calls=10):
+    """K6's device time per encode by launch role (`vit.LAUNCH_ROLES`, the
+    launches of one block in order), from `torch.profiler` traces of
+    `reps` calls, one call a trace, and beside each GEMM role the device
+    time of `torch.matmul` of its shapes (bf16; `gemm_calls` calls in one
+    trace) times the block count, as its yardstick. A trace that lost
+    kernel records is taken again, up to three times. -> ({role: ms},
+    {role: library ms}, kernels traced a call), or ({}, {}, None) if the
+    traces kept losing kernel records."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import vit
+
+    roles = vit.LAUNCH_ROLES
+    n, s, d = x.shape
+    nb, _, hidden = st["f1_w"].shape
+    vit.vit_blocks(x, st, heads, eps)
+    torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "k6_split_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    split = dict.fromkeys(roles, 0.0)
+    counted = []  # kernel records in each accepted trace of one call
+    for _ in range(reps):
+        for _attempt in range(3):
+            events = traced_kernels(lambda: vit.vit_blocks(x, st, heads, eps), path, True)
+            if len(events) == nb * len(roles):
+                break
+        else:  # a measurement, not a gate: reported as not measured
+            print(f"kernel {vit.K6} split not measured: {len(events)} kernels traced in a "
+                  f"call, expected {nb * len(roles)}", flush=True)
+            return {}, {}, None
+        counted.append(len(events))
+        for i, e in enumerate(events):
+            split[roles[i % len(roles)]] += e["dur"] / 1e3 / reps
+    m = n * s
+    shapes = {"qkv": (m, d, 3 * d), "out_proj": (m, d, d), "fc1": (m, d, hidden),
+              "fc2": (m, hidden, d)}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    library = {}
+    for role in roles:
+        gemm = next((k for k in shapes if k in role), None)
+        if gemm is None:
+            continue
+        mm, kk, nn = shapes[gemm]
+        a = torch.randn(mm, kk, device="cuda", generator=g).to(torch.bfloat16)
+        b = torch.randn(kk, nn, device="cuda", generator=g).to(torch.bfloat16)
+        torch.matmul(a, b)
+
+        def calls():
+            for _ in range(gemm_calls):
+                torch.matmul(a, b)
+
+        for _attempt in range(3):  # cuBLAS launches the same kernels every call
+            events = traced_kernels(calls, path, False)
+            if events and len(events) % gemm_calls == 0:
+                library[role] = nb * sum(e["dur"] for e in events) / 1e3 / gemm_calls
+                break
+        else:
+            library[role] = None
+    return split, library, sum(counted) / len(counted)
+
+
+def check_k6_mlp_width(heads, eps, hidden=1280, n=16, s=128, d=384, n_blocks=2):
+    """K6 at an MLP width that 192 does not divide, which takes fc1's
+    64 x 128 tiles (PARSEQ's 1536 takes 64 x 192): seeded random blocks
+    against the plain version, to the same limit as the real slabs."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import vit
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, device="cuda", generator=g) * scale + shift
+
+    shapes = {"qkv_w": (d, 3 * d), "qkv_b": (3 * d,), "o_w": (d, d), "o_b": (d,),
+              "f1_w": (d, hidden), "f1_b": (hidden,), "f2_w": (hidden, d), "f2_b": (d,),
+              "ln1_g": (d,), "ln1_b": (d,), "ln2_g": (d,), "ln2_b": (d,)}
+    st = {}
+    for k in vit.WEIGHTS:
+        shape = (n_blocks, *shapes[k])
+        if k.endswith("_w"):
+            st[k] = rnd(*shape, scale=shape[1] ** -0.5).to(torch.bfloat16)
+        else:
+            st[k] = rnd(*shape, scale=0.1, shift=1.0 if k.endswith("_g") else 0.0)
+    x = rnd(n, s, d)
+    got = vit.vit_blocks(x, st, heads, eps)
+    ref = vit.vit_blocks_plain(x, st, heads, eps)
+    torch.cuda.synchronize()
+    rel = float((got - ref).norm() / ref.norm())
+    err = float((got - ref).abs().max())
+    label = f"random{n}/mlp{hidden}"
+    print(f"kernel {vit.K6:24s} {label:18s} N={n} S={s} hidden={hidden} rel_err={rel:.2e}",
+          flush=True)
+    if not torch.isfinite(got).all() or rel > K6_MAX_REL:
+        fail(f"{vit.K6} on {label}: relative error {rel} > {K6_MAX_REL}")
+    return {"input": label, "n": n, "s": s, "hidden": hidden, "rel_err": rel,
+            "max_abs_err": err}
+
+
 def first_eos_ids(logits):
     """[N, T] ids with every position after the first EOS set to 0."""
     ids = logits.argmax(-1)
@@ -508,17 +638,28 @@ def check_recognizer_kernels(lat, default, pages, launches):
         if max(ctl, mem_ctl) <= K6_MAX_REL:
             fail(f"{vit.K6} tolerance {K6_MAX_REL} on {label} does not reject the eager erf "
                  f"block chain: relative error {ctl} (blocks), {mem_ctl} (final memory)")
+        split, split_lib, per_call = k6_split(x, st6, heads, eps) \
+            if not label.startswith("random") else ({}, {}, None)
         row = {"input": label, "n": n, "s": s, "rel_err": rel, "memory_rel_err": mem_rel,
                "control_rel_err": ctl, "control_memory_rel_err": mem_ctl,
                "max_abs_err": err6,
                "ms": cuda_ms(lambda: vit.vit_blocks(x, st6, heads, eps), 20),
                "plain_ms": cuda_ms(lambda: vit.vit_blocks_plain(x, st6, heads, eps), 3, 1),
                "eager_ms": cuda_ms(eager, 10),
-               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+               "split_ms": split, "split_library_ms": split_lib,
+               "launches_per_call": per_call}
         print(f"kernel {vit.K6:24s} {label:18s} N={n} S={s} rel_err={rel:.2e} "
               f"memory_rel_err={mem_rel:.2e} control={ctl:.2e}/{mem_ctl:.2e} ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.3f} eager_ms={row['eager_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.5f}", flush=True)
+        if split:
+            print(f"kernel {vit.K6:24s} {label:18s} launches/encode {per_call} (traced)",
+                  flush=True)
+            print(f"kernel {vit.K6:24s} {label:18s} split ms/encode "
+                  + " ".join(f"{k}={v:.4f}" for k, v in split.items())
+                  + "; torch.matmul device ms/encode "
+                  + " ".join(f"{k}={v}" for k, v in split_lib.items()), flush=True)
         return row
 
     for label, x, (mk, mv) in cases:
@@ -538,25 +679,32 @@ def check_recognizer_kernels(lat, default, pages, launches):
             fail(f"{decode.K7} on {label}: ids equal on {same:.4f} of crops, step-0 "
                  f"max abs err {err7}")
         b_ms = decode_bytes(lg, mk, mv, pq.dec_stacked, decode.TB, bos) / HBM_BYTES_PER_S * 1e3
-        o_ms = decode_ops(lg, decode.TB, d, pq.dec_stacked["f1_w"].shape[1], s, C) \
+        o_ms = decode_ops(lg, decode.TB, d, pq.dec_stacked["f1_b"].shape[0], s, C) \
             / BF16_OPS_PER_S * 1e3
         row = {"input": label, "n": n, "ids_equal": same, "max_abs_err": err7,
                "ms": cuda_ms(lambda: decode.greedy_decode(mk, mv, *dargs), 20),
                "plain_ms": cuda_ms(lambda: decode.greedy_decode_plain(mk, mv, *dargs), 3, 1),
                "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
                "ms_by_tile": {}, "ids_equal_by_tile": {}}
-        for tb in K7_TILES:  # why the engine takes decode.TB crops per tile
-            lt = decode.greedy_decode(mk, mv, *dargs, tb=tb)
-            row["ids_equal_by_tile"][tb] = float(
-                (first_eos_ids(lt) == first_eos_ids(pl)).all(1).float().mean())
-            row["ms_by_tile"][tb] = cuda_ms(lambda: decode.greedy_decode(mk, mv, *dargs, tb=tb),
-                                            10)
+        # The tiles run side by side: a call lasts as long as its longest tile.
+        row["steps"] = max(steps for _, _, steps in tile_steps(lg, decode.TB))
+        row["ms_per_step"] = row["ms"] / row["steps"]
+        for tb, cs in K7_TILES:  # why the engine takes decode.TB crops, CLUSTER CTAs
+            key = f"{tb}x{cs}"
+            lt = decode.greedy_decode(mk, mv, *dargs, tb=tb, cluster=cs)
+            pt = decode.greedy_decode_plain(mk, mv, *dargs, tb=tb) if tb != decode.TB else pl
+            row["ids_equal_by_tile"][key] = float(
+                (first_eos_ids(lt) == first_eos_ids(pt)).all(1).float().mean())
+            row["ms_by_tile"][key] = cuda_ms(
+                lambda: decode.greedy_decode(mk, mv, *dargs, tb=tb, cluster=cs), 10)
         rows[decode.K7].append(row)
         print(f"kernel {decode.K7:24s} {label:18s} N={n} ids_equal={same:.4f} "
               f"step0_err={err7:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
-              f"bound_ms={row['bound_ms']:.5f} ms_by_tile="
+              f"bound_ms={row['bound_ms']:.5f} steps={row['steps']} "
+              f"ms_per_step={row['ms_per_step']:.4f} ms_by_tile="
               f"{json.dumps(row['ms_by_tile'])}", flush=True)
 
+    rows[vit.K6].append(check_k6_mlp_width(heads, eps))
     sources = {vit.K6: ("tuatara_tpu_torch/csrc/vit.cu", "tuatara_tpu/ops/pallas/vit.py:181"),
                decode.K7: ("tuatara_tpu_torch/csrc/decode.cu",
                            "tuatara_tpu/ops/pallas/decode.py:271")}
@@ -577,12 +725,20 @@ def check_recognizer_kernels(lat, default, pages, launches):
                "timed_on": "mean over the latency path's slabs of the four pages",
                "per_input": rs}
         if name == vit.K6:
+            traced = [r["launches_per_call"] for r in main_rows if r["launches_per_call"]]
+            row["launches_per_call"] = max(traced) if traced else None
             row["eager_ms"] = mean("eager_ms")
             row["s64"] = {k: sum(r[k] for r in s64) / len(s64)
                           for k in ("ms", "plain_ms", "eager_ms", "bound_ms")}
             row["s64"]["max_rel_err"] = max(max(r["rel_err"], r["memory_rel_err"]) for r in s64)
+            for key in ("split_ms", "split_library_ms"):  # S = 128 slabs, where traced
+                have = [r[key] for r in main_rows if r[key]]
+                row[key] = {k: mean_of([h[k] for h in have]) for k in have[0]} \
+                    if have else None
             row["s64"]["min_control_rel_err"] = min(
                 max(r["control_rel_err"], r["control_memory_rel_err"]) for r in s64)
+        if name == decode.K7:
+            row["ms_per_step"] = mean("ms_per_step")
         out.append(row)
     return out
 

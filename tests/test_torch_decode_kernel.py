@@ -18,6 +18,16 @@ plain version against the JAX package.
   least 90% of positions, as `test_kernel_math_matches_xla_decode` asks.
 * Tile early exit: positions past a tile's stop hold EOS-certain logits,
   and transcripts do not depend on the tile size.
+* The tile size changes no result: with tiles of 1, 4, 16 and 32 crops
+  (the JAX engine decodes in tiles of 32, tuatara_tpu/models/parseq.py:375;
+  the port's kernel in tiles of `TB`), the ids up to each crop's first EOS
+  are equal, and after the cloze refine and the confidence, as the
+  latency path applies them, so are the transcripts and confidences: the
+  refine masks every key after the first EOS, so the EOS-certain fill
+  that a tile's early stop leaves is never read.
+* The CUDA kernel's geometry refusals (`check_geometry`): head width,
+  steps, memory length, crops per tile and CTAs per cluster; and the
+  tile-major packing of the weights it streams.
 
 The CUDA kernel runs only on the card (`chip_smoke.py` holds it against
 `greedy_decode_plain` there); here the wrapper takes the plain path.
@@ -39,8 +49,10 @@ from tuatara_tpu.models.parseq import init_parseq_params, parseq_encode
 from tuatara_tpu.ops.pallas.decode import stack_decode_weights as jax_stack
 from tuatara_tpu_torch.config import ParseqConfig
 from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
-from tuatara_tpu_torch.kernels.decode import greedy_decode, stack_decode_weights
-from tuatara_tpu_torch.models.parseq import Parseq
+from tuatara_tpu_torch.kernels.decode import (TILED, check_geometry, greedy_decode,
+                                              stack_decode_weights, tile_major, untile)
+from tuatara_tpu_torch.models.parseq import Parseq, confidence
+from tuatara_tpu_torch.tokenizer import Tokenizer
 from tuatara_tpu_torch.weights import parseq_state_dict
 
 CFG = JaxParseqConfig(embed_dim=64, enc_depth=1, enc_heads=4, dec_heads=4, max_label_length=7)
@@ -61,7 +73,8 @@ def setup():
         jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), params)))
     to_t = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)  # noqa: E731
     return {"params": params, "jst": jax_stack(params, CFG), "st": stack_decode_weights(m),
-            "mem_k": mem_k, "mem_v": mem_v, "t_mem_k": to_t(mem_k), "t_mem_v": to_t(mem_v)}
+            "mem_k": mem_k, "mem_v": mem_v, "t_mem_k": to_t(mem_k), "t_mem_v": to_t(mem_v),
+            "model": m, "memory": torch.from_numpy(np.array(memory.astype(jnp.float32)))}
 
 
 def _decode(s, st=None, tb=16):
@@ -81,6 +94,9 @@ def test_bundle_matches_jax(setup):
     assert set(got) == set(want) - {"seg", "segT"}
     for k, t in got.items():
         ref = np.asarray(want[k].astype(jnp.float32))
+        if k in TILED:  # the streamed weights are held tile-major
+            assert t.shape == (ref.shape[1] // 16, ref.shape[0], 16), k
+            t = untile(t)
         val = t.float().numpy()
         assert val.shape == ref.shape, k
         if k not in COMPUTED:
@@ -133,3 +149,65 @@ def test_tile_early_exit_and_tile_size(setup):
     upto = _upto_first_eos(ref)
     for tb in (5, 1):
         np.testing.assert_array_equal(runs[tb].argmax(-1)[upto], ref[upto])
+
+
+def test_results_do_not_depend_on_tile_size(setup):
+    """Tiles of 1, 4, 16 and 32 crops, with the EOS bias raised so that
+    crops end at different steps and tiles stop at different steps: equal
+    ids up to each crop's first EOS, then equal transcripts and
+    confidences after the refine and the confidence."""
+    st = dict(setup["st"])
+    logits0 = _decode(setup).numpy()
+    h_b = st["h_b"].clone()
+    h_b[0] += float(np.median(logits0.max(-1)[:, 1] - logits0[:, 1, 0]))
+    st["h_b"] = h_b
+    runs = {tb: _decode(setup, st, tb) for tb in (1, 4, 16, 32)}
+    ref = runs[32].argmax(-1).numpy()
+    upto = _upto_first_eos(ref)
+    assert upto.sum(1).min() < upto.sum(1).max()  # crops end at different steps
+    assert (runs[1].numpy() != runs[32].numpy()).any()  # so the tiles' fills differ
+    m, tok = setup["model"], Tokenizer()
+    out = {}
+    with torch.no_grad():
+        for tb, logits in runs.items():
+            np.testing.assert_array_equal(logits.argmax(-1).numpy()[upto], ref[upto], err_msg=tb)
+            ids, conf = confidence(m.refine(setup["memory"], logits))
+            out[tb] = (tok.decode_ids(ids.numpy()), conf.numpy())
+    assert len(set(map(tuple, (t for t, _ in out.values())))) == 1
+    for tb, (_, conf) in out.items():
+        np.testing.assert_array_equal(conf, out[32][1], err_msg=tb)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"heads": 6}, "head width 32"),          # D = 384 over 6 heads: width 64
+    ({"t": 33}, "T <= 32"),
+    ({"s": 100}, "S % 32"),
+    ({"tb": 0}, "tb <= 16"),
+    ({"tb": 17}, "tb <= 16"),
+    ({"cluster": 5}, "cluster of 5"),         # does not divide the 12 heads
+    ({"cluster": 9}, "cluster of 9"),
+    ({"cluster": 2}, "cluster of 2"),         # 768 MLP columns a CTA
+])
+def test_kernel_geometry_checks(kw, match):
+    """The CUDA kernel's refusals; PARSEQ's decoder (12 heads, D = 384, MLP
+    1536, T = 26, S = 128 or 64) is taken at 4 or 6 CTAs per cluster and 1
+    to 16 crops per tile."""
+    base = {"d": 384, "heads": 12, "t": 26, "s": 128, "hidden": 1536, "tb": 4, "cluster": 6}
+    for cluster in (4, 6):
+        for tb in (1, 4, 16):
+            check_geometry(**dict(base, tb=tb, cluster=cluster))
+    check_geometry(**dict(base, s=64))
+    with pytest.raises(ValueError, match=match):
+        check_geometry(**dict(base, **kw))
+
+
+def test_tile_major_packing():
+    """The streamed weights as N / 16 column tiles of [K, 16], which
+    `untile` turns back into [K, N]."""
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal((48, 64), np.float32))
+    w = w.to(torch.bfloat16)
+    p = tile_major(w)
+    assert p.shape == (4, 48, 16) and p.is_contiguous()
+    for t in range(4):
+        assert torch.equal(p[t], w[:, 16 * t:16 * t + 16])
+    assert torch.equal(untile(p), w)

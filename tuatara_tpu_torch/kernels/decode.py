@@ -34,12 +34,17 @@ from tuatara_tpu_torch.kernels.cc import _raise_on
 from tuatara_tpu_torch.kernels.vit import layernorm, mm
 
 K7 = "greedy_decode"
-# Crops per tile. A tile is one CTA that streams every step's weights
-# through one SM, so its step time is set by that stream plus its crops'
-# attention; on an H100, 4 crops per tile decode the latency path's slabs
-# about 1.45x faster than 16 (chip_smoke.py phase 4b times 2, 4, 8 and 16;
-# numbers in PERF.md).
+# Crops per tile and CTAs per tile. A tile is one thread-block cluster of
+# CLUSTER CTAs that split every step's heads and product columns among
+# them, so a step streams 1 / CLUSTER of the weights through each SM; fewer
+# crops a tile mean fewer attention rounds a warp. `chip_smoke.py` phase 4b
+# times 4, 8 and 16 crops x 4 and 6 CTAs on the latency path's slabs: 4 x 6
+# is fastest on an H100 (numbers in PERF.md).
 TB = 4
+CLUSTER = 6
+# The products' weights that the kernel streams, which the bundle holds
+# tile-major ([N / 16, K, 16], see `tile_major`).
+TILED = ("o_w", "cq_w", "co_w", "f1_w", "f2_w")
 WEIGHTS = ("pos_q", "qh_all", "k_tab", "v_tab", "o_w", "o_b", "cq_w", "cq_b",
            "co_w", "co_b", "f1_w", "f1_b", "f2_w", "f2_b", "h_w", "h_b",
            "norm1_g", "norm1_b", "norm2_g", "norm2_b", "dec_norm_g", "dec_norm_b")
@@ -58,8 +63,9 @@ def stack_decode_weights(parseq: torch.nn.Module) -> Dict[str, torch.Tensor]:
     parameters (`stack_decode_weights`, tuatara_tpu/ops/pallas/decode.py:60):
     the position queries, the token-independent self-attention queries
     (rounded to bf16), the content K/V table over every (position, token)
-    pair [T, V, D] in bf16, the remaining matmul weights in bf16 ([in, out])
-    with fp32 biases, and the three LayerNorms in fp32. The TPU kernel's
+    pair [T, V, D] in bf16, the remaining matmul weights in bf16 ([in, out];
+    the five that the kernel streams, `TILED`, packed by `tile_major`) with
+    fp32 biases, and the three LayerNorms in fp32. The TPU kernel's
     head-segment matrices are not needed here."""
     cfg = parseq.cfg
     layer = parseq.dec[0]
@@ -79,7 +85,8 @@ def stack_decode_weights(parseq: torch.nn.Module) -> Dict[str, torch.Tensor]:
         for name, lin in (("o", layer.self_attn.o), ("cq", layer.cross_attn.q),
                           ("co", layer.cross_attn.o), ("f1", layer.linear1),
                           ("f2", layer.linear2), ("h", parseq.head)):
-            out[f"{name}_w"] = lin.weight.detach().float().t().to(torch.bfloat16).contiguous()
+            w = lin.weight.detach().float().t().to(torch.bfloat16).contiguous()
+            out[f"{name}_w"] = tile_major(w) if f"{name}_w" in TILED else w
             out[f"{name}_b"] = lin.bias.detach().float().clone()
         for name, ln in (("norm1", layer.norm1), ("norm2", layer.norm2),
                          ("dec_norm", parseq.dec_norm)):
@@ -98,6 +105,7 @@ def greedy_decode_plain(mem_k: torch.Tensor, mem_v: torch.Tensor,
     hd = d // heads
     scale = 1.0 / math.sqrt(hd)
     bf = torch.bfloat16
+    w = {k: untile(st[k]) for k in TILED}  # [in, out]
     out = torch.full((n, t, n_classes), -30.0, dtype=torch.float32, device=mem_k.device)
     out[..., 0] = 30.0  # EOS-certain: what positions a tile never reaches keep
     for t0 in range(0, n, tb):
@@ -113,15 +121,15 @@ def greedy_decode_plain(mem_k: torch.Tensor, mem_v: torch.Tensor,
             q = st["qh_all"][i].float().reshape(heads, hd)
             p = torch.softmax((kk * q).sum(-1) * scale, dim=1).to(bf).float()  # [b, i+1, H]
             attn = (p[..., None] * vv).sum(1).reshape(b, d)
-            x = st["pos_q"][i] + mm(attn.to(bf), st["o_w"], st["o_b"])
+            x = st["pos_q"][i] + mm(attn.to(bf), w["o_w"], st["o_b"])
             cn1 = layernorm(x, st["norm1_g"], st["norm1_b"], eps).to(bf)
-            qc = mm(cn1, st["cq_w"], st["cq_b"]).to(bf).float().reshape(b, 1, heads, hd)
+            qc = mm(cn1, w["cq_w"], st["cq_b"]).to(bf).float().reshape(b, 1, heads, hd)
             p = torch.softmax((mk * qc).sum(-1) * scale, dim=1).to(bf).float()  # [b, S, H]
             ctx = (p[..., None] * mv).sum(1).reshape(b, d)
-            x = x + mm(ctx.to(bf), st["co_w"], st["co_b"])
+            x = x + mm(ctx.to(bf), w["co_w"], st["co_b"])
             h2 = layernorm(x, st["norm2_g"], st["norm2_b"], eps).to(bf)
-            hmid = F.gelu(mm(h2, st["f1_w"], st["f1_b"]), approximate="tanh").to(bf)
-            x = x + mm(hmid, st["f2_w"], st["f2_b"])
+            hmid = F.gelu(mm(h2, w["f1_w"], st["f1_b"]), approximate="tanh").to(bf)
+            x = x + mm(hmid, w["f2_w"], st["f2_b"])
             y = layernorm(x, st["dec_norm_g"], st["dec_norm_b"], eps).to(bf)
             logits_i = mm(y, st["h_w"], st["h_b"])
             out[t0:t0 + b, i] = logits_i
@@ -133,12 +141,44 @@ def greedy_decode_plain(mem_k: torch.Tensor, mem_v: torch.Tensor,
     return out
 
 
+def tile_major(w: torch.Tensor) -> torch.Tensor:
+    """A [K, N] weight as N / 16 column tiles of [K, 16], each contiguous:
+    the layout in which the kernel streams it."""
+    k, n = w.shape
+    return w.reshape(k, n // 16, 16).permute(1, 0, 2).contiguous()
+
+
+def untile(p: torch.Tensor) -> torch.Tensor:
+    """`tile_major`'s inverse: [N / 16, K, 16] -> [K, N]."""
+    return p.permute(1, 0, 2).reshape(p.shape[1], -1)
+
+
+def check_geometry(d: int, heads: int, t: int, s: int, hidden: int, tb: int,
+                   cluster: int) -> None:
+    """Raise unless the CUDA kernel takes this decoder and tiling: a head
+    width of 32, T <= 32, S % 32 == 0, D <= 512, 1 <= tb <= 16 crops per
+    tile, and a cluster of 1-8 CTAs that divides the heads, with D and the
+    MLP width multiples of 16 x cluster and at most 512 columns of each a
+    CTA (PARSEQ: 12 heads, D = 384, MLP 1536; clusters of 4 or 6)."""
+    if (d % heads or d // heads != 32 or t > 32 or s % 32 or d > 512
+            or not 1 <= tb <= 16):
+        raise ValueError(f"greedy_decode takes head width 32, T <= 32, S % 32 == 0, "
+                         f"D <= 512 and 1 <= tb <= 16; got D={d} heads={heads} T={t} "
+                         f"S={s} tb={tb}")
+    if (not 1 <= cluster <= 8 or heads % cluster or d % (16 * cluster)
+            or hidden % (16 * cluster) or hidden // cluster > 512):
+        raise ValueError(f"greedy_decode: a cluster of {cluster} CTAs must be 1-8, divide "
+                         f"the {heads} heads, and split D={d} and the MLP width "
+                         f"{hidden} into multiples of 16 of at most 512 columns")
+
+
 def greedy_decode(mem_k: torch.Tensor, mem_v: torch.Tensor, st: Dict[str, torch.Tensor],
                   heads: int, t: int, n_classes: int, bos_id: int, eps: float = 1e-6,
-                  tb: int = TB) -> torch.Tensor:
+                  tb: int = TB, cluster: int = CLUSTER) -> torch.Tensor:
     """mem_k, mem_v [N, S, D] bf16 -> logits [N, T, C] fp32 (see module
-    doc). The CUDA kernel takes a head width of 32, T <= 32, S % 32 == 0,
-    D <= 512 and D, the MLP width multiples of 16, C <= 128 and tb <= 16."""
+    doc). The CUDA kernel takes the geometries `check_geometry` accepts;
+    `cluster` (CTAs per tile) changes no result, `tb` only which positions
+    past a crop's first EOS keep the EOS-certain fill."""
     if not mem_k.is_cuda:
         return greedy_decode_plain(mem_k, mem_v, st, heads, t, n_classes, bos_id, eps, tb)
     for name, a in (("mem_k", mem_k), ("mem_v", mem_v)):
@@ -149,13 +189,8 @@ def greedy_decode(mem_k: torch.Tensor, mem_v: torch.Tensor, st: Dict[str, torch.
         raise ValueError("mem_k and mem_v must share shape and device")
     n, s, d = mem_k.shape
     v = st["k_tab"].shape[1]
-    hidden = st["f1_w"].shape[1]
-    if (d % heads or d // heads != 32 or t > 32 or s % 32 or d % 16 or hidden % 16
-            or n_classes > 128 or not 1 <= tb <= 16 or d > 512):
-        raise ValueError(f"greedy_decode takes head width 32, T <= 32, S % 32 == 0, "
-                         f"D <= 512 and D, hidden multiples of 16, C <= 128, tb <= 16; "
-                         f"got D={d} heads={heads} T={t} S={s} hidden={hidden} "
-                         f"C={n_classes} tb={tb}")
+    hidden = st["f1_b"].shape[0]
+    check_geometry(d, heads, t, s, hidden, tb, cluster)
     shapes = {"pos_q": (t, d), "qh_all": (t, d), "k_tab": (t, v, d), "v_tab": (t, v, d),
               "o_w": (d, d), "o_b": (d,), "cq_w": (d, d), "cq_b": (d,),
               "co_w": (d, d), "co_b": (d,), "f1_w": (d, hidden), "f1_b": (hidden,),
@@ -164,6 +199,8 @@ def greedy_decode(mem_k: torch.Tensor, mem_v: torch.Tensor, st: Dict[str, torch.
               "dec_norm_g": (d,), "dec_norm_b": (d,)}
     bf16_keys = ("qh_all", "k_tab", "v_tab", "o_w", "cq_w", "co_w", "f1_w", "f2_w", "h_w")
     for k, shape in shapes.items():
+        if k in TILED:
+            shape = (shape[1] // 16, shape[0], 16)
         w = st[k]
         want = torch.bfloat16 if k in bf16_keys else torch.float32
         if tuple(w.shape) != shape or w.dtype != want or not w.is_contiguous() \
@@ -173,9 +210,10 @@ def greedy_decode(mem_k: torch.Tensor, mem_v: torch.Tensor, st: Dict[str, torch.
     if any(a.data_ptr() % 32 for a in (mem_k, mem_v, *(st[k] for k in bf16_keys))):
         raise ValueError("greedy_decode: bf16 inputs must be 32-byte aligned")
     out = torch.empty((n, t, n_classes), dtype=torch.float32, device=mem_k.device)
-    fn = entry("decode", "tt_greedy_decode", 25, 10, 2)
+    fn = entry("decode", "tt_greedy_decode", 25, 11, 2)
     err = fn(mem_k.data_ptr(), mem_v.data_ptr(), *(st[k].data_ptr() for k in WEIGHTS),
-             out.data_ptr(), n, s, d, heads, t, v, n_classes, hidden, bos_id, tb, float(eps),
+             out.data_ptr(), n, s, d, heads, t, v, n_classes, hidden, bos_id, tb, cluster,
+             float(eps),
              1.0 / math.sqrt(d // heads), torch.cuda.current_stream(mem_k.device).cuda_stream)
     _raise_on(err, "tt_greedy_decode")
     LAUNCHES[K7] += 1

@@ -26,6 +26,8 @@ from tuatara_tpu_torch.kernels._build import entry
 from tuatara_tpu_torch.kernels.cc import _raise_on
 
 K6 = "vit_blocks"
+# What each of a block's CUDA launches computes, in launch order.
+LAUNCH_ROLES = ("ln1+qkv", "attention", "out_proj", "ln2+fc1", "fc2")
 WEIGHTS = ("qkv_w", "qkv_b", "o_w", "o_b", "f1_w", "f1_b", "f2_w", "f2_b",
            "ln1_g", "ln1_b", "ln2_g", "ln2_b")
 
@@ -132,17 +134,17 @@ def vit_blocks(x: torch.Tensor, st: Dict[str, torch.Tensor], heads: int,
                 or w.device != x.device:
             raise ValueError(f"{k}: expected contiguous {shape} {want} on {x.device}, "
                              f"got {tuple(w.shape)} {w.dtype} on {w.device}")
-    if any(st[k].data_ptr() % 16 for k in WEIGHTS if k.endswith("_w")):
-        raise ValueError("vit_blocks: bf16 weights must be 16-byte aligned")
+    if any(st[k].data_ptr() % 16 for k in WEIGHTS):  # TMA; 16- and 8-byte vector loads
+        raise ValueError("vit_blocks: weights, biases and LayerNorm parameters must be "
+                         "16-byte aligned")
     m = n * s
     out = x.contiguous().clone()
     dev = x.device
-    h = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
     att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     hmid = torch.empty((m, hidden), dtype=torch.bfloat16, device=dev)
-    fn = entry("vit", "tt_vit_blocks", 17, 6, 1)
-    err = fn(out.data_ptr(), h.data_ptr(), qkv.data_ptr(), att.data_ptr(), hmid.data_ptr(),
+    fn = entry("vit", "tt_vit_blocks", 16, 6, 1)
+    err = fn(out.data_ptr(), qkv.data_ptr(), att.data_ptr(), hmid.data_ptr(),
              *(st[k].data_ptr() for k in WEIGHTS), nb, n, s, d, heads, hidden, float(eps),
              torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "tt_vit_blocks")
