@@ -26,14 +26,21 @@ line without a CUDA device or outside the repo.
              at all. Prints each page's box count beside the default
              path's.
 4. kernels:  each kernel against its plain PyTorch version on the card, on
-             the inputs the main path gives it (the four pages) and on
-             seeded random masks at 384x384 and 512x384 with K = 256. All
-             outputs must be equal. Times with CUDA events after warm-up;
-             prints one {"kernels": [...]} line.
+             the inputs the main path gives it (the four pages), on seeded
+             random masks at 384x384 and 512x384, and on masks that stress
+             the labeler (`stress_masks`: full-width rows at widths 384 and
+             512, a serpentine, a comb, pixels that touch only diagonally,
+             all foreground), with K = 256. All outputs must be equal. Times
+             with CUDA events after warm-up (`ms`), and device time per call
+             (`device_ms`) and records per call from the kernel and memset
+             records of a `torch.profiler` trace of 10 calls (null where the
+             trace lost records); K1 may take at most 3 and K4 at most 2
+             launches a call. Prints one {"kernels": [...]} line.
 4c. K4, K5:  the same, on path A's inputs (hot at text_threshold 0.3, the
              normalized region map): labels, the four count planes and the
-             peak (-1e30 in empty slots) equal bit for bit; ms/call, device
-             ms/page (ms/call x launches/page in 3c) and the byte bound.
+             peak (-1e30 in empty slots) equal bit for bit; ms/call, traced
+             device ms/call, device ms/page (device ms/call x launches/page
+             in 3c) and the byte bound.
 4b. recognizer kernels: K6 and K7 against their plain versions on the
              slabs the latency path gives them on the four pages and on a
              seeded random [32, 128, 384]: K6's output, and the final
@@ -57,10 +64,13 @@ line without a CUDA device or outside the repo.
              crops of `rec_width=64`), under the same limit and control.
 4d. K8:      `fused_conv_pool` on the four pages' real conv1_1 -> ReLU
              activations (the default canvases, B = 1, in the trunk's
-             channels_last layout) against its plain version: relative
+             channels_last layout), and on funsd_0001129658's repeated 16
+             times (B = 16, the dense serving batch), with CRAFT's packed
+             conv1_2 weights, against its plain version: relative
              (Frobenius) error within 1e-3, and a control that must exceed
-             it, the plain version with the 3x3 taps flipped. Timed beside the cuDNN chain the port runs otherwise
-             (bf16 conv2d -> relu -> max_pool2d).
+             it, the plain version with the 3x3 taps flipped. Timed (CUDA
+             events and traced device time) beside the cuDNN chain the port
+             runs otherwise (bf16 conv2d -> relu -> max_pool2d).
 5. parity:   the same pages at compute_dtype float32 (TF32 off for convs
              and matmuls) against the JAX package's float32 result
              (tests/fixtures/torch_reference_production.json): at least
@@ -106,6 +116,7 @@ K7_MIN_IDS = 0.99
 K7_MAX_STEP0 = 5e-2
 K7_TILES = ((4, 4), (4, 6), (8, 4), (8, 6), (16, 4), (16, 6))  # (crops, CTAs) per cluster
 K8_MAX_REL = 1e-3
+K8_BATCH, K8_BATCH_PAGE = 16, "funsd_0001129658"  # BASELINE.md config 1's dense batch
 MIN_AGREEMENT = 0.98
 MAX_ACC_DROP = 0.02
 # H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate, the vector
@@ -142,10 +153,43 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def stress_masks():
+    """[(label, mask)] of numpy bool masks that stress the labeler: rows
+    that run the full width (384 and 512 pixels, across every 32-pixel
+    segment border), a serpentine (one component through every other row,
+    joined at alternate ends, so most of its pixels lie far from its
+    minimum), a comb (teeth on every other column joined only by the
+    bottom row: a component's minimum at the top of the first tooth),
+    pixels that touch only diagonally (4-connectivity keeps each apart)
+    and all foreground."""
+    import numpy as np
+
+    h, w = 512, 384
+    out = []
+    for hh, ww in ((512, 384), (384, 512)):
+        m = np.zeros((hh, ww), bool)
+        m[::2] = True
+        out.append((f"rows{ww}", m))
+    m = np.zeros((h, w), bool)
+    m[::2] = True
+    m[1:h - 1:4, -1] = True
+    m[3:h - 1:4, 0] = True
+    out.append(("serpentine", m))
+    m = np.zeros((h, w), bool)
+    m[:, ::2] = True
+    m[-1] = True
+    out.append(("comb", m))
+    yy, xx = np.mgrid[:h, :w]
+    out.append(("diagonal", (yy + xx) % 2 == 0))
+    out.append(("all", np.ones((h, w), bool)))
+    return out
+
+
 def kernel_cases(engine, pages):
     """(label, comb, hot, keep, tn, hot_low) on the card: each page's
     binarized heatmap from the main path's detector (hot_low: the hot
-    pixels at path A's text_threshold), then seeded random masks."""
+    pixels at path A's text_threshold), then seeded random masks, then the
+    stress masks with seeded random hot, keep and tn."""
     import dataclasses
 
     import numpy as np
@@ -173,7 +217,39 @@ def kernel_cases(engine, pages):
         hot_low = comb & (rng.random((hh, ww)) < 0.2)
         cases.append((f"random{hh}x{ww}",) + tuple(
             torch.from_numpy(a).cuda() for a in (comb, hot, keep, tn, hot_low)))
+    for label, comb in stress_masks():
+        hh, ww = comb.shape
+        hot = comb & (rng.random((hh, ww)) < 0.05)
+        keep = rng.random((hh, ww)) < 0.8
+        tn = rng.random((hh, ww)).astype(np.float32)
+        hot_low = comb & (rng.random((hh, ww)) < 0.2)
+        cases.append((label,) + tuple(
+            torch.from_numpy(a).cuda() for a in (comb, hot, keep, tn, hot_low)))
     return cases
+
+
+def traced_per_call(fn, calls=10):
+    """Device ms and device records (kernels and memsets) per call of fn,
+    from one `torch.profiler` trace of `calls` calls: the sum of the
+    records' durations over the calls. A trace whose record count is not a
+    multiple of `calls` lost records and is taken again, up to three times.
+    -> (ms, records) per call, or (None, None)."""
+    import torch
+
+    path = os.path.join(ROOT, "build", "per_call_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    for _attempt in range(3):
+        events = traced_kernels(run, path, False, cats=("kernel", "gpu_memset"))
+        if events and len(events) % calls == 0:
+            return sum(e["dur"] for e in events) / 1e3 / calls, len(events) // calls
+    return None, None
 
 
 def check_kernels(engine, pages, launches, low_launches):
@@ -188,6 +264,7 @@ def check_kernels(engine, pages, launches, low_launches):
     K = engine.config.max_boxes
     m = engine.config.min_component_area
     rows = {n: [] for n in (cc.K1, cc.K2, stats.K3, cc.K4, stats.K5)}
+    max_launches = {cc.K1: 3, cc.K4: 2}
     for label, comb, hot, keep, tn, hot_low in kernel_cases(engine, pages):
         h, w = comb.shape
         n = h * w
@@ -232,14 +309,20 @@ def check_kernels(engine, pages, launches, low_launches):
                 fail(f"{name} differs from its plain version on {label} "
                      f"(max abs err {err})")
             ms = cuda_ms(kfn, 30)
+            dev_ms, per_call = traced_per_call(kfn)
+            if per_call is not None and per_call > max_launches.get(name, per_call):
+                fail(f"{name} took {per_call} launches a call on {label} (at most "
+                     f"{max_launches[name]})")
             pms = cuda_ms(pfn, 3, warmup=1)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / VECTOR_OPS_PER_S * 1e3
             rows[name].append({"input": label, "shape": [h, w], "roots": n_roots,
-                               "ms": ms, "plain_ms": pms, "bound_ms": max(bytes_ms, ops_ms),
+                               "ms": ms, "device_ms": dev_ms, "launches_per_call": per_call,
+                               "plain_ms": pms, "bound_ms": max(bytes_ms, ops_ms),
                                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                                "max_abs_err": err})
-            print(f"kernel {name:24s} {label:18s} {h}x{w} ms={ms:.4f} "
-                  f"plain_ms={pms:.3f} bound_ms={max(bytes_ms, ops_ms):.5f}", flush=True)
+            print(f"kernel {name:24s} {label:18s} {h}x{w} ms={ms:.4f} device_ms={dev_ms} "
+                  f"launches/call={per_call} plain_ms={pms:.3f} "
+                  f"bound_ms={max(bytes_ms, ops_ms):.5f}", flush=True)
         empty = int((got5[4] == stats.EMPTY_PEAK).sum())
         print(f"kernel {stats.K5:24s} {label:18s} roots={int((roots5 < plain.BIG).sum())} "
               f"empty_peak_slots={empty}", flush=True)
@@ -253,22 +336,28 @@ def check_kernels(engine, pages, launches, low_launches):
                           "tuatara_tpu/ops/pallas/stats.py:120")}
     out = []
     for name, rs in rows.items():
-        main = [r for r in rs if not r["input"].startswith("random")]
+        main = [r for r in rs if r["input"] in pages]
         path = launches if name in (cc.K1, cc.K2, stats.K3) else low_launches
 
         def mean(key):
             return sum(r[key] for r in main) / len(main)
 
         per_page = path.get(name, 0) / len(pages)
+        dev_ms = mean_of([r["device_ms"] for r in main])
+        traced = [r["launches_per_call"] for r in rs if r["launches_per_call"] is not None]
         out.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": path.get(name, 0),
-            "launches_per_page": per_page, "device_ms_per_page": mean("ms") * per_page,
+            "launches_per_page": per_page,
+            "device_ms_per_page": dev_ms * per_page if dev_ms is not None else None,
             "equal": True, "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": mean("ms"), "kernel_ms": mean("ms"), "plain_ms": mean("plain_ms"),
-            "bound_ms": mean("bound_ms"), "bound_by": main[0]["bound_by"],
-            "library_ms": None, "timed_on": "mean over the main path's pages",
-            "random_ms": {r["input"]: r["ms"] for r in rs if r["input"].startswith("random")},
+            "ms": mean("ms"), "device_ms": dev_ms,
+            "launches_per_call": max(traced) if traced else None,
+            "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "bound_by": main[0]["bound_by"], "library_ms": None,
+            "timed_on": "mean over the main path's pages",
+            "other_inputs": {r["input"]: {"ms": r["ms"], "device_ms": r["device_ms"]}
+                             for r in rs if r["input"] not in pages},
         })
     return out
 
@@ -276,7 +365,8 @@ def check_kernels(engine, pages, launches, low_launches):
 def stage1_inputs(engine, pages):
     """Each page's conv1_1 -> ReLU activation [1, 64, H, W] bf16 on the
     default path's canvas (a forward hook on conv1_1), in the memory layout
-    the trunk holds (channels_last)."""
+    the trunk holds (channels_last); then funsd_0001129658's repeated 16
+    times, the dense serving batch (B = 16)."""
     import torch
     import torch.nn.functional as F
 
@@ -288,7 +378,10 @@ def stage1_inputs(engine, pages):
             engine.detect(torch.from_numpy(img[None]).cuda())
     finally:
         handle.remove()
-    return list(zip(pages, seen))
+    cases = list(zip(pages, seen))
+    x = dict(cases)[K8_BATCH_PAGE]
+    batch = x.expand(K8_BATCH, -1, -1, -1).contiguous(memory_format=torch.channels_last)
+    return cases + [(f"{K8_BATCH_PAGE}x{K8_BATCH}", batch)]
 
 
 def check_stage1(engine, pages, launches):
@@ -301,24 +394,30 @@ def check_stage1(engine, pages, launches):
 
     c12 = engine.craft.vgg["conv1_2"]["conv"]
     w, b = c12.weight, c12.bias
+    wp = engine.craft.conv1_2_packed
+    flipped_wp = stage1.pack_conv_pool_weights(w.flip(-1, -2))
     rows = []
     for label, x in stage1_inputs(engine, pages):
         bsz, c, h, wd = x.shape
         o = w.shape[0]
-        got = stage1.fused_conv_pool(x, w, b)
-        ref = stage1.fused_conv_pool_plain(x, w, b)
-        flipped = stage1.fused_conv_pool_plain(x, w.flip(-1, -2).contiguous(), b)
+        got = stage1.fused_conv_pool(x, wp, b)
+        ref = stage1.fused_conv_pool_plain(x, wp, b)
+        flipped = stage1.fused_conv_pool_plain(x, flipped_wp, b)
         torch.cuda.synchronize()
 
         def rel(y):
             return float((y.float() - ref.float()).norm() / ref.float().norm())
 
         err, ctl = rel(got), rel(flipped)
+        del flipped
         if not torch.isfinite(got.float()).all() or err > K8_MAX_REL:
             fail(f"{stage1.K8} on {label}: relative error {err} > {K8_MAX_REL}")
         if ctl <= K8_MAX_REL:
             fail(f"{stage1.K8} tolerance {K8_MAX_REL} on {label} does not reject the "
                  f"flipped taps: relative error {ctl}")
+
+        def kernel():
+            return stage1.fused_conv_pool(x, wp, b)
 
         def library():
             return F.max_pool2d(F.relu(c12(x)), 2, 2)
@@ -326,29 +425,45 @@ def check_stage1(engine, pages, launches):
         nbytes = (bsz * h * wd * c + bsz * (h // 2) * (wd // 2) * o) * 2
         ops = 2 * 9 * c * o * bsz * h * wd
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        dev_ms, per_call = traced_per_call(kernel)
+        lib_dev_ms, lib_per_call = traced_per_call(library)
         row = {"input": label, "shape": [bsz, c, h, wd], "rel_err": err,
                "control_rel_err": ctl,
                "max_abs_err": float((got.float() - ref.float()).abs().max()),
-               "ms": cuda_ms(lambda: stage1.fused_conv_pool(x, w, b), 20),
-               "plain_ms": cuda_ms(lambda: stage1.fused_conv_pool_plain(x, w, b), 5, 1),
-               "library_ms": cuda_ms(library, 20),
+               "ms": cuda_ms(kernel, 20), "device_ms": dev_ms, "launches_per_call": per_call,
+               "plain_ms": cuda_ms(lambda: stage1.fused_conv_pool_plain(x, wp, b), 3, 1),
+               "library_ms": cuda_ms(library, 20), "library_device_ms": lib_dev_ms,
+               "library_launches_per_call": lib_per_call,
                "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
         rows.append(row)
-        print(f"kernel {stage1.K8:24s} {label:18s} {h}x{wd} rel_err={err:.2e} "
-              f"control={ctl:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
-              f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.5f}", flush=True)
+        print(f"kernel {stage1.K8:24s} {label:18s} {bsz}x{h}x{wd} rel_err={err:.2e} "
+              f"control={ctl:.2e} ms={row['ms']:.4f} device_ms={dev_ms} "
+              f"launches/call={per_call} plain_ms={row['plain_ms']:.3f} "
+              f"library_ms={row['library_ms']:.4f} library_device_ms={lib_dev_ms} "
+              f"bound_ms={row['bound_ms']:.5f}", flush=True)
+
+    main = [r for r in rows if r["input"] in pages]
 
     def mean(key):
-        return sum(r[key] for r in rows) / len(rows)
+        return mean_of([r[key] for r in main])
 
+    batch = rows[-1]
     return [{"name": stage1.K8, "route": "cuda", "source": "tuatara_tpu_torch/csrc/stage1.cu",
              "replaces": "tuatara_tpu/ops/pallas/stage1.py:134",
              "launches": launches.get(stage1.K8, 0),
              "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": mean("ms"),
+             "device_ms": mean("device_ms"),
+             "launches_per_call": max((r["launches_per_call"] for r in rows
+                                       if r["launches_per_call"] is not None), default=None),
              "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-             "bound_by": rows[0]["bound_by"], "library_ms": mean("library_ms"),
+             "bound_by": main[0]["bound_by"], "library_ms": mean("library_ms"),
+             "library_device_ms": mean("library_device_ms"),
              "library": "cuDNN conv2d -> relu -> max_pool2d, bf16",
-             "timed_on": "mean over the default path's four canvases", "per_input": rows}]
+             "timed_on": "mean over the default path's four canvases",
+             "batch16": {k: batch[k] for k in ("input", "ms", "device_ms", "library_ms",
+                                                "library_device_ms", "bound_ms", "rel_err",
+                                                "control_rel_err")},
+             "per_input": rows}]
 
 
 def word_share(ref_words, got_words) -> float:
@@ -446,9 +561,11 @@ def decode_bytes(logits, mem_k, mem_v, st, tb, bos) -> int:
     return nbytes((mem_k, mem_v)) + fixed + step_rows + table + logits.numel() * 4
 
 
-def traced_kernels(fn, path, port_only):
-    """The kernel records of one `torch.profiler` trace of fn(), in start
-    order: the port's own kernels, or (port_only False) every kernel."""
+def traced_kernels(fn, path, port_only, cats=("kernel",)):
+    """The device records of one `torch.profiler` trace of fn(), in start
+    order: the kernel records (and those of the other categories in
+    `cats`, e.g. "gpu_memset"), of the port's own kernels only or (port_only
+    False) all."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -457,7 +574,7 @@ def traced_kernels(fn, path, port_only):
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+                  if e.get("ph") == "X" and e.get("cat") in cats]
     if port_only:
         events = [e for e in events
                   if "(anonymous namespace)::" in e["name"] and "at::" not in e["name"]]
@@ -648,7 +765,8 @@ def check_recognizer_kernels(lat, default, pages, launches):
                "eager_ms": cuda_ms(eager, 10),
                "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
                "split_ms": split, "split_library_ms": split_lib,
-               "launches_per_call": per_call}
+               "launches_per_call": per_call,
+               "device_ms": sum(split.values()) if split else None}
         print(f"kernel {vit.K6:24s} {label:18s} N={n} S={s} rel_err={rel:.2e} "
               f"memory_rel_err={mem_rel:.2e} control={ctl:.2e}/{mem_ctl:.2e} ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.3f} eager_ms={row['eager_ms']:.4f} "
@@ -689,6 +807,8 @@ def check_recognizer_kernels(lat, default, pages, launches):
         # The tiles run side by side: a call lasts as long as its longest tile.
         row["steps"] = max(steps for _, _, steps in tile_steps(lg, decode.TB))
         row["ms_per_step"] = row["ms"] / row["steps"]
+        row["device_ms"], row["launches_per_call"] = traced_per_call(
+            lambda: decode.greedy_decode(mk, mv, *dargs))
         for tb, cs in K7_TILES:  # why the engine takes decode.TB crops, CLUSTER CTAs
             key = f"{tb}x{cs}"
             lt = decode.greedy_decode(mk, mv, *dargs, tb=tb, cluster=cs)
@@ -737,8 +857,11 @@ def check_recognizer_kernels(lat, default, pages, launches):
                     if have else None
             row["s64"]["min_control_rel_err"] = min(
                 max(r["control_rel_err"], r["control_memory_rel_err"]) for r in s64)
+        row["device_ms"] = mean_of([r["device_ms"] for r in main_rows])
         if name == decode.K7:
             row["ms_per_step"] = mean("ms_per_step")
+            traced = [r["launches_per_call"] for r in main_rows if r["launches_per_call"]]
+            row["launches_per_call"] = max(traced) if traced else None
         out.append(row)
     return out
 

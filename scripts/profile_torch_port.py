@@ -14,6 +14,10 @@ traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
   and recognize (crops, PARSEQ, confidence) as the engine records them;
 * device busy time per page (union of CUDA kernel and memcpy intervals on
   the trace) and the device's idle share of the wall time;
+* CRAFT's device time per page: the kernels launched inside its forward
+  (a `record_function` range around `engine.craft`, its launches matched
+  to their kernels by correlation id), the figure that says whether K8
+  (`--fused-stage1`) beats the cuDNN chain end to end;
 * the CUDA kernels with the most device time, grouped by name, and the
   number of kernel launches per page.
 
@@ -50,6 +54,21 @@ def busy_us(events):
     return total
 
 
+def range_kernels(events, name):
+    """The kernel records launched inside the CPU ranges called `name`: the
+    runtime and driver calls (cudaLaunchKernel, cuLaunchKernel and the
+    like) that fall in a range, matched to their kernels by correlation
+    id."""
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") == name]
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {})
+            and any(a <= e["ts"] <= b for a, b in ranges)}
+    return [e for e in events if e.get("cat") == "kernel"
+            and e.get("args", {}).get("correlation") in corr]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
@@ -78,6 +97,13 @@ def main() -> int:
               "latency": tuatara_tpu_torch.OcrConfig.latency,
               "lowthresh": lambda: tuatara_tpu_torch.OcrConfig(text_threshold=0.3)}[args.config]()
     engine = tuatara_tpu_torch.api.get_engine(config, WEIGHTS)
+    craft_forward = engine.craft.forward
+
+    def traced_craft(*a, **kw):
+        with torch.profiler.record_function("craft"):
+            return craft_forward(*a, **kw)
+
+    engine.craft.forward = traced_craft
     for img in pages:  # warm-up: cuDNN plans, allocator, kernel build
         engine.run(img)
     torch.cuda.synchronize()
@@ -101,8 +127,9 @@ def main() -> int:
                          f"{'_stage1' if args.fused_stage1 else ''}.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        every = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    events = [e for e in every if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    craft_ms = sum(e["dur"] for e in range_kernels(every, "craft")) / 1e3
     kernels = [e for e in events if e["cat"] == "kernel"]
     busy = busy_us(events) / 1e3
     by_name = {}
@@ -117,7 +144,8 @@ def main() -> int:
           f"{1 - busy / (wall * 1e3):.3f}; kernel launches/page "
           f"{len(kernels) / n_pages:.0f}")
     total_k = sum(v[0] for v in by_name.values())
-    print(f"kernel time: {total_k / n_pages:.2f} ms/page")
+    print(f"kernel time: {total_k / n_pages:.2f} ms/page; CRAFT kernels "
+          f"{craft_ms / n_pages:.3f} ms/page")
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {ms / n_pages:8.3f} ms/page {cnt / n_pages:7.1f} launches/page "
               f"{ms / total_k * 100:5.1f}%  {name[:110]}")

@@ -4,6 +4,12 @@ K1 (labels + aux), K4 (labels only), K2 (area filter), K3 (counts), K5
 (counts + peak, -1e30 in empty slots) and the filtered root selection of
 both detection branches.
 
+The CUDA labeler of K1 and K4 (csrc/cc.cu) is held here through a numpy
+model of its passes: run-start parents per 32-pixel warp segment (ballot +
+clz), unions only across segment borders and the reduced vertical ones,
+atomicMin linking with retries, run with its unions interleaved in several
+seeded random orders, then flatten and the aux minimum.
+
 The CUDA kernels themselves run only on the card; `chip_smoke.py` holds
 them against these plain versions there. Here the wrappers must take the
 plain path for CPU tensors and count no launch.
@@ -59,6 +65,109 @@ def _masks():
     cases.append(("snake", snake, hot))
     cases.append(("empty", np.zeros((32, 128), bool), np.zeros((32, 128), bool)))
     return cases
+
+
+def _stress_masks(h=20, w=100):
+    """The labeler's hard cases at a small size whose rows cross three
+    32-pixel segment borders and end inside a segment: full-width rows, a
+    serpentine, a comb (teeth joined only by the bottom row), pixels that
+    touch only diagonally, all foreground, and a random mask."""
+    rows = np.zeros((h, w), bool)
+    rows[::2] = True
+    comb = np.zeros((h, w), bool)
+    comb[:, ::2] = True
+    comb[-1] = True
+    yy, xx = np.mgrid[:h, :w]
+    rng = np.random.default_rng(5)
+    return [("rows", rows), ("serpentine", _snake(h, w)), ("comb", comb),
+            ("diagonal", (yy + xx) % 2 == 0), ("all", np.ones((h, w), bool)),
+            ("random", rng.random((h, w)) < 0.55)]
+
+
+def _find(parent, x):
+    while parent[x] != x:
+        x = parent[x]
+    return x
+
+
+def _unite(parent, a, b):
+    """cc.cu's unite as a sequence of steps: the finds, then one atomicMin
+    of the larger root's parent; another union may run between steps, so
+    a root found may have been linked by the time it is used."""
+    while True:
+        a, b = _find(parent, a), _find(parent, b)
+        if a == b:
+            return
+        a, b = min(a, b), max(a, b)
+        yield
+        old = parent[b]
+        parent[b] = min(old, a)  # atomicMin
+        if old == b:
+            return
+        b = old
+
+
+def _model_labeler(mask, aux, rng):
+    """csrc/cc.cu's cc_label on numpy: -> (labels, auxmin, unions run)."""
+    h, w = mask.shape
+    flat, hot = mask.reshape(-1), aux.reshape(-1)
+    parent = np.full(h * w, -1, np.int64)
+    for y in range(h):  # 1. run starts inside each 32-pixel segment
+        for x0 in range(0, w, 32):
+            lanes = range(min(32, w - x0))
+            bits = sum(1 << lane for lane in lanes if mask[y, x0 + lane])  # ballot
+            for lane in lanes:
+                i = y * w + x0 + lane
+                if flat[i]:
+                    gaps = ~bits & ((1 << lane) - 1)
+                    start = gaps.bit_length()  # 32 - clz(gaps); 0 without gaps
+                    parent[i] = i - (lane - start)
+    unions = []  # 2. segment borders; vertical unless joined via the left
+    for i in np.flatnonzero(flat):
+        y, x = divmod(int(i), w)
+        left = x > 0 and flat[i - 1]
+        if x % 32 == 0 and left:
+            unions.append(_unite(parent, i, i - 1))
+        if y > 0 and flat[i - w] and not (left and flat[i - w - 1]):
+            unions.append(_unite(parent, i, i - w))
+    n_unions = len(unions)
+    while unions:  # interleaved in a random order, one step at a time
+        k = int(rng.integers(len(unions)))
+        try:
+            next(unions[k])
+        except StopIteration:
+            unions.pop(k)
+    labels = np.full(h * w, -1, np.int64)  # 3. flatten, aux min per root
+    auxmin = np.full(h * w, BIG, np.int64)
+    for i in np.flatnonzero(flat):
+        labels[i] = _find(parent, i)
+        if hot[i]:
+            auxmin[labels[i]] = min(auxmin[labels[i]], i)
+    for i in np.flatnonzero(flat):  # 4. gather
+        auxmin[i] = auxmin[labels[i]]
+    return labels.reshape(h, w), auxmin.reshape(h, w), n_unions
+
+
+@pytest.mark.parametrize("name,mask", _stress_masks(), ids=lambda v: v if isinstance(v, str) else "")
+def test_labeler_model_matches_plain_and_jax(name, mask):
+    """The CUDA labeler's passes (numpy model), with its unions in three
+    seeded interleavings, == the plain version == JAX's Pallas labeler
+    (interpret), labels and aux minimum, bit for bit."""
+    hot = mask & (np.random.default_rng(11).random(mask.shape) < 0.1)
+    want = tplain.label_components(torch.from_numpy(mask)).numpy()
+    want_aux = tplain.aux_min(torch.from_numpy(want), torch.from_numpy(hot)).numpy()
+    pl_lab, pl_iters = label_components_pallas(jnp.array(mask), interpret=True)
+    assert int(pl_iters) < 64
+    np.testing.assert_array_equal(want, np.asarray(pl_lab))
+    for seed in range(3):
+        lab, aux, n_unions = _model_labeler(mask, hot, np.random.default_rng(seed))
+        np.testing.assert_array_equal(lab, want)
+        np.testing.assert_array_equal(aux, want_aux)
+    h, w = mask.shape
+    if name == "all":  # the skip rule: column 0 vertically, segment borders
+        assert n_unions == (h - 1) + h * (-(-w // 32) - 1)
+    if name == "diagonal":
+        assert n_unions == 0
 
 
 @pytest.mark.parametrize("name,mask,hot", _masks(), ids=lambda v: v if isinstance(v, str) else "")

@@ -3,10 +3,13 @@ FUSED_STAGE1 gate on the CPU, against the JAX package.
 
 * `fused_conv_pool_plain` against `fused_conv_pool(..., interpret=True)` at
   the shapes of tests/test_stage1_kernel.py and its zero-edge case, the
-  weights carried from JAX's [3, 3, C, O] to the port's [O, C, 3, 3] and
-  the NHWC input viewed as the port's channels_last [B, C, H, W]. Both take bf16 inputs and weights with fp32
-  sums; only the order of the sums differs, so every output is within one
-  bf16 step of JAX's (relative 2**-7).
+  weights carried from JAX's [3, 3, C, O] to the port's [O, C, 3, 3], packed
+  by `pack_conv_pool_weights` (the plain version unpacks them), and the
+  NHWC input viewed as the port's channels_last [B, C, H, W]. Both take bf16
+  inputs and weights with fp32 sums; only the order of the sums differs, so
+  every output is within one bf16 step of JAX's (relative 2**-7).
+* `pack_conv_pool_weights` round-trips, and lays each tap out as the
+  128-byte swizzled K-major block the CUDA kernel's wgmma reads.
 * CRAFT's forward at bf16 with FUSED_STAGE1 = "on" in both packages, on the
   committed golden weights: heatmaps and features within a relative
   (Frobenius) error of 3e-2 (tests/test_stage1_kernel.py's tolerance). The
@@ -36,7 +39,9 @@ from tuatara_tpu.models import craft as jax_craft
 from tuatara_tpu.ops.pallas.stage1 import fused_conv_pool as jax_fused_conv_pool
 from tuatara_tpu.utils import weights as jax_weights
 from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
-from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool
+from tuatara_tpu_torch.kernels.stage1 import (
+    fused_conv_pool, pack_conv_pool_weights, unpack_conv_pool_weights,
+)
 from tuatara_tpu_torch.models import craft as t_craft
 from tuatara_tpu_torch.models.layers import set_compute_dtype
 from tuatara_tpu_torch.utils import weights as t_weights
@@ -55,7 +60,7 @@ def _port_conv_pool(x, wk, b):
     assert xt.is_contiguous(memory_format=torch.channels_last)
     wt = torch.from_numpy(wk).permute(3, 2, 0, 1).contiguous().to(torch.bfloat16)
     reset_launches()
-    got = fused_conv_pool(xt, wt, torch.from_numpy(b))
+    got = fused_conv_pool(xt, pack_conv_pool_weights(wt), torch.from_numpy(b))
     assert LAUNCHES["fused_conv_pool"] == 0  # CPU tensor: the plain version
     assert got.dtype == torch.bfloat16
     return got.float().permute(0, 2, 3, 1).numpy()
@@ -93,6 +98,40 @@ def test_plain_zero_padding_edges():
     want = np.asarray(jax_fused_conv_pool(jnp.asarray(x), jnp.asarray(wk), jnp.asarray(b),
                                           interpret=True), np.float32)
     _assert_within_one_step(_port_conv_pool(x, wk, b), want)
+
+
+@pytest.mark.parametrize("o,c", [(64, 64), (8, 8), (16, 80)])
+def test_pack_conv_pool_weights_round_trip(o, c):
+    """Unpacking gives the bf16 weights back exactly; each tap is an O x
+    128-byte block per 64-channel chunk whose 16-byte chunk q of row o
+    holds channels 8 (q ^ (o % 8)) .. + 8, zero past C."""
+    w = torch.from_numpy(np.random.default_rng(o + c).standard_normal((o, c, 3, 3),
+                                                                       np.float32))
+    packed = pack_conv_pool_weights(w)
+    n_chunks = -(-c // 64)
+    assert packed.shape == (9, n_chunks, o, 64) and packed.dtype == torch.bfloat16
+    assert packed.is_contiguous()
+    assert torch.equal(unpack_conv_pool_weights(packed, c), w.to(torch.bfloat16))
+    wb = w.to(torch.bfloat16)
+    for tap in (0, 4, 8):
+        ky, kx = divmod(tap, 3)
+        for row in (0, 5, o - 1):
+            for q in range(8):
+                ch = 8 * (q ^ (row % 8))
+                want = torch.zeros(8, dtype=torch.bfloat16)
+                have = wb[row, ch:min(ch + 8, c), ky, kx]
+                want[:have.numel()] = have
+                assert torch.equal(packed[tap, 0, row, 8 * q:8 * q + 8], want)
+
+
+def test_craft_holds_packed_conv1_2(golden_craft):
+    """The CRAFT module keeps conv1_2's packed weights as a buffer, packed
+    at load (not per call) and left out of the state dict."""
+    m, _, _ = golden_craft
+    w = m.vgg["conv1_2"]["conv"].weight
+    assert torch.equal(m.conv1_2_packed, pack_conv_pool_weights(w))
+    assert "conv1_2_packed" not in m.state_dict()
+    assert any(b is m.conv1_2_packed for b in m.buffers())
 
 
 @pytest.fixture(scope="module")

@@ -22,18 +22,33 @@
 //
 // Design. The TPU kernel sweeps a doubling segmented min over the whole
 // image in VMEM until nothing changes; a GPU block cannot hold the image
-// and blocks run in no order, so the labels come from union-find instead:
-//   1. init:  parent[i] = i on foreground, -1 elsewhere; auxmin = 2^30.
-//   2. merge: each pixel unites with its left and upper neighbour. A union
-//      links the larger root under the smaller with atomicMin and retries
-//      from the value it found when another thread got there first, so
-//      parent[i] <= i always and each root ends as the minimum index of its
-//      component (Playne & Hawick 2018). Finds read through L2 (__ldcg):
-//      other SMs' atomics never sit stale in this SM's L1.
-//   3. flatten: parent[i] = find(i); hot pixels atomicMin their index into
+// and blocks run in no order, so the labels come from union-find instead,
+// in one cooperative launch whose phases are separated by grid-wide
+// barriers (cooperative_groups grid sync; the grid is as many CTAs as the
+// card holds at once, and each phase walks the image with a grid stride):
+//   1. run starts: a warp takes 32 pixels of one row (a segment). The
+//      ballot of the mask and a __clz over the bits below a lane give each
+//      foreground pixel the first pixel of its run inside the segment,
+//      which becomes its parent (-1 on background; auxmin = 2^30). A run
+//      start is its run's smallest index, so parent[i] <= i, and a
+//      horizontal run is a tree of depth one, not a chain as long as the
+//      run.
+//   2. unions: a segment's first lane unites its pixel with the previous
+//      segment's last one when both are set (a run crossing a segment
+//      border); no other pixel needs a horizontal union. A pixel unites
+//      with the one above only when both are set and its left neighbour
+//      and that one's upper neighbour are not both set (else the two are
+//      joined already through the left neighbours). A union links the
+//      larger root under the smaller with atomicMin and retries from the
+//      value it found when another thread got there first, so every root
+//      ends as the minimum index of its component in any order of unions
+//      (Playne & Hawick 2018). Finds read through L2 (__ldcg): other SMs'
+//      atomics never sit stale in this SM's L1.
+//   3. flatten: label[i] = find(i); aux pixels atomicMin their index into
 //      auxmin[root], which serves as the root-indexed scratch.
-//   4. gather: non-root pixels copy auxmin[root]; roots keep their own.
-// The labels-only entry runs passes 1-3 without the aux channel.
+//   4. gather (aux entry only): non-root pixels copy auxmin[root]; roots
+//      keep their own.
+// One launch per call for either entry (it was 4 for K1, 3 for K4).
 // Union-find reaches the true components in one pass, with no sweep cap.
 // The area filter is a label-indexed histogram (warp-aggregated atomicAdd:
 // neighbouring pixels of a row mostly share a label) and a gather-compare,
@@ -42,8 +57,11 @@
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,37 +93,86 @@ __device__ __forceinline__ void unite(int* parent, int a, int b) {
   }
 }
 
-// auxmin and aux may be null (labels only).
-__global__ void cc_init(const uint8_t* __restrict__ mask, int* __restrict__ parent,
-                        int* __restrict__ auxmin, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  parent[i] = mask[i] ? i : -1;
-  if (auxmin) auxmin[i] = kBig;
+struct LabelArgs {
+  const uint8_t* mask;
+  const uint8_t* aux;  // null: labels only
+  int* labels;         // the parent array while the phases run
+  int* auxmin;
+  int h, w;
+};
+
+__global__ void __launch_bounds__(kThreads) cc_label(const LabelArgs p) {
+  cg::grid_group grid = cg::this_grid();
+  const int w = p.w, n = p.h * w, segs = (w + 31) / 32, n_segs = p.h * segs;
+  const int lane = threadIdx.x & 31;
+  const int warp0 = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int n_warps = gridDim.x * (kThreads / 32);
+  const int* parent = p.labels;
+
+  // 1. Run starts inside each 32-pixel segment.
+  for (int s = warp0; s < n_segs; s += n_warps) {
+    const int y = s / segs, x = (s % segs) * 32 + lane, i = y * w + x;
+    const bool in = x < w;
+    const bool m = in && p.mask[i];
+    const unsigned bits = __ballot_sync(0xffffffffu, m);
+    if (!in) continue;
+    const unsigned gaps = ~bits & ((1u << lane) - 1);  // background lanes below this one
+    const int start = gaps ? 32 - __clz(gaps) : 0;
+    p.labels[i] = m ? i - (lane - start) : -1;
+    if (p.aux) p.auxmin[i] = kBig;
+  }
+  grid.sync();
+
+  // 2. Segment-border and reduced vertical unions.
+  for (int s = warp0; s < n_segs; s += n_warps) {
+    const int y = s / segs, x = (s % segs) * 32 + lane, i = y * w + x;
+    if (x >= w || !p.mask[i]) continue;
+    const bool left = x > 0 && p.mask[i - 1];
+    if (lane == 0 && left) unite(p.labels, i, i - 1);
+    if (y > 0 && p.mask[i - w] && !(left && p.mask[i - w - 1])) unite(p.labels, i, i - w);
+  }
+  grid.sync();
+
+  // 3. Flatten; the aux minimum of each root.
+  const int stride = gridDim.x * kThreads;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+    if (!p.mask[i]) continue;
+    const int r = find_root(parent, i);
+    p.labels[i] = r;
+    if (p.aux && p.aux[i]) atomicMin(p.auxmin + r, i);
+  }
+  if (!p.aux) return;
+  grid.sync();
+
+  // 4. Every pixel of a component takes its root's aux minimum.
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+    const int r = __ldcg(p.labels + i);
+    if (r >= 0 && r != i) p.auxmin[i] = __ldcg(p.auxmin + r);
+  }
 }
 
-__global__ void cc_merge(const uint8_t* __restrict__ mask, int* parent, int h, int w) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h * w || !mask[i]) return;
-  int x = i % w;
-  if (x > 0 && mask[i - 1]) unite(parent, i, i - 1);
-  if (i >= w && mask[i - w]) unite(parent, i, i - w);
-}
-
-__global__ void cc_flatten(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ aux,
-                           int* parent, int* auxmin, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !mask[i]) return;
-  int r = find_root(parent, i);
-  parent[i] = r;
-  if (aux && aux[i]) atomicMin(auxmin + r, i);
-}
-
-__global__ void cc_gather_aux(const int* __restrict__ labels, int* auxmin, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int r = labels[i];
-  if (r >= 0 && r != i) auxmin[i] = auxmin[r];
+// The cooperative launch of cc_label: as many CTAs as the card holds at
+// once (its grid barriers need every CTA resident), at most one per 256
+// pixels.
+cudaError_t launch_label(const LabelArgs& p, cudaStream_t stream) {
+  static int slots = 0;
+  if (!slots) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cc_label, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    slots = sms * per_sm;
+  }
+  const int need = (p.h * p.w + kThreads - 1) / kThreads;
+  const int grid = need < slots ? need : slots;
+  LabelArgs args = p;
+  void* params[] = {&args};
+  cudaError_t e = cudaLaunchCooperativeKernel((const void*)cc_label, dim3(grid), dim3(kThreads),
+                                              params, 0, stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 __global__ void area_hist(const int* __restrict__ labels, int* __restrict__ area, int n) {
@@ -131,21 +198,14 @@ inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 extern "C" int tt_label_components_aux(const uint8_t* mask, const uint8_t* aux, int* labels,
                                        int* auxmin, int h, int w, cudaStream_t stream) {
-  int n = h * w;
-  cc_init<<<blocks(n), kThreads, 0, stream>>>(mask, labels, auxmin, n);
-  cc_merge<<<blocks(n), kThreads, 0, stream>>>(mask, labels, h, w);
-  cc_flatten<<<blocks(n), kThreads, 0, stream>>>(mask, aux, labels, auxmin, n);
-  cc_gather_aux<<<blocks(n), kThreads, 0, stream>>>(labels, auxmin, n);
-  return (int)cudaGetLastError();
+  if (!aux || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_label(LabelArgs{mask, aux, labels, auxmin, h, w}, stream);
 }
 
 extern "C" int tt_label_components(const uint8_t* mask, int* labels, int h, int w,
                                    cudaStream_t stream) {
-  int n = h * w;
-  cc_init<<<blocks(n), kThreads, 0, stream>>>(mask, labels, nullptr, n);
-  cc_merge<<<blocks(n), kThreads, 0, stream>>>(mask, labels, h, w);
-  cc_flatten<<<blocks(n), kThreads, 0, stream>>>(mask, nullptr, labels, nullptr, n);
-  return (int)cudaGetLastError();
+  if (h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_label(LabelArgs{mask, nullptr, labels, nullptr, h, w}, stream);
 }
 
 extern "C" int tt_area_ok(const int* labels, int* area_scratch, uint8_t* out, int h, int w,

@@ -7,8 +7,9 @@ flags, so an edited source is rebuilt and an unchanged one is reused. The
 libraries go to `build/kernels/` beside the package (listed in
 `.gitignore`). `build_all()` starts every compile at once and waits for all
 of them; a failed compile raises with nvcc's output. Nothing links against
-the driver library: `csrc/vit.cu` obtains `cuTensorMapEncodeTiled` (its TMA
-descriptors) at run time through the runtime's `cudaGetDriverEntryPoint`.
+the driver library: `csrc/vit.cu` and `csrc/stage1.cu` obtain
+`cuTensorMapEncodeTiled` (their TMA descriptors) at run time through the
+runtime's `cudaGetDriverEntryPoint`.
 """
 
 from __future__ import annotations

@@ -17,7 +17,10 @@ conv -> ReLU chains. Architecture:
 
 `FUSED_STAGE1` gates kernel K8 (`kernels/stage1.py`), which runs conv1_2,
 its ReLU and pool1 as one pass, as the JAX package's gate of the same name
-does (`tuatara_tpu/models/craft.py:279-298`).
+does (`tuatara_tpu/models/craft.py:279-298`). K8 reads conv1_2's weights
+packed for its wgmma B operand: the module holds them as the buffer
+`conv1_2_packed`, packed when the weights are loaded (and moved with the
+module by `.to`), so no call packs them again.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tuatara_tpu_torch.config import CraftConfig
-from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool
+from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool, pack_conv_pool_weights
 from tuatara_tpu_torch.models.layers import Conv
 
 _STAGE_COUNTS = (2, 2, 3, 3, 2)
@@ -89,6 +92,13 @@ class Craft(nn.Module):
             "conv4": Conv(hc[2], hc[3], 1),
             "conv5": Conv(hc[3], cfg.num_classes, 1),
         })
+        self.register_buffer("conv1_2_packed", None, persistent=False)
+        self._pack_conv1_2()
+        self.register_load_state_dict_post_hook(Craft._pack_conv1_2)
+
+    def _pack_conv1_2(self, _incompatible_keys=None) -> None:
+        """Pack conv1_2's weights for K8; also the load_state_dict post-hook."""
+        self.conv1_2_packed = pack_conv_pool_weights(self.vgg["conv1_2"]["conv"].weight)
 
     def _double_conv(self, block: str, y: torch.Tensor, skip: torch.Tensor
                      ) -> torch.Tensor:
@@ -144,8 +154,7 @@ class Craft(nn.Module):
             # channels, and the convolution keeps its input's layout.
             h = h.contiguous(memory_format=torch.channels_last)
             h = F.relu(self.vgg["conv1_1"]["conv"](h))
-            c12 = self.vgg["conv1_2"]["conv"]
-            h = fused_conv_pool(h, c12.weight, c12.bias)
+            h = fused_conv_pool(h, self.conv1_2_packed, self.vgg["conv1_2"]["conv"].bias)
             start = 2
         for idx, (name, _, _, pool_before, skip) in enumerate(self.plan):
             if idx < start:
