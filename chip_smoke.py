@@ -34,8 +34,15 @@ line without a CUDA device or outside the repo.
              with CUDA events after warm-up (`ms`), and device time per call
              (`device_ms`) and records per call from the kernel and memset
              records of a `torch.profiler` trace of 10 calls (null where the
-             trace lost records); K1 may take at most 3 and K4 at most 2
-             launches a call. Prints one {"kernels": [...]} line.
+             trace lost records); K1 may take at most 3, K4 at most 2, K3
+             and K5 at most 1 launch a call. K3 and K5 also run (gated the
+             same way) on each page at K = 16, at K = 1024 on the diagonal
+             and random masks (roots shuffled), on an empty mask (every
+             root padding, every peak -1e30) and on roots chosen to share
+             a bucket of their hash table (printed; the bucket is checked
+             against csrc/stats.cu's own hash), on a 509x381 crop and at
+             K = 4096; K = 8193 must raise ValueError.
+             Prints one {"kernels": [...]} line.
 4c. K4, K5:  the same, on path A's inputs (hot at text_threshold 0.3, the
              normalized region map): labels, the four count planes and the
              peak (-1e30 in empty slots) equal bit for bit; ms/call, traced
@@ -252,6 +259,143 @@ def traced_per_call(fn, calls=10):
     return None, None
 
 
+def collision_roots(lab, k):
+    """k roots of `lab`, shuffled, led by the largest group of its labels
+    that share a home bucket in K3/K5's hash table for k (their first
+    probe; they part at the second), and that bucket. The first two probes
+    of each are checked against csrc/stats.cu's own hash
+    (`tt_stats_table_probe`) -> (roots, group, bucket)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from tuatara_tpu_torch.kernels import _build, stats
+
+    probe_c = _build.load("stats").tt_stats_table_probe
+    probe_c.argtypes, probe_c.restype = [ctypes.c_int] * 3, ctypes.c_int
+    labels = np.unique(lab.cpu().numpy())
+    labels = labels[labels >= 0]
+    home = np.array([stats.table_probe(int(x), k) for x in labels])
+    bucket = int(np.bincount(home).argmax())
+    group = [int(x) for x in labels[home == bucket][:k // 2]]
+    for x in group:
+        for i in (0, 1):
+            if probe_c(x, k, i) != stats.table_probe(x, k, i):
+                fail(f"stats hash: csrc/stats.cu's probe {i} of root {x} is bucket "
+                     f"{probe_c(x, k, i)}, kernels/stats.py's {stats.table_probe(x, k, i)}")
+    rng = np.random.default_rng(7)
+    rest = rng.permutation(labels[home != bucket])[:k - len(group)]
+    roots = np.full(k, 2**30, np.int32)
+    roots[:len(group) + len(rest)] = np.concatenate([group, rest])
+    return torch.from_numpy(rng.permutation(roots)).cuda(), group, bucket
+
+
+def stats_cases(cases, pages, min_area):
+    """(label, labels, keep, tn, roots) on the card for K3 and K5 beyond the
+    main path's K = 256: each page at K = 16 (max_boxes=16, not a multiple
+    of 128) with path A's root selection; K = 1024 roots drawn in a
+    shuffled order from the diagonal and random masks' labels (strips sized
+    for a large K; nearly every diagonal label misses the table); an empty
+    mask (every root padding); roots of random512x384 chosen to collide in
+    the hash table, printed with the bucket they share; a 509x381 crop of it
+    (odd sizes: partial strips and bands); K = 4096 on random512x384 (strips
+    of fewer than 8 columns, one CTA an SM)."""
+    import numpy as np
+    import torch
+
+    from tuatara_tpu_torch.kernels import cc, stats
+    from tuatara_tpu_torch.ops import connected_components as plain
+
+    rng = np.random.default_rng(3)
+    by_label = {c[0]: c for c in cases}
+    out = []
+    for name in pages:
+        _, comb, _, keep, tn, hot_low = by_label[name]
+        lab = cc.label_components(comb)
+        roots, _ = plain.component_roots_filtered(lab, 16, None, cc.area_ok(lab, min_area),
+                                                  hot=hot_low, keep=keep)
+        out.append((f"{name}/K16", lab, keep, tn, roots))
+    for name in ("diagonal", "random384x384", "random512x384"):
+        _, comb, _, keep, tn, _ = by_label[name]
+        lab = cc.label_components(comb)
+        labels = torch.unique(lab).cpu().numpy()
+        labels = labels[labels >= 0]
+        roots = np.full(1024, 2**30, np.int32)
+        pick = rng.permutation(labels)[:1020]
+        roots[:len(pick)] = pick
+        out.append((f"{name}/K1024", lab, keep, tn,
+                    torch.from_numpy(rng.permutation(roots)).cuda()))
+    _, comb, _, keep, tn, hot_low = by_label["random512x384"]
+    crop = [t[:509, :381].contiguous() for t in (comb, keep, tn, hot_low)]
+    lab = cc.label_components(crop[0])
+    roots, _ = plain.component_roots_filtered(lab, 256, None, cc.area_ok(lab, min_area),
+                                              hot=crop[3], keep=crop[1])
+    out.append(("random509x381", lab, crop[1], crop[2], roots))
+    empty = torch.zeros_like(comb)
+    lab = cc.label_components(empty)
+    roots, _ = plain.component_roots_filtered(lab, 256, None, cc.area_ok(lab, min_area),
+                                              hot=empty, keep=keep)
+    out.append(("empty512x384", lab, keep, tn, roots))
+    lab = cc.label_components(comb)
+    roots, group, bucket = collision_roots(lab, 256)
+    print(f"stats collision case: roots {group} share home bucket {bucket} of "
+          f"2^{stats.table_bits(256)}", flush=True)
+    out.append(("collision512x384", lab, keep, tn, roots))
+    labels = torch.unique(lab).cpu().numpy()
+    roots = np.full(4096, 2**30, np.int32)
+    pick = rng.permutation(labels[labels >= 0])[:4000]
+    roots[:len(pick)] = pick
+    out.append(("random512x384/K4096", lab, keep, tn,
+                torch.from_numpy(rng.permutation(roots)).cuda()))
+    torch.cuda.synchronize()
+    return out
+
+
+def check_stats(label, lab, keep, tn, roots, rows, max_launches):
+    """K3 and K5 on one input: equal to the plain versions bit for bit (an
+    empty slot's peak exactly -1e30), at most max_launches records a call;
+    times and the byte bound into rows."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import stats
+    from tuatara_tpu_torch.ops.connected_components import BIG
+
+    h, w = lab.shape
+    n, k = h * w, roots.shape[0]
+    n_roots = int((roots < BIG).sum())
+    for name, kfn, pfn, nbytes, nops in (
+            (stats.K3, lambda: stats.component_stats_nopeak(lab, keep, roots),
+             lambda: stats.component_stats_nopeak_plain(lab, keep, roots),
+             n * 5 + k * 4 + (2 * h + 2 * w) * k * 4, n * 8),
+            (stats.K5, lambda: stats.component_stats(lab, tn, keep, roots),
+             lambda: stats.component_stats_plain(lab, tn, keep, roots),
+             n * (4 + 4 + 1) + k * 4 + (2 * h + 2 * w) * k * 4 + k * 4, n * 9)):
+        got, ref = kfn(), pfn()
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"{name} differs from its plain version on {label} (max abs err {err})")
+        if name == stats.K5 and not bool((got[4][roots >= n] == stats.EMPTY_PEAK).all()):
+            fail(f"{name} on {label}: a padding root's peak is not -1e30")
+        ms = cuda_ms(kfn, 30)
+        dev_ms, per_call = traced_per_call(kfn)
+        if per_call is not None and per_call > max_launches[name]:
+            fail(f"{name} took {per_call} launches a call on {label} (at most "
+                 f"{max_launches[name]})")
+        pms = cuda_ms(pfn, 3, warmup=1)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / VECTOR_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        rows[name].append({"input": label, "shape": [h, w], "roots": n_roots, "ms": ms,
+                           "device_ms": dev_ms, "launches_per_call": per_call,
+                           "plain_ms": pms, "bound_ms": bound,
+                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                           "max_abs_err": err})
+        print(f"kernel {name:24s} {label:18s} {h}x{w} K={k} roots={n_roots} ms={ms:.4f} "
+              f"device_ms={dev_ms} launches/call={per_call} plain_ms={pms:.3f} "
+              f"bound_ms={bound:.5f}", flush=True)
+
+
 def check_kernels(engine, pages, launches, low_launches):
     """Phases 4 and 4c: every kernel of detection post-processing equal to
     its plain version; times and bounds. K1-K3 on the default path's
@@ -264,8 +408,9 @@ def check_kernels(engine, pages, launches, low_launches):
     K = engine.config.max_boxes
     m = engine.config.min_component_area
     rows = {n: [] for n in (cc.K1, cc.K2, stats.K3, cc.K4, stats.K5)}
-    max_launches = {cc.K1: 3, cc.K4: 2}
-    for label, comb, hot, keep, tn, hot_low in kernel_cases(engine, pages):
+    max_launches = {cc.K1: 3, cc.K4: 2, stats.K3: 1, stats.K5: 1}
+    cases = kernel_cases(engine, pages)
+    for label, comb, hot, keep, tn, hot_low in cases:
         h, w = comb.shape
         n = h * w
         lab, aux = cc.label_components_aux(comb, hot)
@@ -299,7 +444,7 @@ def check_kernels(engine, pages, launches, low_launches):
             stats.K5: (list(got5), list(ref5),
                        lambda: stats.component_stats(lab4, tn, keep, roots5),
                        lambda: stats.component_stats_plain(lab4, tn, keep, roots5),
-                       n * (4 + 4 + 1) + 4 * (h + w) * K * 4 + 8 * K, n * 9),
+                       n * (4 + 4 + 1) + K * 4 + (2 * h + 2 * w) * K * 4 + K * 4, n * 9),
         }
         for name, (outs, refs, kfn, pfn, nbytes, nops) in checks.items():
             err = max(float((a.long() - b.long()).abs().max()) if not a.is_floating_point()
@@ -326,6 +471,16 @@ def check_kernels(engine, pages, launches, low_launches):
         empty = int((got5[4] == stats.EMPTY_PEAK).sum())
         print(f"kernel {stats.K5:24s} {label:18s} roots={int((roots5 < plain.BIG).sum())} "
               f"empty_peak_slots={empty}", flush=True)
+    for label, lab, keep, tn, roots in stats_cases(cases, pages, m):
+        check_stats(label, lab, keep, tn, roots, rows, max_launches)
+    too_many = torch.full((8193,), plain.BIG, dtype=torch.int32, device=lab.device)
+    for name, fn in ((stats.K3, lambda: stats.component_stats_nopeak(lab, keep, too_many)),
+                     (stats.K5, lambda: stats.component_stats(lab, tn, keep, too_many))):
+        try:
+            fn()
+        except ValueError:
+            continue
+        fail(f"{name} took K = 8193 roots, whose table does not fit one CTA")
 
     sources = {cc.K1: ("tuatara_tpu_torch/csrc/cc.cu", "tuatara_tpu/ops/pallas/cc.py:213"),
                cc.K2: ("tuatara_tpu_torch/csrc/cc.cu", "tuatara_tpu/ops/pallas/cc.py:146"),

@@ -151,7 +151,7 @@ def main() -> int:
               f"{ms / total_k * 100:5.1f}%  {name[:110]}")
     ours = {n: v for n, v in by_name.items()
             if any(f"(anonymous namespace)::{k}" in n
-                   for k in ("cc_", "area_", "slots_", "stats_accumulate", "peak_", "gemm_kernel",
+                   for k in ("cc_", "area_", "component_stats", "gemm_kernel",
                              "attention", "decode_kernel", "fused_conv_pool"))}
     print("port kernels: " + json.dumps(
         {n: {"ms_per_page": v[0] / n_pages, "launches_per_page": v[1] / n_pages}

@@ -10,6 +10,12 @@ clz), unions only across segment borders and the reduced vertical ones,
 atomicMin linking with retries, run with its unions interleaved in several
 seeded random orders, then flatten and the aux minimum.
 
+The CUDA statistics kernel of K3 and K5 (csrc/stats.cu) is held here the
+same way: a numpy model of its roots' hash table (the kernel's own hash,
+roots chosen to collide, inserted in two orders), its column strips and
+row bands that each write their whole block, and K5's per-band peak
+partials with their reduction.
+
 The CUDA kernels themselves run only on the card; `chip_smoke.py` holds
 them against these plain versions there. Here the wrappers must take the
 plain path for CPU tensors and count no launch.
@@ -284,6 +290,178 @@ def test_stats_peak_plain_matches_pallas(K, h):
         assert g.dtype == torch.float32
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
     assert (got[4].numpy()[np.asarray(roots) == BIG] == np.float32(-1e30)).all()
+
+
+def _ordered(x):
+    """stats.cu's `ordered`: float32 -> int whose order is the float order."""
+    b = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+    return np.where(b >= 0, b, b ^ 0x7FFFFFFF)
+
+
+def _unordered(v):
+    b = np.where(v >= 0, v, v ^ 0x7FFFFFFF).astype(np.int32)
+    return b.view(np.float32)
+
+
+def _model_table(roots, n, order):
+    """The CTA's hash table of the roots, inserted in `order` (atomicCAS
+    claims the first free bucket of the root's probe sequence):
+    -> lookup(label)."""
+    k = len(roots)
+    size = 1 << tstats.table_bits(k)
+    keys, slots = [-1] * size, [-1] * size
+    for j in order:
+        r = int(roots[j])
+        if r < 0 or r >= n:
+            continue  # padding
+        i = 0
+        while keys[tstats.table_probe(r, k, i)] != -1:
+            i += 1
+        keys[tstats.table_probe(r, k, i)], slots[tstats.table_probe(r, k, i)] = r, j
+
+    def lookup(lab):
+        if lab < 0:
+            return -1
+        for i in range(size):
+            b = tstats.table_probe(int(lab), k, i)
+            if keys[b] == lab:
+                return slots[b]
+            if keys[b] < 0:
+                return -1
+        return -1
+
+    return lookup
+
+
+def _model_stats(labels, keep, tn, roots, bh, bw, order):
+    """csrc/stats.cu's component_stats<true> on numpy: strips of bw columns
+    write their [bw, K] blocks of col/rcol, bands of bh rows their blocks of
+    row/rrow and a peak partial row; the partials' max over the bands is the
+    peak. Outputs start as NaN (torch.empty), so an entry no item writes
+    shows."""
+    h, w = labels.shape
+    k = len(roots)
+    lookup = _model_table(roots, h * w, order)
+    slot = np.vectorize(lookup, otypes=[np.int64])(labels)
+    row, rrow = np.full((h, k), np.nan, np.float32), np.full((h, k), np.nan, np.float32)
+    col, rcol = np.full((w, k), np.nan, np.float32), np.full((w, k), np.nan, np.float32)
+    empty = int(_ordered(np.float32(-1e30)))
+    partial = []
+    for x0 in range(0, w, bw):  # strips
+        cnt, rcnt = np.zeros((bw, k), np.int64), np.zeros((bw, k), np.int64)
+        for y in range(h):
+            for xl in range(min(bw, w - x0)):
+                s = slot[y, x0 + xl]
+                if s >= 0:
+                    cnt[xl, s] += 1
+                    rcnt[xl, s] += keep[y, x0 + xl]
+        nl = min(bw, w - x0)
+        col[x0:x0 + nl], rcol[x0:x0 + nl] = cnt[:nl], rcnt[:nl]
+    for y0 in range(0, h, bh):  # bands
+        nl = min(bh, h - y0)
+        cnt, rcnt = np.zeros((bh, k), np.int64), np.zeros((bh, k), np.int64)
+        pk = np.full(k, empty, np.int64)
+        for yl in range(nl):
+            for x in range(w):
+                s = slot[y0 + yl, x]
+                if s >= 0:
+                    cnt[yl, s] += 1
+                    rcnt[yl, s] += keep[y0 + yl, x]
+                    pk[s] = max(pk[s], int(_ordered(tn[y0 + yl, x])))
+        row[y0:y0 + nl], rrow[y0:y0 + nl] = cnt[:nl], rcnt[:nl]
+        partial.append(pk)
+    peak = _unordered(np.max(np.stack(partial), axis=0))
+    return row, col, rrow, rcol, peak
+
+
+def _collision_roots(labels, K, rng):
+    """K roots in a shuffled order: about K/2 of the image's component
+    labels, each of the first four joined by another index below H*W with
+    the same home bucket in the kernel's table for K (a second label where
+    one shares it, else an index that labels nothing), and padding 2**30.
+    -> (roots, groups of roots that share a home bucket)."""
+    n = labels.size
+    home = np.array([tstats.table_probe(i, K) for i in range(n)])
+    present = np.unique(labels[labels >= 0])
+    chosen = list(rng.permutation(present)[:K // 2])
+    if not chosen:
+        chosen = [int(rng.integers(n))]  # a root that labels nothing
+    groups = []
+    for r in chosen[:4]:
+        mates = [int(i) for i in np.flatnonzero(home == home[r]) if i != r and i not in chosen]
+        if mates:
+            labelled = [i for i in mates if i in set(present.tolist())]
+            mate = (labelled or mates)[0]
+            chosen.append(mate)
+            groups.append((int(r), mate, int(home[r])))
+    roots = np.full(K, BIG, np.int32)
+    roots[:len(chosen)] = chosen[:K]
+    return rng.permutation(roots).astype(np.int32), groups
+
+
+def _stats_masks():
+    return _stress_masks() + [("empty", np.zeros((20, 100), bool))]
+
+
+@pytest.mark.parametrize("K", [16, 128, 256])
+@pytest.mark.parametrize("name,mask", _stats_masks(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_stats_model_matches_plain_and_pallas(name, mask, K):
+    """The CUDA statistics kernel's passes (numpy model: hash table with
+    colliding roots inserted in two orders; strips and bands of several
+    sizes, 8-column strips and 10-row bands among them (the kernel's sizing
+    at 512x384 and K = 256); peak partials reduced over the bands)
+    == the plain versions of K3 and K5 == the Pallas kernels (interpret),
+    bit for bit. Pallas takes H a multiple of 8 and K of 128: its inputs
+    get background rows and padding roots, sliced off after."""
+    rng = np.random.default_rng(K * 31 + len(name))
+    h, w = mask.shape
+    keep = rng.random((h, w)) < 0.8
+    tn = rng.random((h, w)).astype(np.float32)
+    labels = tplain.label_components(torch.from_numpy(mask)).numpy()
+    roots, groups = _collision_roots(labels, K, rng)
+    assert groups, "no pair of roots shares a home bucket"
+    t_args = [torch.from_numpy(a) for a in (labels, keep, roots)]
+    want = [t.numpy() for t in tstats.component_stats_plain(
+        t_args[0], torch.from_numpy(tn), t_args[1], t_args[2])]
+    want3 = [t.numpy() for t in tstats.component_stats_nopeak_plain(*t_args)]
+    for a, b in zip(want[:4], want3):
+        np.testing.assert_array_equal(a, b)
+
+    hp, kp = -(-h // 8) * 8, -(-K // 128) * 128
+    pad = lambda a, v: np.pad(a, ((0, hp - h), (0, 0)), constant_values=v)
+    roots_p = np.concatenate([roots, np.full(kp - K, BIG, np.int32)])
+    ref = pallas_stats(jnp.array(pad(labels, -1)), jnp.array(pad(tn, 0)),
+                       jnp.array(pad(keep, False)), jnp.array(roots_p), interpret=True)
+    ref3 = pallas_stats_nopeak(jnp.array(pad(labels, -1)), jnp.array(pad(keep, False)),
+                               jnp.array(roots_p), interpret=True)
+    for got, full in zip(want, ref):
+        full = np.asarray(full)
+        np.testing.assert_array_equal(got, full[..., :K] if full.ndim == 1
+                                      else full[:got.shape[0], :K])
+    for got, full in zip(want3, ref3):
+        np.testing.assert_array_equal(got, np.asarray(full)[:got.shape[0], :K])
+
+    for bh, bw in ((3, 8), (2, 3), (10, 8)):
+        for order in (range(K), range(K - 1, -1, -1)):
+            model = _model_stats(labels, keep, tn, roots, bh, bw, order)
+            for m, want_t in zip(model, want):
+                np.testing.assert_array_equal(m, want_t)
+    empty = roots >= labels.size
+    assert (want[4][empty] == np.float32(-1e30)).all()
+
+
+def test_stats_table_probe_visits_every_bucket():
+    """The mirror of csrc/stats.cu's hash: at least 256 buckets and at least
+    2K; the home bucket is the top bits of key * 2^32/phi; a probe sequence
+    visits every bucket once, so an insertion always finds a free one and a
+    miss always reaches an empty one."""
+    assert [tstats.table_bits(k) for k in (1, 16, 128, 129, 1024, 8192)] == [8, 8, 8, 9, 11, 14]
+    assert tstats.table_probe(0, 16) == 0
+    assert tstats.table_probe(1, 16) == 0x9E
+    assert tstats.table_probe(1, 16, 1) == (0x9E + 0x85) % 256
+    for key in (3, 977, 2**20 + 5):
+        assert sorted(tstats.table_probe(key, 256, i) for i in range(512)) == list(range(512))
 
 
 @pytest.mark.parametrize("K", [8, 64, 256])

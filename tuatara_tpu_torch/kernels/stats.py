@@ -8,12 +8,14 @@ replace the Pallas kernels `component_stats_nopeak`
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from tuatara_tpu_torch.kernels import LAUNCHES
-from tuatara_tpu_torch.kernels._build import entry
+from tuatara_tpu_torch.kernels._build import entry, load
 from tuatara_tpu_torch.kernels.cc import _check_2d, _raise_on
 
 K3 = "component_stats_nopeak"
@@ -72,28 +74,65 @@ def _check_inputs(labels: torch.Tensor, keep: torch.Tensor, roots: torch.Tensor)
         raise ValueError("labels, keep and roots must share shape and device")
 
 
-def _count_planes(labels: torch.Tensor, k: int) -> Tuple[torch.Tensor, ...]:
-    """Empty (row, col, rrow, rcol) outputs and the [H*W] slot scratch."""
+# The hash of csrc/stats.cu's table of roots, mirrored for the CPU model
+# of the kernel and for the checks that choose colliding roots;
+# `tt_stats_table_probe` gives the kernel's own answer.
+HASH_MUL, STEP_MUL = 0x9E3779B1, 0x85EBCA6B
+
+
+def table_bits(k: int) -> int:
+    """log2 of the hash table's buckets for k roots: >= 2k, at least 256."""
+    return max(8, (2 * k - 1).bit_length())
+
+
+def table_probe(key: int, k: int, i: int = 0) -> int:
+    """The i-th bucket a root probes in the table for k roots (i = 0: its
+    home): double hashing, the top `table_bits(k)` bits of key * 2^32/phi
+    plus i times an odd step from a second multiplier."""
+    bits = table_bits(k)
+    home = ((key * HASH_MUL) & 0xFFFFFFFF) >> (32 - bits)
+    step = (((key * STEP_MUL) & 0xFFFFFFFF) >> (32 - bits)) | 1
+    return (home + i * step) & ((1 << bits) - 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _bands(h: int, w: int, k: int, peak: bool) -> int:
+    """The row bands csrc/stats.cu splits an [h, w] image into for k roots
+    (K5's partial rows). Raises ValueError for a k whose table and one
+    column of counts do not fit one CTA's shared memory."""
+    fn = load("stats").tt_component_stats_bands
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    bands = fn(h, w, k, int(peak))
+    if bands < 1:
+        raise ValueError(f"component stats: K = {k} roots do not fit one CTA's shared memory")
+    return bands
+
+
+def _outputs(labels: torch.Tensor, k: int, bands: int = 0) -> Tuple[torch.Tensor, ...]:
+    """row [H, k], col [W, k], rrow, rcol and, with bands, peak [1, k] and
+    K5's int32 partials [bands, k]: views of one uninitialised allocation
+    (the kernel writes every entry), one allocator call a launch."""
     h, w = labels.shape
-    dev = labels.device
-    row = torch.empty((h, k), dtype=torch.float32, device=dev)
-    col = torch.empty((w, k), dtype=torch.float32, device=dev)
-    return (row, col, torch.empty_like(row), torch.empty_like(col),
-            torch.empty(h * w, dtype=torch.int32, device=dev))
+    sizes = [h, w, h, w] + ([1, bands] if bands else [])
+    buf = torch.empty((sum(sizes), k), dtype=torch.float32, device=labels.device)
+    return buf.split(sizes)
 
 
 def component_stats_nopeak(labels: torch.Tensor, keep: torch.Tensor,
                            roots: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """labels [H, W] int32, keep [H, W] bool, roots [K] int32 ->
-    (row [H, K], col [W, K], rrow [H, K], rcol [W, K]) fp32 counts."""
+    (row [H, K], col [W, K], rrow [H, K], rcol [W, K]) fp32 counts. Roots
+    below H*W must be unique, in any order; roots >= H*W are padding and
+    count nothing."""
     if not labels.is_cuda:
         return component_stats_nopeak_plain(labels, keep, roots)
     _check_inputs(labels, keep, roots)
     h, w = labels.shape
     k = roots.shape[0]
-    row, col, rrow, rcol, slot = _count_planes(labels, k)
-    fn = entry("stats", "tt_component_stats_nopeak", 8, 3)
-    err = fn(labels.data_ptr(), keep.data_ptr(), roots.data_ptr(), slot.data_ptr(),
+    _bands(h, w, k, False)
+    row, col, rrow, rcol = _outputs(labels, k)
+    fn = entry("stats", "tt_component_stats_nopeak", 7, 3)
+    err = fn(labels.data_ptr(), keep.data_ptr(), roots.data_ptr(),
              row.data_ptr(), col.data_ptr(), rrow.data_ptr(), rcol.data_ptr(),
              h, w, k, torch.cuda.current_stream(labels.device).cuda_stream)
     _raise_on(err, "tt_component_stats_nopeak")
@@ -105,7 +144,8 @@ def component_stats(labels: torch.Tensor, tn: torch.Tensor, keep: torch.Tensor,
                     roots: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """labels [H, W] int32, tn [H, W] fp32, keep [H, W] bool, roots [K]
     int32 -> (row, col, rrow, rcol, peak [K]) fp32: K3's counts and the max
-    of tn over each root's pixels, -1e30 where a root has none."""
+    of tn over each root's pixels, -1e30 where a root has none. Roots as
+    for `component_stats_nopeak`."""
     if not labels.is_cuda:
         return component_stats_plain(labels, tn, keep, roots)
     _check_inputs(labels, keep, roots)
@@ -114,13 +154,12 @@ def component_stats(labels: torch.Tensor, tn: torch.Tensor, keep: torch.Tensor,
         raise ValueError("labels and tn must share shape and device")
     h, w = labels.shape
     k = roots.shape[0]
-    row, col, rrow, rcol, slot = _count_planes(labels, k)
-    peak = torch.empty(k, dtype=torch.float32, device=labels.device)
+    row, col, rrow, rcol, peak, partial = _outputs(labels, k, _bands(h, w, k, True))
     fn = entry("stats", "tt_component_stats", 10, 3)
     err = fn(labels.data_ptr(), tn.data_ptr(), keep.data_ptr(), roots.data_ptr(),
-             slot.data_ptr(), row.data_ptr(), col.data_ptr(), rrow.data_ptr(),
+             partial.data_ptr(), row.data_ptr(), col.data_ptr(), rrow.data_ptr(),
              rcol.data_ptr(), peak.data_ptr(), h, w, k,
              torch.cuda.current_stream(labels.device).cuda_stream)
     _raise_on(err, "tt_component_stats")
     LAUNCHES[K5] += 1
-    return row, col, rrow, rcol, peak
+    return row, col, rrow, rcol, peak[0]
