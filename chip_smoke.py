@@ -19,6 +19,19 @@ line without a CUDA device or outside the repo.
              (`greedy_decode`). Counts zeroed just before and read just
              after: K1-K3, K6 and K7 must each have run. Then warm pages/sec
              of the default and the latency path, in turns in this call.
+3d. production: the same pages through `image_to_data(..., config=
+             OcrConfig.production())`: int8 CRAFT (dynamic activation
+             scales) in front of K6 and K7. Page by page, counts zeroed
+             just before and read just after: K1-K3, K6, K7 and the int8
+             convolutions (`int8_conv`, every quantized layer) must each
+             have run on every page, and every page must give boxes with
+             text. Then calibration on the card: a second production engine
+             calibrates on two pages, saves `calibration.npz` (under
+             build/), and a third engine loads it from its weights
+             directory: the scales must be equal, and so must the three
+             calibrated engines' results on the four pages.
+             Warm pages/sec of the default path, latency() and production()
+             (dynamic and calibrated), the four in turns in this call.
 3c. path A:  the same pages at `OcrConfig(text_threshold=0.3)`, the
              detection branch text_threshold < low_text: counts zeroed just
              before and read just after, K4 (`label_components`), K2 and K5
@@ -41,8 +54,13 @@ line without a CUDA device or outside the repo.
              root padding, every peak -1e30) and on roots chosen to share
              a bucket of their hash table (printed; the bucket is checked
              against csrc/stats.cu's own hash), on a 509x381 crop and at
-             K = 4096; K = 8193 must raise ValueError.
-             Prints one {"kernels": [...]} line.
+             K = 4096; K = 8193 must raise ValueError. K2 also runs (equal
+             to its plain version, at most 1 record a call) at min_area 1,
+             2, 10 and 16 on the pages, the random and stress masks, and
+             masks built for its window (`area_stress_masks`: components
+             of area m-1, m and m+1 as lines, staircases and an L across
+             tile and image borders; all foreground; empty) at 512x384 and
+             509x381. Prints one {"kernels": [...]} line.
 4c. K4, K5:  the same, on path A's inputs (hot at text_threshold 0.3, the
              normalized region map): labels, the four count planes and the
              peak (-1e30 in empty slots) equal bit for bit; ms/call, traced
@@ -78,6 +96,16 @@ line without a CUDA device or outside the repo.
              it, the plain version with the 3x3 taps flipped. Timed (CUDA
              events and traced device time) beside the cuDNN chain the port
              runs otherwise (bf16 conv2d -> relu -> max_pool2d).
+4e. int8 conv: on funsd_0001129658's real trunk activations under
+             production() (a 3x3 layer, the dilated fc6 and a decoder
+             conv1a/conv1b), the card's int32 sums (`kernels/int8.py`:
+             im2col + torch._int_mm) must equal those of a float64 convolution
+             of the same int8 operands on the card (exact) everywhere, and
+             an int64 matmul on the host at 256 sampled pixels. Timed beside
+             the bf16 cuDNN convolution of the same shapes; the card's
+             dequant (torch.addcmul, an fma) is compared with its float64
+             form on the host (informational: mismatched values
+             counted). Prints one {"int8_conv": ...} line.
 5. parity:   the same pages at compute_dtype float32 (TF32 off for convs
              and matmuls) against the JAX package's float32 result
              (tests/fixtures/torch_reference_production.json): at least
@@ -91,6 +119,11 @@ line without a CUDA device or outside the repo.
              distinct word with the same text and bbox IoU >= 0.5, and word
              accuracy against the truths at most 0.02 below the JAX
              engine's recorded accuracy.
+6c. synthetic production: the same 16 pages through `production(
+             canvas_size=256, max_boxes=32, rec_buckets=(32,))` against the
+             JAX production() record tests/fixtures/torch_synthetic_
+             production.json, under phase 6's gates; the int8 convs must
+             have run.
 6b. path B:  `models.craft.FUSED_STAGE1 = "on"`: phase 6 again with counts
              zeroed just before and read just after (K8 must have run),
              under the same gates; then the default path's transcripts of
@@ -115,6 +148,7 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_reference_production.js
 FIXTURE_LOW = os.path.join(ROOT, "tests", "fixtures", "torch_reference_lowthresh.json")
 LOW_THRESHOLD = 0.3  # text_threshold of path A, below the default low_text 0.4
 SYNTHETIC = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")
+SYNTHETIC_PRODUCTION = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_production.json")
 PAGES = ("resume_example", "funsd_0001129658", "funsd_91372360", "table_english")
 GRAY_PAGES = ("funsd_0001129658", "funsd_91372360")  # gray PNG files
 MIN_WORD_SHARE = 0.95
@@ -125,6 +159,9 @@ K7_TILES = ((4, 4), (4, 6), (8, 4), (8, 6), (16, 4), (16, 6))  # (crops, CTAs) p
 K8_MAX_REL = 1e-3
 K8_BATCH, K8_BATCH_PAGE = 16, "funsd_0001129658"  # BASELINE.md config 1's dense batch
 MIN_AGREEMENT = 0.98
+K2_MIN_AREAS = (1, 2, 10, 16)
+INT8_LAYERS = ("vgg/conv2_2/conv", "fc/fc6", "up/upconv2/conv1a", "up/upconv2/conv1b")
+INT8_PAGE = "funsd_0001129658"
 MAX_ACC_DROP = 0.02
 # H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate, the vector
 # (non-tensor-core) rate used for the kernels' compares, adds and atomics,
@@ -190,6 +227,69 @@ def stress_masks():
     out.append(("diagonal", (yy + xx) % 2 == 0))
     out.append(("all", np.ones((h, w), bool)))
     return out
+
+
+def area_shapes(a):
+    """[(name, [(dy, dx)])] of the components of area a that K2's window
+    must judge exactly: straight lines (from either end the farthest member
+    lies a-1 away, the window's edge when a = m), staircases of unit steps
+    and of steps 3 long, and an L (both reach that edge along a path)."""
+    shapes = [("hline", [(0, i) for i in range(a)]), ("vline", [(i, 0) for i in range(a)])]
+    for step in (1, 3):
+        pts, y, x = [], 0, 0
+        while len(pts) < a:
+            pts.append((y, x))
+            if len(pts) % (step + 1) == 0:
+                y += 1
+            else:
+                x += 1
+        shapes.append((f"stairs{step}", pts))
+    half = a // 2
+    shapes.append(("ell", [(0, i) for i in range(half + 1)]
+                   + [(i, half) for i in range(1, a - half)]))
+    return shapes
+
+
+def area_stress_masks(m, h, w, seed=0):
+    """[(label, numpy bool mask [h, w])] for K2 at min_area m: components of
+    area m-1, m and m+1 (`area_shapes`) placed across every 32-pixel tile
+    border, against the four image borders and at seeded random spots
+    (never 4-adjacent to another, so each keeps its area; diagonal
+    neighbours, other labels inside the window, are allowed); then all
+    foreground and empty."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((h, w), bool)
+    taken = np.zeros((h, w), bool)  # occupied pixels and their 4-neighbours
+
+    def place(pts, y0, x0):
+        ys = np.array([p[0] for p in pts]) + y0
+        xs = np.array([p[1] for p in pts]) + x0
+        if ys.min() < 0 or xs.min() < 0 or ys.max() >= h or xs.max() >= w:
+            return
+        if taken[ys, xs].any():
+            return
+        mask[ys, xs] = True
+        for dy, dx in ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)):
+            taken[np.clip(ys + dy, 0, h - 1), np.clip(xs + dx, 0, w - 1)] = True
+
+    shapes = [pts for a in (m - 1, m, m + 1) if a >= 1 for _, pts in area_shapes(a)]
+    for pts in shapes:
+        sy = max(p[0] for p in pts) + 1
+        sx = max(p[1] for p in pts) + 1
+        for t in range(32, max(h, w), 32):  # straddling tile borders
+            place(pts, t - sy // 2, int(rng.integers(0, w)))
+            place(pts, int(rng.integers(0, h)), t - sx // 2)
+        for y0, x0 in ((0, int(rng.integers(0, w))), (h - sy, int(rng.integers(0, w))),
+                       (int(rng.integers(0, h)), 0), (int(rng.integers(0, h)), w - sx),
+                       (0, 0), (h - sy, w - sx)):
+            place(pts, y0, x0)
+    for _ in range(4 * len(shapes)):
+        pts = shapes[int(rng.integers(len(shapes)))]
+        place(pts, int(rng.integers(0, h)), int(rng.integers(0, w)))
+    return [(f"area_shapes/m{m}", mask), ("all", np.ones((h, w), bool)),
+            ("empty", np.zeros((h, w), bool))]
 
 
 def kernel_cases(engine, pages):
@@ -396,6 +496,44 @@ def check_stats(label, lab, keep, tn, roots, rows, max_launches):
               f"bound_ms={bound:.5f}", flush=True)
 
 
+def check_area_ok(cases, main_m, rows):
+    """K2 at every min_area of K2_MIN_AREAS on the masks of `cases` (the
+    main loop has run it at main_m) and on `area_stress_masks` at 512x384
+    and 509x381: equal to its plain version bit for bit, at most 1 traced
+    record a call; times into rows."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import cc
+    from tuatara_tpu_torch.ops import connected_components as plain
+
+    inputs = [(c[0], c[1], [m for m in K2_MIN_AREAS if m != main_m]) for c in cases]
+    for hh, ww in ((512, 384), (509, 381)):
+        masks = {}
+        for m in K2_MIN_AREAS:
+            for label, mask in area_stress_masks(m, hh, ww, seed=m):
+                masks[f"{label}/{hh}x{ww}"] = mask
+        inputs += [(label, torch.from_numpy(mask).cuda(), K2_MIN_AREAS)
+                   for label, mask in masks.items()]
+    for label, comb, areas in inputs:
+        lab = cc.label_components(comb)
+        h, w = lab.shape
+        for m in areas:
+            got, ref = cc.area_ok(lab, m), plain.area_ok(lab, m)
+            if not torch.equal(got, ref):
+                fail(f"{cc.K2} differs from its plain version on {label} at min_area {m} "
+                     f"({int((got != ref).sum())} pixels)")
+            dev_ms, per_call = traced_per_call(lambda: cc.area_ok(lab, m))
+            if per_call is not None and per_call > 1:
+                fail(f"{cc.K2} took {per_call} launches a call on {label} at min_area {m}")
+            ms = cuda_ms(lambda: cc.area_ok(lab, m), 30)
+            rows.append({"input": f"{label}/m{m}", "shape": [h, w], "ms": ms,
+                         "device_ms": dev_ms, "launches_per_call": per_call,
+                         "plain_ms": None, "bound_ms": h * w * 5 / HBM_BYTES_PER_S * 1e3,
+                         "bound_by": "bytes", "max_abs_err": 0.0})
+            print(f"kernel {cc.K2:24s} {label:26s} m={m:2d} {h}x{w} fg={int((lab >= 0).sum())} "
+                  f"ms={ms:.4f} device_ms={dev_ms} launches/call={per_call}", flush=True)
+
+
 def check_kernels(engine, pages, launches, low_launches):
     """Phases 4 and 4c: every kernel of detection post-processing equal to
     its plain version; times and bounds. K1-K3 on the default path's
@@ -408,7 +546,7 @@ def check_kernels(engine, pages, launches, low_launches):
     K = engine.config.max_boxes
     m = engine.config.min_component_area
     rows = {n: [] for n in (cc.K1, cc.K2, stats.K3, cc.K4, stats.K5)}
-    max_launches = {cc.K1: 3, cc.K4: 2, stats.K3: 1, stats.K5: 1}
+    max_launches = {cc.K1: 3, cc.K2: 1, cc.K4: 2, stats.K3: 1, stats.K5: 1}
     cases = kernel_cases(engine, pages)
     for label, comb, hot, keep, tn, hot_low in cases:
         h, w = comb.shape
@@ -473,6 +611,7 @@ def check_kernels(engine, pages, launches, low_launches):
               f"empty_peak_slots={empty}", flush=True)
     for label, lab, keep, tn, roots in stats_cases(cases, pages, m):
         check_stats(label, lab, keep, tn, roots, rows, max_launches)
+    check_area_ok(cases, m, rows[cc.K2])
     too_many = torch.full((8193,), plain.BIG, dtype=torch.int32, device=lab.device)
     for name, fn in ((stats.K3, lambda: stats.component_stats_nopeak(lab, keep, too_many)),
                      (stats.K5, lambda: stats.component_stats(lab, tn, keep, too_many))):
@@ -619,6 +758,78 @@ def check_stage1(engine, pages, launches):
                                                 "library_device_ms", "bound_ms", "rel_err",
                                                 "control_rel_err")},
              "per_input": rows}]
+
+
+def check_int8_conv(prod, pages):
+    """Phase 4e: the int8 convolution's int32 sums on real trunk activations
+    (INT8_LAYERS on INT8_PAGE under production()) against a float64
+    convolution of the same operands on the card, everywhere, and an int64
+    matmul on the host at 256 sampled pixels: equal exactly. Times beside
+    the bf16 cuDNN convolution of the same shapes. -> a summary dict."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tuatara_tpu_torch.kernels import int8
+    from tuatara_tpu_torch.models.layers import dequant
+
+    qconvs = dict(prod.craft.qconvs())
+    seen = {}
+    handles = [qconvs[n].register_forward_hook(
+        lambda mod, args, out, n=n: seen.__setitem__(n, args[0])) for n in INT8_LAYERS]
+    try:
+        prod.detect(torch.from_numpy(pages[INT8_PAGE][None]).cuda())
+    finally:
+        for hd in handles:
+            hd.remove()
+    rng = np.random.default_rng(9)
+    rows = []
+    for name in INT8_LAYERS:
+        q, x = qconvs[name], seen[name]
+        xq, xs = q.quantize_input(x)
+        kh = q.wq.shape[0]
+        acc = int8.int8_conv(xq, q.wmat, kh, q.dilation)
+        pad = q.dilation * (kh - 1) // 2
+        ref = F.conv2d(xq.permute(0, 3, 1, 2).double(), q.wq.permute(3, 2, 0, 1).double(),
+                       padding=pad, dilation=q.dilation).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        if not torch.equal(acc.long(), ref.long()) or not torch.equal(ref, ref.round()):
+            fail(f"int8 conv {name}: int32 sums differ from the float64 convolution "
+                 f"(max abs {float((acc.double() - ref).abs().max())})")
+        b, h, w, c = xq.shape
+        xp = F.pad(xq.cpu().long(), (0, 0, pad, pad, pad, pad))
+        picks = [(int(rng.integers(b)), int(rng.integers(h)), int(rng.integers(w)))
+                 for _ in range(256)]
+        cols = torch.stack([torch.cat([xp[bi, y + ky * q.dilation, x + kx * q.dilation]
+                                       for ky in range(kh) for kx in range(kh)])
+                            for bi, y, x in picks])
+        want = cols @ q.wq.cpu().long().reshape(-1, q.cout)
+        got = torch.stack([acc[bi, y, x].cpu().long() for bi, y, x in picks])
+        if not torch.equal(got, want):
+            fail(f"int8 conv {name}: int32 sums differ from the int64 matmul at sampled pixels")
+        scale = q.sw / xs
+        card = dequant(acc, scale, q.bias, torch.float32).cpu()
+        host = dequant(acc.cpu(), scale.cpu(), None if q.bias is None else q.bias.cpu(),
+                       torch.float32)
+        fma_diff = int((card != host).sum())
+        wb = q.wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+        xb = x.to(torch.bfloat16)
+        rows.append({
+            "layer": name, "shape": [b, h, w, c], "cout": q.cout, "kernel": kh,
+            "dilation": q.dilation, "equal": True, "dequant_fma_mismatches": fma_diff,
+            "ms": cuda_ms(lambda: int8.int8_conv(xq, q.wmat, kh, q.dilation), 20),
+            "layer_ms": cuda_ms(lambda: q(x), 20),
+            "bf16_cudnn_ms": cuda_ms(lambda: F.conv2d(xb, wb, padding=pad,
+                                                      dilation=q.dilation), 20)})
+        r = rows[-1]
+        print(f"int8 conv {name:20s} {b}x{h}x{w}x{c}->{q.cout} k={kh} d={q.dilation} equal "
+              f"(float64 everywhere, int64 at 256 pixels); dequant fma mismatches "
+              f"{fma_diff}; ms={r['ms']:.4f} layer_ms={r['layer_ms']:.4f} "
+              f"bf16_cudnn_ms={r['bf16_cudnn_ms']:.4f}", flush=True)
+    return {"route": "library", "library": "torch._int_mm (cuBLASLt) over im2col rows",
+            "source": "tuatara_tpu_torch/kernels/int8.py",
+            "replaces": "tuatara_tpu/models/layers.py:216 (XLA int8 conv, not Pallas)",
+            "per_layer": rows}
 
 
 def word_share(ref_words, got_words) -> float:
@@ -1021,9 +1232,10 @@ def check_recognizer_kernels(lat, default, pages, launches):
     return out
 
 
-def check_synthetic(weights):
-    """Phase 6: the 16 synthetic pages through the latency path against the
-    JAX record."""
+def check_synthetic(weights, preset="latency", record=SYNTHETIC + ".json"):
+    """Phase 6 (and 6c with preset "production"): the 16 synthetic pages
+    through `OcrConfig.<preset>(canvas_size=256, max_boxes=32,
+    rec_buckets=(32,))` against the JAX record."""
     import numpy as np
 
     import tuatara_tpu_torch
@@ -1031,19 +1243,23 @@ def check_synthetic(weights):
 
     pages = np.load(SYNTHETIC + ".npz")["pages"]
     with open(SYNTHETIC + ".json") as f:
+        truths = json.load(f)["truths"]
+    with open(record) as f:
         ref = json.load(f)
-    cfg = tuatara_tpu_torch.OcrConfig.latency(canvas_size=256, max_boxes=32, rec_buckets=(32,))
+    cfg = getattr(tuatara_tpu_torch.OcrConfig, preset)(canvas_size=256, max_boxes=32,
+                                                       rec_buckets=(32,))
     got = [tuatara_tpu_torch.image_to_data(p, weights, config=cfg) for p in pages]
     hit = sum(transcript_agreement(r, g)[0] for r, g in zip(ref["words"], got))
     total = sum(len(r) for r in ref["words"])
-    acc = word_accuracy(got, ref["truths"])
-    print(f"synthetic: {hit}/{total} JAX words matched ({hit / total:.4f}); word accuracy "
-          f"{acc:.4f} (JAX record {ref['word_acc']:.4f})", flush=True)
+    acc = word_accuracy(got, truths)
+    print(f"synthetic {preset}: {hit}/{total} JAX words matched ({hit / total:.4f}); word "
+          f"accuracy {acc:.4f} (JAX record {ref['word_acc']:.4f})", flush=True)
     if hit / total < MIN_AGREEMENT:
-        fail(f"synthetic pages: transcript agreement {hit / total:.4f} < {MIN_AGREEMENT}")
+        fail(f"synthetic pages ({preset}): transcript agreement {hit / total:.4f} < "
+             f"{MIN_AGREEMENT}")
     if acc < ref["word_acc"] - MAX_ACC_DROP:
-        fail(f"synthetic pages: word accuracy {acc:.4f} more than {MAX_ACC_DROP} below "
-             f"the JAX record's {ref['word_acc']:.4f}")
+        fail(f"synthetic pages ({preset}): word accuracy {acc:.4f} more than {MAX_ACC_DROP} "
+             f"below the JAX record's {ref['word_acc']:.4f}")
 
 
 def check_fused_stage1(engine, pages, results):
@@ -1106,10 +1322,76 @@ def drive(config, pages, required):
     return results, launches
 
 
+def drive_each_page(config, pages, required):
+    """`image_to_data` page by page, launch counts zeroed just before and
+    read just after each page: every kernel in `required` must have run on
+    every page ({name: least launches a page}), and every page must give
+    boxes with text. -> (results, summed launches)."""
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    results, total = {}, {}
+    for page, img in pages.items():
+        reset_launches()
+        results[page] = tuatara_tpu_torch.image_to_data(img, WEIGHTS, config=config)
+        launches = dict(LAUNCHES)
+        for name, least in required.items():
+            if launches.get(name, 0) < least:
+                fail(f"page {page}: kernel {name} launched {launches.get(name, 0)} times "
+                     f"(at least {least})")
+        if not any(w["text"] for w in results[page]):
+            fail(f"page {page}: no boxes with text")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return results, total
+
+
+def check_calibration(pages):
+    """Calibrate a production() engine on two pages, save calibration.npz
+    beside links to the weights under build/, load it in a new engine
+    from there: equal scales and equal results on the four pages. -> the
+    calibrated engine."""
+    import shutil
+
+    import torch
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.utils import weights as W
+
+    cfg = tuatara_tpu_torch.OcrConfig.production()
+    first = tuatara_tpu_torch.OcrEngine(cfg, weights_dir=WEIGHTS)
+    names = list(pages)[:2]
+    n = first.calibrate([pages[p][None] for p in names])
+    wdir = os.path.join(ROOT, "build", "calibrated_weights")
+    shutil.rmtree(wdir, ignore_errors=True)
+    os.makedirs(wdir)
+    try:
+        for f in (W.CRAFT_FILE, W.PARSEQ_FILE, W.CONFIG_FILE):
+            os.symlink(os.path.join(WEIGHTS, f), os.path.join(wdir, f))
+        first.save_calibration(os.path.join(wdir, W.CALIB_FILE))
+        second = tuatara_tpu_torch.OcrEngine(cfg, weights_dir=wdir)
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    a, b = dict(first.craft.qconvs()), dict(second.craft.qconvs())
+    if a.keys() != b.keys() or any(a[k].sx is None or not torch.equal(a[k].sx, b[k].sx)
+                                   for k in a):
+        fail("calibration: the loaded scales differ from the saved ones")
+    for page, img in pages.items():
+        if first.run(img) != second.run(img):
+            fail(f"calibration: page {page} differs between the calibrated engine and the "
+                 f"engine that loaded its calibration.npz")
+    sx = {k: float(q.sx) for k, q in a.items()}
+    print(f"calibration: {n} layers on {names}; saved, loaded, equal scales and results on "
+          f"{len(pages)} pages; sx {json.dumps(sx)}", flush=True)
+    return first
+
+
 def warm_rates(engines, pages, reps=3):
     """Warm ms/page of each engine, in turns, with its detect/recognize
     split."""
     import torch
+
+    print(f"warm, in turns: {', '.join(engines)}", flush=True)
 
     acc = {k: {"s": 0.0, "detect_s": 0.0, "recognize_s": 0.0} for k in engines}
     for _ in range(reps):
@@ -1179,6 +1461,24 @@ def main() -> int:
               f"path's): " + " ".join(w["text"] for w in words[:10]), flush=True)
     warm_rates({"default": engine, "latency": lat}, pages)
 
+    # 3d. production(): int8 CRAFT + K6/K7; calibration; warm rates in turns
+    production = tuatara_tpu_torch.OcrConfig.production()
+    prod = tuatara_tpu_torch.api.get_engine(production, WEIGHTS)
+    n_q = len(prod.craft.qconvs())
+    prod_results, prod_launches = drive_each_page(
+        production, pages, {**dict.fromkeys(post + ("vit_blocks", "greedy_decode"), 1),
+                            "int8_conv": n_q})
+    print(f"production path launches ({n_q} int8 convs a page): "
+          f"{json.dumps(prod_launches)}", flush=True)
+    for name, words in prod_results.items():
+        same = sum(a["text"] == b["text"] for a, b in zip(words, lat_results[name]))
+        print(f"production {name}: {len(words)} boxes ({len(lat_results[name])} on the latency "
+              f"path; {same} transcripts as its): " + " ".join(w["text"] for w in words[:10]),
+              flush=True)
+    calibrated = check_calibration(pages)
+    warm_rates({"default": engine, "latency": lat, "production": prod,
+                "production_calibrated": calibrated}, pages)
+
     # 3c. path A: text_threshold < low_text (K4, K5)
     low = tuatara_tpu_torch.OcrConfig(text_threshold=LOW_THRESHOLD)
     low_results, low_launches = drive(low, pages, ("label_components", "area_ok",
@@ -1199,6 +1499,8 @@ def main() -> int:
     # gives K8's launches on its path)
     kernels = check_kernels(engine, pages, launches, low_launches)
     kernels += check_recognizer_kernels(lat, engine, pages, lat_launches)
+    int8_summary = check_int8_conv(prod, pages)
+    int8_summary["launches"] = prod_launches.get("int8_conv", 0)
 
     # 5. float32 parity with the JAX reference
     torch.backends.cudnn.allow_tf32 = False
@@ -1218,13 +1520,20 @@ def main() -> int:
             if share < MIN_WORD_SHARE:
                 fail(f"fp32 parity{tag} on {name}: {share:.4f} < {MIN_WORD_SHARE}")
 
-    # 6. confident pages through the latency path
+    # 6. confident pages through the latency path; 6c through production()
     check_synthetic(WEIGHTS)
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    check_synthetic(WEIGHTS, "production", SYNTHETIC_PRODUCTION)
+    if LAUNCHES["int8_conv"] < 1:
+        fail("synthetic production: no int8 conv ran")
 
     # 6b. path B: the same with K8 in CRAFT's stage 1; then 4d
     stage1_launches = check_fused_stage1(engine, pages, results)
     kernels += check_stage1(engine, pages, stage1_launches)
 
+    print(json.dumps({"int8_conv": int8_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

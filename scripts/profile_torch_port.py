@@ -3,7 +3,10 @@
 
 Runs `OcrEngine.run` (what `image_to_data` calls) at the default
 `OcrConfig()` (bf16), with `--config latency` at `OcrConfig.latency()`
-(fused recognizer kernels K6, K7), or with `--config lowthresh` at
+(fused recognizer kernels K6, K7), with `--config production` at
+`OcrConfig.production()` (int8 CRAFT in front of K6, K7; `--calibrate`
+first freezes static activation scales from the first two pages), or with
+`--config lowthresh` at
 `OcrConfig(text_threshold=0.3)` (detection kernels K4, K5), and with
 `--fused-stage1` with CRAFT's stage 1 through K8; on
 `evals/production_weights` and the four main-path pages, it warms up, then
@@ -16,14 +19,15 @@ traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
   the trace) and the device's idle share of the wall time;
 * CRAFT's device time per page: the kernels launched inside its forward
   (a `record_function` range around `engine.craft`, its launches matched
-  to their kernels by correlation id), the figure that says whether K8
-  (`--fused-stage1`) beats the cuDNN chain end to end;
+  to their kernels by correlation id) and their number, the figures that
+  say whether K8 (`--fused-stage1`) beats the cuDNN chain end to end and
+  what int8 CRAFT (`--config production`) costs against bf16;
 * the CUDA kernels with the most device time, grouped by name, and the
   number of kernel launches per page.
 
 Writes the chrome trace to build/profile_torch_port_<config>.json.
 Usage: python3 scripts/profile_torch_port.py [--reps N]
-       [--config default|latency|lowthresh] [--fused-stage1]
+       [--config default|latency|production|lowthresh] [--calibrate] [--fused-stage1]
 """
 
 import argparse
@@ -72,7 +76,9 @@ def range_kernels(events, name):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--config", choices=("default", "latency", "lowthresh"), default="default")
+    ap.add_argument("--config", choices=("default", "latency", "production", "lowthresh"),
+                    default="default")
+    ap.add_argument("--calibrate", action="store_true")
     ap.add_argument("--fused-stage1", action="store_true")
     args = ap.parse_args()
 
@@ -89,14 +95,18 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {smi.stdout.strip()}")
-    print(f"config: {args.config}; fused stage 1: {args.fused_stage1}")
+    print(f"config: {args.config}; calibrated: {args.calibrate}; fused stage 1: "
+          f"{args.fused_stage1}")
     if args.fused_stage1:
         craft.FUSED_STAGE1 = "on"
     pages = [load_image(os.path.join(ROOT, "images", f"{n}.png")) for n in PAGES]
     config = {"default": tuatara_tpu_torch.OcrConfig,
               "latency": tuatara_tpu_torch.OcrConfig.latency,
+              "production": tuatara_tpu_torch.OcrConfig.production,
               "lowthresh": lambda: tuatara_tpu_torch.OcrConfig(text_threshold=0.3)}[args.config]()
-    engine = tuatara_tpu_torch.api.get_engine(config, WEIGHTS)
+    engine = tuatara_tpu_torch.OcrEngine(config, weights_dir=WEIGHTS)
+    if args.calibrate:
+        engine.calibrate([img[None] for img in pages[:2]])
     craft_forward = engine.craft.forward
 
     def traced_craft(*a, **kw):
@@ -129,7 +139,8 @@ def main() -> int:
     with open(trace) as f:
         every = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     events = [e for e in every if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    craft_ms = sum(e["dur"] for e in range_kernels(every, "craft")) / 1e3
+    craft_kernels = range_kernels(every, "craft")
+    craft_ms = sum(e["dur"] for e in craft_kernels) / 1e3
     kernels = [e for e in events if e["cat"] == "kernel"]
     busy = busy_us(events) / 1e3
     by_name = {}
@@ -145,7 +156,7 @@ def main() -> int:
           f"{len(kernels) / n_pages:.0f}")
     total_k = sum(v[0] for v in by_name.values())
     print(f"kernel time: {total_k / n_pages:.2f} ms/page; CRAFT kernels "
-          f"{craft_ms / n_pages:.3f} ms/page")
+          f"{craft_ms / n_pages:.3f} ms/page, {len(craft_kernels) / n_pages:.0f} launches/page")
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {ms / n_pages:8.3f} ms/page {cnt / n_pages:7.1f} launches/page "
               f"{ms / total_k * 100:5.1f}%  {name[:110]}")

@@ -14,8 +14,20 @@ the fonts or PIL of the machine that reads them.
 
 Writes tests/fixtures/torch_synthetic_pages.npz (pages) and .json (truths,
 JAX words, JAX word accuracy).
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/gen_torch_synthetic.py --config production
+
+reads those pages and truths back and writes
+tests/fixtures/torch_synthetic_production.json: the JAX engine's words and
+word accuracy at `OcrConfig.production(canvas_size=256, max_boxes=32,
+rec_buckets=(32,), encoder_impl="pallas", decode_impl="pallas")` (bf16,
+int8 CRAFT with dynamic activation scales, the fused recognizer kernels;
+without the two lowering fields a CPU backend would also quantize the
+encoder). Pallas runs only in interpret mode on the CPU, so the two fused
+kernels are called with interpret=True (about 8 s a page).
 """
 
+import argparse
 import json
 import os
 import sys
@@ -28,8 +40,54 @@ OUT = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")
 N_PAGES = 16
 
 
+def production() -> int:
+    """The production() record on the pages and truths already written."""
+    import tuatara_tpu.ops.pallas.decode as pallas_decode
+    import tuatara_tpu.ops.pallas.vit as pallas_vit
+
+    def interpreted(fn):
+        def call(*args, **kwargs):
+            kwargs["interpret"] = True
+            return fn(*args, **kwargs)
+        return call
+
+    pallas_vit.vit_blocks_pallas = interpreted(pallas_vit.vit_blocks_pallas)
+    pallas_decode.greedy_decode_pallas = interpreted(pallas_decode.greedy_decode_pallas)
+    from tuatara_tpu.api import OcrEngine
+    from tuatara_tpu.config import OcrConfig
+    from tuatara_tpu.utils.metrics import evaluate_engine
+
+    config = dict(canvas_size=256, max_boxes=32, rec_buckets=(32,), encoder_impl="pallas",
+                  decode_impl="pallas")
+    engine = OcrEngine(OcrConfig.production(**config), weights_dir=WEIGHTS)
+    pages = np.load(OUT + ".npz")["pages"]
+    with open(OUT + ".json") as f:
+        truths = json.load(f)["truths"]
+    words = [[{"text": w["text"], "bbox": [float(v) for v in w["bbox"]]}
+              for w in engine.run(img)] for img in pages]
+    scores = evaluate_engine(engine, list(pages), truths, iou_threshold=0.5)
+    out = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_production.json")
+    with open(out, "w") as f:
+        json.dump({
+            "what": ("JAX engine production() words on the 16 held-out synthetic pages of "
+                     "torch_synthetic_pages.npz (int8 CRAFT, dynamic activation scales; "
+                     "Pallas recognizer kernels in interpret mode)"),
+            "config": {"preset": "production", **config, "rec_buckets": [32],
+                       "compute_dtype": "bfloat16"},
+            "weights": "evals/production_weights",
+            "word_acc": scores["word_acc"], "matched": scores["matched"],
+            "words": words}, f, indent=1)
+    print(f"wrote {out}: word_acc {scores['word_acc']:.4f}, "
+          f"{sum(len(w) for w in words)} JAX words")
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=("default", "production"), default="default")
     sys.path.insert(0, ROOT)
+    if ap.parse_args().config == "production":
+        return production()
     from tuatara_tpu.api import OcrEngine
     from tuatara_tpu.config import OcrConfig
     from tuatara_tpu.utils.data import synthetic_text_pages

@@ -37,7 +37,8 @@ def test_port_has_modules():
     for want in ("tuatara_tpu_torch/api.py", "tuatara_tpu_torch/kernels/cc.py",
                  "tuatara_tpu_torch/kernels/stats.py", "tuatara_tpu_torch/ops/boxes.py",
                  "tuatara_tpu_torch/kernels/vit.py", "tuatara_tpu_torch/kernels/decode.py",
-                 "tuatara_tpu_torch/kernels/stage1.py", "tuatara_tpu_torch/models/craft.py",
+                 "tuatara_tpu_torch/kernels/stage1.py", "tuatara_tpu_torch/kernels/int8.py",
+                 "tuatara_tpu_torch/models/craft.py",
                  "tuatara_tpu_torch/utils/metrics.py"):
         assert want in names
 

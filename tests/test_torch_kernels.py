@@ -16,6 +16,13 @@ roots chosen to collide, inserted in two orders), its column strips and
 row bands that each write their whole block, and K5's per-band peak
 partials with their reduction.
 
+The CUDA area filter of K2 (csrc/cc.cu) is held here through a numpy model
+of its one pass: 32x32 tiles (and tiles that do not divide the image)
+staged with a halo of min_area-1 pixels (-1 beyond the image), each label
+counted over that region (the CTA's hash table, filled by runs of equal
+labels within a warp's 32 lanes), background written at once, and a
+foreground pixel passing when its label's count reaches min_area.
+
 The CUDA kernels themselves run only on the card; `chip_smoke.py` holds
 them against these plain versions there. Here the wrappers must take the
 plain path for CPU tensors and count no launch.
@@ -241,6 +248,115 @@ def test_area_ok_plain_matches_pallas(min_area):
     got = tcc.area_ok(torch.from_numpy(np.array(labels)), min_area)
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _model_area_table(staged):
+    """The CTA's hash table of a staged region, {label: count}, built as
+    the kernel does: warps of 32 consecutive labels (the last padded with
+    -1) split at each lane whose label differs from the lane below (lane 0
+    always starts a run), and each run of a label adds its length."""
+    flat = staged.reshape(-1)
+    pad = -len(flat) % 32
+    lanes = np.concatenate([flat, np.full(pad, -1, flat.dtype)]).reshape(-1, 32)
+    starts = np.ones(lanes.shape, bool)
+    starts[:, 1:] = lanes[:, 1:] != lanes[:, :-1]
+    table = {}
+    for row, st in zip(lanes, starts):
+        pos = np.flatnonzero(st)
+        runs = np.diff(np.append(pos, 32))  # up to the next run's start
+        for p, n in zip(pos, runs):
+            if row[p] >= 0:
+                table[int(row[p])] = table.get(int(row[p]), 0) + int(n)
+    return table
+
+
+def _model_area_ok(labels, m, tile=32):
+    """csrc/cc.cu's area_ok_region on numpy: each tile's labels staged with
+    a halo of m-1 pixels (-1 beyond the image), each label counted over
+    that region, ok = count >= m at the tile's foreground pixels. ->
+    (ok [H, W] bool, region count [H, W], -1 at background)."""
+    h, w = labels.shape
+    r = m - 1
+    side = tile + 2 * r
+    ok = np.zeros((h, w), bool)
+    counts = np.full((h, w), -1, np.int64)
+    for by in range(0, h, tile):
+        for bx in range(0, w, tile):
+            staged = np.full((side, side), -1, np.int64)
+            y0, x0 = by - r, bx - r
+            ya, xa, yb, xb = max(y0, 0), max(x0, 0), min(y0 + side, h), min(x0 + side, w)
+            staged[ya - y0:yb - y0, xa - x0:xb - x0] = labels[ya:yb, xa:xb]
+            table = _model_area_table(staged)
+            th, tw = min(tile, h - by), min(tile, w - bx)
+            c = staged[r:r + th, r:r + tw]
+            cnt = np.array([table.get(int(v), -1) for v in c.reshape(-1)]).reshape(th, tw)
+            cnt[c < 0] = -1  # background is written 0 without a lookup
+            counts[by:by + th, bx:bx + tw] = cnt
+            ok[by:by + th, bx:bx + tw] = cnt >= m
+    return ok, counts
+
+
+def _area_cases():
+    """(m, label, labels [45, 38] int32) for K2: the stress shapes of
+    chip_smoke.area_stress_masks (areas m-1, m, m+1 across tile and image
+    borders; all foreground; empty) and two seeded random masks, at
+    m = 1, 2, 10, 16 (2m-1 <= 38, where the Pallas kernel is exact)."""
+    from chip_smoke import area_stress_masks
+
+    rng = np.random.default_rng(11)
+    cases = []
+    for m in (1, 2, 10, 16):
+        masks = area_stress_masks(m, 45, 38, seed=m)
+        masks += [(f"random{p}", rng.random((45, 38)) < p) for p in (0.3, 0.55)]
+        for label, mask in masks:
+            lab = tplain.label_components(torch.from_numpy(mask)).numpy()
+            cases.append((m, label, lab))
+    return cases
+
+
+@pytest.mark.parametrize("m,label,lab", _area_cases(),
+                         ids=lambda v: str(v) if not isinstance(v, np.ndarray) else "")
+def test_area_ok_model_matches_plain_and_pallas(m, label, lab):
+    """The CUDA area filter's pass (numpy model) at tiles of 32, 13 and 8
+    pixels (none divides 45 or 38) == the plain version (area histogram)
+    == the Pallas kernel (interpret), bit for bit; a region's count of a
+    label lies between min(area, m) and the area."""
+    want = tplain.area_ok(torch.from_numpy(lab), m).numpy()
+    ref = np.asarray(area_ok_pallas(jnp.array(lab), m, interpret=True))
+    np.testing.assert_array_equal(want, ref)
+    np.testing.assert_array_equal(tcc.area_ok(torch.from_numpy(lab), m).numpy(), want)
+    fg = lab >= 0
+    values, inverse, areas = np.unique(lab[fg], return_inverse=True, return_counts=True)
+    area = np.zeros(lab.shape, np.int64)
+    area[fg] = areas[inverse]
+    for tile in (32, 13, 8):
+        got, counts = _model_area_ok(lab, m, tile)
+        np.testing.assert_array_equal(got, want)
+        assert (counts[~fg] == -1).all()
+        assert (counts[fg] <= area[fg]).all()
+        assert (counts[fg] >= np.minimum(area[fg], m)).all()
+
+
+def test_area_ok_outside_window_range():
+    """K2 takes 1 <= min_area <= 16 (ValueError otherwise); extract_boxes
+    takes the plain area count outside that range, as JAX's gate does."""
+    import dataclasses
+
+    from tuatara_tpu_torch.config import OcrConfig
+    from tuatara_tpu_torch.ops.boxes import extract_boxes
+
+    lab = tplain.label_components(torch.from_numpy(_snake()))
+    for m in (0, 17):
+        with pytest.raises(ValueError):
+            tcc.area_ok(lab, m)
+    rng = np.random.default_rng(4)
+    text = torch.from_numpy(rng.random((40, 48)).astype(np.float32))
+    link = torch.from_numpy(rng.random((40, 48)).astype(np.float32))
+    content = torch.ones(40, 48, dtype=torch.bool)
+    for m in (0, 17, 40):
+        cfg = dataclasses.replace(OcrConfig(), min_component_area=m, max_boxes=16)
+        det = extract_boxes(text, link, content, cfg)
+        assert det["boxes"].shape == (16, 4)
 
 
 @pytest.mark.parametrize("K", [128, 256])

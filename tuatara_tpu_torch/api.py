@@ -20,6 +20,13 @@ pages goes through
    the encoder blocks and the greedy decode run as the fused CUDA kernels
    K6 and K7, their weight bundles stacked once at construction.
 
+With `quantized_serving` (the `production()` preset) CRAFT serves int8
+(`Craft.quantize`, after the weights load, as the JAX engine quantizes its
+detector): its convolutions but conv1_1 and the head's 1x1s are int8 x int8
+-> int32 GEMMs (`kernels/int8.py`). Activation scales are dynamic until
+`OcrEngine.calibrate(pages)` freezes static ones, or a `calibration.npz`
+beside the weights (`save_calibration`) supplies them at construction.
+
 Models load once per engine and stay on the device. The engine runs on the
 card unless the caller passes `device="cpu"`.
 """
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -35,6 +43,8 @@ import numpy as np
 import torch
 
 from tuatara_tpu_torch.config import DEFAULT_CONFIG, CraftConfig, OcrConfig, ParseqConfig
+from tuatara_tpu_torch.kernels.int8 import check_shapes as check_int8_shapes
+from tuatara_tpu_torch.models import layers as L
 from tuatara_tpu_torch.models.craft import Craft
 from tuatara_tpu_torch.models.layers import set_compute_dtype
 from tuatara_tpu_torch.models.parseq import Parseq, confidence
@@ -83,8 +93,8 @@ class OcrEngine:
                 raise NotImplementedError(
                     f"OcrConfig.{field}={getattr(config, field)!r} is not ported "
                     f"yet (only {ported!r}; see ROADMAP.md)")
-        if config.tiled_detection or config.quantized_serving:
-            raise NotImplementedError("tiled detection and int8 serving are not ported yet")
+        if config.tiled_detection:
+            raise NotImplementedError("tiled detection is not ported yet (see ROADMAP.md)")
         for field in ("encoder_impl", "decode_impl"):
             if getattr(config, field) not in (None, "xla", "pallas"):
                 raise NotImplementedError(
@@ -106,6 +116,12 @@ class OcrEngine:
                 if getattr(config, k) is not None}
         if impl:
             self.parseq_config = dataclasses.replace(self.parseq_config, **impl)
+        if config.quantized_serving and self.parseq_config.encoder_impl != "pallas":
+            # JAX quantizes the recognizer encoder too under this pairing.
+            raise NotImplementedError(
+                "quantized_serving with encoder_impl != 'pallas' serves an int8 "
+                "recognizer encoder, which is not ported yet (ROADMAP.md Queue 1); "
+                "use OcrConfig.production() or encoder_impl='pallas'")
 
         # Decode table: explicit charset > explicit reference_charset > the
         # charset stored with the weights > the standard table.
@@ -145,11 +161,21 @@ class OcrEngine:
         self.parseq = Parseq(self.parseq_config)
         self.parseq.load_state_dict(parseq_state_dict(parseq_tree))
         self.parseq.prestack(self.dtype, self.device)  # fp32 weights, before the cast
+        if config.quantized_serving:
+            self.craft.quantize()  # from the fp32 folded weights, before the cast
+            if self.device.type == "cuda":
+                for _, q in self.craft.qconvs():
+                    check_int8_shapes(q.cin, q.cout)
         for m in (self.craft, self.parseq):
             m.eval().requires_grad_(False)
             set_compute_dtype(m, self.dtype)
             m.to(self.device)
         self.weights_dir = weights_dir
+        calib = os.path.join(weights_dir, W.CALIB_FILE)
+        if config.quantized_serving and os.path.isfile(calib):
+            # The recognizer's scales (saved under a quantized encoder) do
+            # not apply: the encoder serves bf16 here, as in JAX.
+            W.apply_static_scales(self.craft, W.load_calibration(calib)[0])
         self.last_timings: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
@@ -240,6 +266,38 @@ class OcrEngine:
         if inv is not None:
             ids, conf = ids[inv], conf[inv]
         return ids, conf
+
+    @torch.inference_mode()
+    def calibrate(self, pages, margin: float = 1.1) -> int:
+        """Freeze static int8 activation scales from sample pages (JAX
+        `OcrEngine.calibrate`, detector layers only: the encoder is not
+        quantized here). `pages`: one batch or a list of batches, as
+        `run_pages` takes them. Each quantized layer's input abs-max over
+        the pages gives sx = 127 / (amax * margin); inputs beyond it
+        saturate. Re-calibration replaces the scales. -> layers set."""
+        if not self.config.quantized_serving:
+            raise ValueError("calibrate() requires OcrConfig(quantized_serving=True)")
+        batches = pages if isinstance(pages, (list, tuple)) else [pages]
+        stats = []
+        for batch in batches:
+            images, b, _, _, _ = self._batch_geometry(batch)
+            images_d = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            canvases = torch.stack([canvas_prep(images_d[i], self.config) for i in range(b)])
+            with L.calibration() as seen:
+                self.craft(canvases)
+            stats.append(dict(seen))
+        return L.make_static_quant(L.merge_calib_stats(stats), margin)
+
+    def save_calibration(self, path: Optional[str] = None) -> str:
+        """Write the calibrated scales to `path` (default: `calibration.npz`
+        in the weights directory, which a later quantized engine loads at
+        construction). -> the path. Raises if nothing is calibrated."""
+        if path is None:
+            path = os.path.join(self.weights_dir, W.CALIB_FILE)
+        if W.save_calibration(path, self.craft) == 0:
+            raise ValueError("no calibrated scales to save: run engine.calibrate(pages) "
+                             "first (requires quantized_serving=True)")
+        return path
 
     def run_pages(self, images: np.ndarray) -> List[List[Dict]]:
         """OCR a batch of same-sized pages [B, H, W, 3] uint8 RGB (or gray

@@ -12,8 +12,10 @@ stored `config.json` read the same in both packages: `encoder_impl="pallas"`
 and `decode_impl="pallas"` select the port's counterparts of those Pallas
 kernels (the hand-written CUDA kernels K6 `kernels/vit.py` and K7
 `kernels/decode.py`), "xla" or None the plain PyTorch lowering. The port
-refuses any other value. `OcrConfig.latency()` is carried over;
-`production()` waits for int8 serving (ROADMAP.md Queue 1).
+refuses any other value. `OcrConfig.latency()` and `OcrConfig.production()`
+are carried over; `quantized_serving` quantizes the detector (CRAFT) to
+int8 and needs `encoder_impl="pallas"` (the int8 recognizer encoder is not
+ported: ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -118,6 +120,20 @@ class OcrConfig:
         plain versions on CPU ones. Keyword overrides win."""
         base = dict(canvas_bucket=32, rec_buckets=(16, 32, 64, 128, 256),
                     encoder_impl="pallas", decode_impl="pallas", page_batch=1)
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
+    def production(cls, **overrides) -> "OcrConfig":
+        """Dense-serving preset (the JAX package's `OcrConfig.production()`):
+        the int8 detector (`quantized_serving`; calibrate once with
+        `OcrEngine.calibrate(pages)` or ship a `calibration.npz` beside the
+        weights, else each int8 conv takes its input's abs-max on every
+        call), the fused recognizer kernels K6 and K7, the /32 canvas and
+        slabs of 64. Like `latency()` it reads no backend. Keyword
+        overrides win."""
+        base = dict(quantized_serving=True, canvas_bucket=32, rec_slab_multiple=64,
+                    encoder_impl="pallas", decode_impl="pallas")
         base.update(overrides)
         return cls(**base)
 

@@ -11,7 +11,7 @@
 //     low_text). The TPU kernel also returns its sweep count; union-find
 //     has none.
 //   * tt_area_ok replaces area_ok_pallas (cc.py:146): per pixel, whether its
-//     component's area is >= min_area.
+//     component's area is >= min_area, for 1 <= min_area <= 16.
 //
 // What bounds them here: memory traffic and atomics, not arithmetic. At the
 // main path's 512x384 heatmap one int32 plane is 0.8 MB, far below the
@@ -50,9 +50,23 @@
 //      keep their own.
 // One launch per call for either entry (it was 4 for K1, 3 for K4).
 // Union-find reaches the true components in one pass, with no sweep cap.
-// The area filter is a label-indexed histogram (warp-aggregated atomicAdd:
-// neighbouring pixels of a row mostly share a label) and a gather-compare,
-// exact for every component size.
+//
+// The area filter needs no image-wide histogram (and so no root-indexed
+// scratch plane, no memset and no atomics in global memory). As in the TPU
+// kernel, the window of m-1 pixels around a pixel decides (m = min_area):
+// a component of area >= m holds, from any of its pixels, m-1 other
+// members within graph distance m-1 (a breadth-first search reaches them),
+// and graph distance bounds the Chebyshev distance, so the (2m-1)^2 window
+// holds at least min(area, m) of its pixels, and never more than its area.
+// One launch: a CTA stages a 32x32 tile of labels and its halo of m-1
+// pixels (-1 beyond the image) in shared memory, counts each label over
+// that whole region in a shared-memory hash table (one atomic per run of
+// equal labels in a warp), and writes ok = count >= m at each tile pixel
+// (0 at background). The region holds the window of every tile pixel and lies
+// inside the image, so its count of a label sits between the window count
+// and the area: count >= m exactly when area >= m. Exact for any H and W,
+// without the TPU version's circular wrap. The kernel writes the byte plane
+// and nothing else.
 //
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
@@ -175,24 +189,71 @@ cudaError_t launch_label(const LabelArgs& p, cudaStream_t stream) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-__global__ void area_hist(const int* __restrict__ labels, int* __restrict__ area, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int lab = i < n ? labels[i] : -1;
-  unsigned live = __ballot_sync(0xffffffffu, lab >= 0);
-  if (lab < 0) return;
-  unsigned peers = __match_any_sync(live, lab);
-  if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(area + lab, __popc(peers));
+constexpr int kAreaTile = 32;  // a CTA's tile: 32x32 pixels, a thread each
+constexpr int kAreaThreads = kAreaTile * kAreaTile;
+constexpr int kMaxMinArea = 16;  // region <= (32 + 30)^2 labels + a 4096-slot table: 47 KB
+
+// Hash-table slots for a region: the least power of two >= its pixels, so
+// the table never fills (a region holds at most its pixels' labels).
+inline int area_table_bits(int region) {
+  int bits = 0;
+  while ((1 << bits) < region) ++bits;
+  return bits;
 }
 
-__global__ void area_compare(const int* __restrict__ labels, const int* __restrict__ area,
-                             uint8_t* __restrict__ out, int n, int min_area) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int lab = labels[i];
-  out[i] = (lab >= 0 && area[lab] >= min_area) ? 1 : 0;
+__global__ void __launch_bounds__(kAreaThreads)
+area_ok_region(const int* __restrict__ labels, uint8_t* __restrict__ out, int h, int w,
+               int min_area, int bits) {
+  extern __shared__ int smem[];
+  const int r = min_area - 1, side = kAreaTile + 2 * r, region = side * side;
+  const int slots = 1 << bits;
+  int* tile = smem;             // [side * side] labels, -1 beyond the image
+  int* keys = tile + region;    // [slots] labels, -1 free
+  int* counts = keys + slots;   // [slots] pixels of the label in the region
+  const int bx = blockIdx.x * kAreaTile, by = blockIdx.y * kAreaTile;
+  for (int k = threadIdx.x; k < slots; k += kAreaThreads) {
+    keys[k] = -1;
+    counts[k] = 0;
+  }
+  for (int k = threadIdx.x; k < region; k += kAreaThreads) {
+    const int y = by - r + k / side, x = bx - r + k % side;
+    tile[k] = (y >= 0 && y < h && x >= 0 && x < w) ? __ldg(labels + (size_t)y * w + x) : -1;
+  }
+  __syncthreads();
+  // Count the region's labels: a warp's 32 consecutive labels split into
+  // runs of equal ones (a shuffle and a ballot), each run one insert.
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < region; base += kAreaThreads) {
+    const int k = base + threadIdx.x;
+    const int lab = k < region ? tile[k] : -1;
+    const int prev = __shfl_up_sync(0xffffffffu, lab, 1);
+    const unsigned starts = __ballot_sync(0xffffffffu, lane == 0 || prev != lab);
+    if (lab < 0 || !(starts >> lane & 1)) continue;
+    const unsigned after = starts & ~((2u << lane) - 1u);  // the next run's start
+    const int run = (after ? __ffs(after) - 1 : 32) - lane;
+    unsigned slot = ((unsigned)lab * 2654435761u) >> (32 - bits);
+    while (true) {
+      const int prev_key = atomicCAS(keys + slot, -1, lab);
+      if (prev_key == -1 || prev_key == lab) {
+        atomicAdd(counts + slot, run);
+        break;
+      }
+      slot = (slot + 1) & (slots - 1);
+    }
+  }
+  __syncthreads();
+  const int tx = threadIdx.x % kAreaTile, ty = threadIdx.x / kAreaTile;
+  const int x = bx + tx, y = by + ty;
+  if (y >= h || x >= w) return;
+  const int lab = tile[(ty + r) * side + tx + r];
+  bool ok = false;
+  if (lab >= 0) {
+    unsigned slot = ((unsigned)lab * 2654435761u) >> (32 - bits);
+    while (keys[slot] != lab) slot = (slot + 1) & (slots - 1);
+    ok = counts[slot] >= min_area;
+  }
+  out[(size_t)y * w + x] = ok;
 }
-
-inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
@@ -208,11 +269,13 @@ extern "C" int tt_label_components(const uint8_t* mask, int* labels, int h, int 
   return (int)launch_label(LabelArgs{mask, nullptr, labels, nullptr, h, w}, stream);
 }
 
-extern "C" int tt_area_ok(const int* labels, int* area_scratch, uint8_t* out, int h, int w,
-                          int min_area, cudaStream_t stream) {
-  int n = h * w;
-  cudaMemsetAsync(area_scratch, 0, sizeof(int) * (size_t)n, stream);
-  area_hist<<<blocks(n), kThreads, 0, stream>>>(labels, area_scratch, n);
-  area_compare<<<blocks(n), kThreads, 0, stream>>>(labels, area_scratch, out, n, min_area);
+extern "C" int tt_area_ok(const int* labels, uint8_t* out, int h, int w, int min_area,
+                          cudaStream_t stream) {
+  if (h < 1 || w < 1 || min_area < 1 || min_area > kMaxMinArea) return (int)cudaErrorInvalidValue;
+  const int side = kAreaTile + 2 * (min_area - 1), region = side * side;
+  const int bits = area_table_bits(region);
+  const size_t smem = sizeof(int) * ((size_t)region + 2 * ((size_t)1 << bits));
+  const dim3 grid((w + kAreaTile - 1) / kAreaTile, (h + kAreaTile - 1) / kAreaTile);
+  area_ok_region<<<grid, kAreaThreads, smem, stream>>>(labels, out, h, w, min_area, bits);
   return (int)cudaGetLastError();
 }

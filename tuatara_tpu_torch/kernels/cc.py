@@ -73,16 +73,23 @@ def label_components(mask: torch.Tensor) -> torch.Tensor:
     return labels
 
 
+MIN_AREA_RANGE = (1, 16)  # K2's window is (2m-1)^2; JAX's gate (ops/boxes.py:164)
+
+
 def area_ok(labels: torch.Tensor, min_area: int) -> torch.Tensor:
-    """labels [H, W] int32 -> [H, W] bool: component area >= min_area."""
+    """labels [H, W] int32 -> [H, W] bool: component area >= min_area, for
+    1 <= min_area <= 16 (ValueError outside: `ops/boxes.extract_boxes` takes
+    the plain area count there, as JAX's XLA path does)."""
+    lo, hi = MIN_AREA_RANGE
+    if not lo <= min_area <= hi:
+        raise ValueError(f"area_ok: min_area {min_area} outside {lo}..{hi}")
     if not labels.is_cuda:
         return plain.area_ok(labels, min_area)
     _check_2d(labels, torch.int32, "labels")
     h, w = labels.shape
     out = torch.empty((h, w), dtype=torch.bool, device=labels.device)
-    scratch = torch.empty(h * w, dtype=torch.int32, device=labels.device)
-    fn = entry("cc", "tt_area_ok", 3, 3)
-    err = fn(labels.data_ptr(), scratch.data_ptr(), out.data_ptr(), h, w, int(min_area),
+    fn = entry("cc", "tt_area_ok", 2, 3)
+    err = fn(labels.data_ptr(), out.data_ptr(), h, w, int(min_area),
              torch.cuda.current_stream(labels.device).cuda_stream)
     _raise_on(err, "tt_area_ok")
     LAUNCHES[K2] += 1

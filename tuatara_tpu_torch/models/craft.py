@@ -15,6 +15,16 @@ conv -> ReLU chains. Architecture:
   upsample, then conv.
 * Head: 3x[3x3 conv + ReLU] -> 1x1 conv + ReLU -> 1x1 conv to 2 channels.
 
+int8 serving (`Craft.quantize`, JAX's `quantize_craft_trunk`): every trunk
+and fc conv but conv1_1, the decoder's convs and the head's three 3x3 convs
+become `QConv`s; each decoder conv1 is split along cin into `conv1a` (the
+trunk side) and `conv1b` (the skip side), quantized apart. At a bf16 (or
+any non-fp32) compute dtype conv1a runs on the low-resolution trunk and its
+output is upsampled, as JAX orders it (`tuatara_tpu/models/craft.py:
+476-491`); at fp32 the trunk is upsampled first. JAX packs the head's
+width for the TPU; the packed int8 conv is bit-equal to the unpacked one,
+so the head runs unpacked here.
+
 `FUSED_STAGE1` gates kernel K8 (`kernels/stage1.py`), which runs conv1_2,
 its ReLU and pool1 as one pass, as the JAX package's gate of the same name
 does (`tuatara_tpu/models/craft.py:279-298`). K8 reads conv1_2's weights
@@ -33,7 +43,7 @@ from torch import nn
 
 from tuatara_tpu_torch.config import CraftConfig
 from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool, pack_conv_pool_weights
-from tuatara_tpu_torch.models.layers import Conv
+from tuatara_tpu_torch.models.layers import Conv, QConv
 
 _STAGE_COUNTS = (2, 2, 3, 3, 2)
 
@@ -59,6 +69,10 @@ def vgg_plan(cfg: CraftConfig):
 def upsample_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Bilinear resize with half-pixel (align_corners=False) semantics."""
     return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+
+
+def _qconv(conv: Conv) -> QConv:
+    return QConv.from_weight(conv.weight, conv.bias, conv.dilation)
 
 
 class Craft(nn.Module):
@@ -100,8 +114,44 @@ class Craft(nn.Module):
         """Pack conv1_2's weights for K8; also the load_state_dict post-hook."""
         self.conv1_2_packed = pack_conv_pool_weights(self.vgg["conv1_2"]["conv"].weight)
 
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.vgg["conv1_2"]["conv"], QConv)
+
+    def qconvs(self):
+        """[(name, QConv)] of a quantized model, in module order; the names
+        are the '/'-joined paths of the JAX tree (`vgg/conv1_2/conv`)."""
+        return [(n.replace(".", "/"), m) for n, m in self.named_modules() if isinstance(m, QConv)]
+
+    @torch.no_grad()
+    def quantize(self) -> "Craft":
+        """JAX `quantize_craft_trunk` on the fp32 BN-folded weights (call it
+        before `set_compute_dtype`); idempotent."""
+        if self.quantized:
+            return self
+        for name, blk in self.vgg.items():
+            if name != "conv1_1":
+                blk["conv"] = _qconv(blk["conv"])
+        for name in ("fc6", "fc7"):
+            self.fc[name] = _qconv(self.fc[name])
+        ca = self.fc["fc7"].cout  # conv1's split: the trunk side's width
+        for name, blk in self.up.items():
+            w, b = blk["conv1"].weight, blk["conv1"].bias
+            self.up[name] = nn.ModuleDict({
+                "conv1a": QConv.from_weight(w[:, :ca], b),
+                "conv1b": QConv.from_weight(w[:, ca:], None),
+                "conv2": _qconv(blk["conv2"])})
+            ca = self.up[name]["conv2"].cout
+        for name in ("conv1", "conv2", "conv3"):
+            self.head[name] = _qconv(self.head[name])
+        self.conv1_2_packed = None  # K8 never runs with an int8 conv1_2
+        return self
+
     def _double_conv(self, block: str, y: torch.Tensor, skip: torch.Tensor
                      ) -> torch.Tensor:
+        blk = self.up[block]
+        if "conv1a" in blk:
+            return self._double_conv_q(blk, y, skip)
         if y.shape[-2:] != skip.shape[-2:]:
             y = upsample_to(y, skip.shape[-2], skip.shape[-1])
         c1 = self.up[block]["conv1"]
@@ -112,12 +162,28 @@ class Craft(nn.Module):
         y = F.relu(ya + yb)
         return F.relu(self.up[block]["conv2"](y))
 
+    def _double_conv_q(self, blk: nn.ModuleDict, y: torch.Tensor, skip: torch.Tensor
+                       ) -> torch.Tensor:
+        """The int8 decoder level (JAX `conv1_split` with "conv1a"): conv1b
+        quantizes the pre-ReLU skip; conv1a runs before the upsample except
+        at fp32."""
+        size = skip.shape[-2:]
+        up = y.shape[-2:] != size
+        if up and self.vgg["conv1_1"]["conv"].weight.dtype == torch.float32:
+            y = upsample_to(y, *size)
+            up = False
+        ya = blk["conv1a"](y)
+        if up:
+            ya = upsample_to(ya, *size)
+        y = F.relu(ya + blk["conv1b"](skip))
+        return F.relu(blk["conv2"](y))
+
     def _fused_stage1_ok(self, x: torch.Tensor) -> bool:
         """JAX's gate (`models/craft.py:283-298`): serving (not training), a
         folded tree (the port's always is: BatchNorms fold at load), conv1_1
         and conv1_2 not quantized (float weights), bf16 compute, and the
         canvas [B, H, W, C] with H % 16 == 0 and W % 2 == 0."""
-        if FUSED_STAGE1 == "off" or self.training:
+        if FUSED_STAGE1 == "off" or self.training or self.quantized:
             return False
         w11 = self.vgg["conv1_1"]["conv"].weight
         w12 = self.vgg["conv1_2"]["conv"].weight

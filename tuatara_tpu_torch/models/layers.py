@@ -1,21 +1,31 @@
 """Neural-net building blocks of the port (the part of
-`tuatara_tpu/models/layers.py` that the default OCR path uses).
+`tuatara_tpu/models/layers.py` that the default OCR path and int8 serving
+use).
 
 Dtype policy, as in the JAX package: parameters are loaded in fp32; the
 weights of convolutions and linear layers are cast once to the model's
 compute dtype (`set_compute_dtype`), and each such layer casts its input to
 that dtype, so products run in the compute dtype with fp32 accumulation.
 LayerNorm and softmax always run in fp32. GELU is the exact erf form.
+
+int8 serving (`QConv`, JAX's `quantize_conv` / `conv2d_q` family): weights
+per output channel and activations per tensor, symmetric, int8 x int8 ->
+int32 sums (exact, so equal to JAX's), then `y.float() * (sw / xs) + b`
+and a cast to the compute dtype, in JAX's order. An activation's scale is
+dynamic (its abs-max) until `make_static_quant` freezes a calibrated one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tuatara_tpu_torch.kernels.int8 import int8_conv, weight_matrix
 
 
 class Conv(nn.Module):
@@ -61,12 +71,171 @@ class LayerNorm(nn.Module):
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the weights of every Conv and Linear to `dtype` (LayerNorms and
-    free parameters such as embeddings stay fp32)."""
+    free parameters such as embeddings stay fp32); every QConv keeps its
+    int8 weights and fp32 scales and outputs `dtype`."""
     for m in module.modules():
         if isinstance(m, (Conv, Linear)):
             m.weight.data = m.weight.data.to(dtype)
             m.bias.data = m.bias.data.to(dtype)
+        elif isinstance(m, QConv):
+            m.out_dtype = dtype
     return module
+
+
+# ---------------------------------------------------------------------------
+# int8 serving
+# ---------------------------------------------------------------------------
+
+def quantize_conv(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 weights (JAX `quantize_conv`):
+    OIHW fp32 -> (wq [kh, kw, cin, cout] int8, JAX's HWIO layout; sw [cout]
+    fp32), sw = max(amax, 1e-12) / 127, wq = clip(round(w / sw), +-127)."""
+    w = w.float()
+    sw = torch.clamp(w.abs().amax(dim=(1, 2, 3)), min=1e-12) / 127.0
+    wq = torch.clamp(torch.round(w / sw[:, None, None, None]), -127, 127).to(torch.int8)
+    return wq.permute(2, 3, 1, 0).contiguous(), sw
+
+
+def _abs_max(x: torch.Tensor) -> torch.Tensor:
+    """max |x| of an NCHW tensor, fp32 scalar. Exact in any dtype, with no
+    abs() pass; over the NHWC view, the memory order of the trunk's
+    channels_last activations (a reduction over a non-contiguous view
+    copies it first)."""
+    lo, hi = torch.aminmax(x.permute(0, 2, 3, 1))
+    return torch.maximum(-lo, hi).float()
+
+
+def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-tensor symmetric int8 (JAX `quantize_act`): x [B, C, H,
+    W] -> (xq [B, H, W, C] int8, xs fp32 scalar), xs = 127 / max(amax,
+    1e-12) over the whole tensor, batch included."""
+    amax = torch.clamp(_abs_max(x), min=1e-12)
+    # A true division: `127.0 / tensor` is a reciprocal times 127 in torch,
+    # one more rounding than JAX's quotient.
+    xs = torch.full_like(amax, 127.0) / amax
+    return _round_int8(x, xs), xs
+
+
+def _round_int8(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """NCHW x -> NHWC clip(round(x * xs), +-127) int8, the product in fp32
+    (xs as a [1] tensor takes part in type promotion, so a bf16 x is read
+    once). torch.round rounds half to even, as jnp.round does."""
+    y = torch.mul(x.permute(0, 2, 3, 1), xs.reshape(1))
+    return y.round_().clamp_(-127, 127).to(torch.int8).contiguous()
+
+
+def dequant(acc: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """int32 sums [..., O] -> `acc * scale (+ bias)` in fp32 with one
+    rounding, as XLA compiles JAX's dequant (it contracts the two into a
+    fused multiply-add), then cast to out_dtype. On the card one
+    `torch.addcmul` (an fma there) reading the int32 sums and writing
+    out_dtype; on the CPU in float64, where the product is exact (|acc| <
+    2^28, scale 24 bits), then rounded to fp32."""
+    if acc.is_cuda:
+        out = torch.empty(acc.shape, dtype=out_dtype, device=acc.device)
+        if bias is None:
+            return torch.mul(acc, scale, out=out)
+        return torch.addcmul(bias, acc, scale, out=out)
+    y = acc.double() * scale.double()
+    if bias is not None:
+        y = y + bias.double()
+    return y.float().to(out_dtype)
+
+
+class QConv(nn.Module):
+    """int8 convolution over NCHW (JAX `conv2d_q`, "SAME" padding): int8
+    weights `wq` [kh, kw, cin, cout] (also held as `wmat` [cout, kh*kw*cin]
+    for the GEMM) and their scales `sw` [cout], the fp32
+    bias (or None), and `sx`, the calibrated static activation scale (None:
+    dynamic). The output is NCHW in channels_last memory, `out_dtype`."""
+
+    def __init__(self, wq: torch.Tensor, sw: torch.Tensor, bias: Optional[torch.Tensor],
+                 dilation: int = 1):
+        super().__init__()
+        self.register_buffer("wq", wq)
+        self.register_buffer("wmat", weight_matrix(wq), persistent=False)
+        self.register_buffer("sw", sw)
+        self.register_buffer("bias", bias)
+        self.register_buffer("sx", None)
+        self.dilation = dilation
+        self.out_dtype = torch.float32
+
+    @classmethod
+    def from_weight(cls, w: torch.Tensor, bias: Optional[torch.Tensor],
+                    dilation: int = 1) -> "QConv":
+        """Quantize an fp32 OIHW weight (BN already folded)."""
+        wq, sw = quantize_conv(w)
+        return cls(wq, sw, None if bias is None else bias.detach().float().clone(), dilation)
+
+    @property
+    def cin(self) -> int:
+        return self.wq.shape[2]
+
+    @property
+    def cout(self) -> int:
+        return self.wq.shape[3]
+
+    def quantize_input(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """JAX `quantize_act_q`: the static scale when calibrated, else the
+        dynamic one; the input's abs-max goes to an open `calibration()`."""
+        if _CALIB is not None:
+            amax = float(_abs_max(x))
+            _CALIB[self] = max(_CALIB.get(self, amax), amax)
+        if self.sx is None:
+            return quantize_act(x)
+        return _round_int8(x, self.sx), self.sx
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX `conv2d_q`: quantize, the exact int32 sums, then `y.float() *
+        (sw / xs) + b`, cast to `out_dtype`."""
+        xq, xs = self.quantize_input(x)
+        acc = int8_conv(xq, self.wmat, self.wq.shape[0], self.dilation)
+        return dequant(acc, self.sw / xs, self.bias, self.out_dtype).permute(0, 3, 1, 2)
+
+
+# Calibration: while a `calibration()` context is open, every QConv records
+# its input's abs-max under its own module (JAX keys on id() of the weight
+# array; a module is the port's stable identity for the layer).
+_CALIB: Optional[Dict[QConv, float]] = None
+
+
+class calibration:
+    """Context collecting {QConv: input abs-max} over the forwards it
+    encloses (JAX `layers.calibration`)."""
+
+    def __enter__(self) -> Dict[QConv, float]:
+        global _CALIB
+        self._prev = _CALIB
+        _CALIB = {}
+        return _CALIB
+
+    def __exit__(self, *exc) -> None:
+        global _CALIB
+        _CALIB = self._prev
+
+
+def merge_calib_stats(stats: Iterable[Dict[QConv, float]]) -> Dict[QConv, float]:
+    """Per-layer max across per-batch calibration stats."""
+    out: Dict[QConv, float] = {}
+    for s in stats:
+        for k, v in s.items():
+            out[k] = max(out[k], float(v)) if k in out else float(v)
+    return out
+
+
+def static_scale(amax: float, margin: float) -> np.float32:
+    """JAX `make_static_quant`'s sx = 127 / (amax * margin), in double
+    precision then fp32."""
+    return np.float32(127.0 / (max(float(amax), 1e-12) * margin))
+
+
+def make_static_quant(stats: Dict[QConv, float], margin: float = 1.1) -> int:
+    """Freeze sx into every QConv in `stats` (replacing an earlier one);
+    layers the calibration never ran keep dynamic scales. -> layers set."""
+    for q, amax in stats.items():
+        q.sx = torch.tensor(static_scale(amax, margin), device=q.wq.device)
+    return len(stats)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ reference's `get_detected_boxes` (tuatara.cpp:119-204):
    default) every "hot" pixel (tn >= text_threshold) is also a keep pixel,
    and the smallest index of each component's hot pixels rides the
    labeling — kernel K1. Otherwise the labels come alone — kernel K4;
-3. area filter — kernel K2; then the K smallest roots of the components
+3. area filter — kernel K2 for 1 <= min_component_area <= 16 (JAX's gate),
+   else the plain area count; then the K smallest roots of the components
    that pass it and hold a hot pixel (and, on the K4 branch, a keep pixel);
 4. per-root row/column counts for the full and the reduced (link-only
    pixels removed) pixel sets — kernel K3; on the K4 branch also each
@@ -30,8 +31,10 @@ from typing import Dict
 import torch
 
 from tuatara_tpu_torch.config import OcrConfig
-from tuatara_tpu_torch.kernels.cc import area_ok, label_components, label_components_aux
+from tuatara_tpu_torch.kernels.cc import (MIN_AREA_RANGE, area_ok, label_components,
+                                          label_components_aux)
 from tuatara_tpu_torch.kernels.stats import component_stats, component_stats_nopeak
+from tuatara_tpu_torch.ops import connected_components as plain
 from tuatara_tpu_torch.ops.connected_components import BIG, component_roots_filtered
 
 _INF = 1e30
@@ -61,6 +64,15 @@ def _extent(present: torch.Tensor, size: int):
     first = torch.where(present, pos, torch.full_like(pos, size)).amin(0)
     last = torch.where(present, pos, torch.full_like(pos, -1)).amax(0)
     return first, last
+
+
+def _area_ok(labels: torch.Tensor, min_area: int) -> torch.Tensor:
+    """K2 where its window applies (1 <= min_area <= 16, JAX's gate), else
+    the plain area count, as JAX's XLA path."""
+    lo, hi = MIN_AREA_RANGE
+    if lo <= min_area <= hi:
+        return area_ok(labels, min_area)
+    return plain.area_ok(labels, min_area)
 
 
 def binarize(textmap: torch.Tensor, linkmap: torch.Tensor, content_mask: torch.Tensor,
@@ -97,13 +109,13 @@ def extract_boxes(textmap: torch.Tensor, linkmap: torch.Tensor,
         # selected root already holds a pixel >= text_threshold, so the
         # peak is not needed (K3).
         labels, hot_min = label_components_aux(comb, hot)
-        ok_map = area_ok(labels, cfg.min_component_area)
+        ok_map = _area_ok(labels, cfg.min_component_area)
         roots, ncomp = component_roots_filtered(labels, K, hot_min, ok_map)
         row_cnt, col_cnt, rrow_cnt, rcol_cnt = component_stats_nopeak(labels, keep, roots)
         peak = None
     else:
         labels = label_components(comb)
-        ok_map = area_ok(labels, cfg.min_component_area)
+        ok_map = _area_ok(labels, cfg.min_component_area)
         roots, ncomp = component_roots_filtered(labels, K, None, ok_map, hot=hot, keep=keep)
         row_cnt, col_cnt, rrow_cnt, rcol_cnt, peak = component_stats(
             labels, tn, keep, roots)

@@ -6,13 +6,18 @@ Own copy of the loaders in `tuatara_tpu/utils/weights.py`: one npz per model
 architecture configs and the charset. The trees come back as nested dicts
 and lists of numpy arrays in the JAX package's layout; `tuatara_tpu_torch.
 weights` maps them onto the port's modules.
+
+`calibration.npz` holds int8 serving's calibrated activation scales under
+the JAX package's keys (`craft/vgg/conv1_2/conv/sx`,
+`craft/up/upconv1/conv1a/sx`, `parseq/...`), so a file saved by either
+package loads in the other.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
@@ -21,6 +26,7 @@ from tuatara_tpu_torch.config import CraftConfig, ParseqConfig
 CRAFT_FILE = "craft.npz"
 PARSEQ_FILE = "parseq.npz"
 CONFIG_FILE = "config.json"
+CALIB_FILE = "calibration.npz"
 
 
 def unflatten_tree(flat: Dict[str, np.ndarray]) -> Any:
@@ -86,3 +92,49 @@ def load_configs(weights_dir: str):
     if "parseq" in meta:
         parseq = ParseqConfig(**{k: _listify(v) for k, v in meta["parseq"].items()})
     return craft, parseq, meta.get("charset")
+
+
+def save_calibration(path: str, craft) -> int:
+    """Write the calibrated scales of a quantized `Craft` (its QConvs' sx)
+    to `path` -> the number written. Nothing calibrated: no file is
+    written (an empty one beside the weights would be loaded by every
+    quantized engine)."""
+    flat = {f"craft/{name}/sx": np.asarray(q.sx.cpu().numpy(), np.float32)
+            for name, q in craft.qconvs() if q.sx is not None}
+    if not flat:
+        return 0
+    np.savez(path, **flat)
+    return len(flat)
+
+
+def load_calibration(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """-> ({craft path: sx}, {parseq path: sx}), paths relative to each
+    model's root (`vgg/conv1_2/conv/sx`)."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    craft = {k[len("craft/"):]: v for k, v in flat.items() if k.startswith("craft/")}
+    parseq = {k[len("parseq/"):]: v for k, v in flat.items() if k.startswith("parseq/")}
+    return craft, parseq
+
+
+def apply_static_scales(model, scales: Dict[str, np.ndarray]) -> int:
+    """Set each QConv's sx by its '/'-joined path -> the number set. A path
+    that lands on no quantized layer raises KeyError: the file was saved
+    under another architecture or quantization."""
+    import torch
+
+    from tuatara_tpu_torch.models.layers import QConv
+
+    for key, val in scales.items():
+        parts = key.split("/")
+        try:
+            if parts[-1] != "sx":
+                raise AttributeError(parts[-1])
+            q = model.get_submodule(".".join(parts[:-1]))
+        except AttributeError as e:
+            raise KeyError(f"calibration path {key!r} not found in the quantized model "
+                           f"({e})") from None
+        if not isinstance(q, QConv):
+            raise KeyError(f"calibration path {key!r} is not a quantized layer")
+        q.sx = torch.tensor(np.float32(val), device=q.wq.device)
+    return len(scales)
