@@ -32,6 +32,26 @@ line without a CUDA device or outside the repo.
              calibrated engines' results on the four pages.
              Warm pages/sec of the default path, latency() and production()
              (dynamic and calibrated), the four in turns in this call.
+3e. serving: the dense batch (funsd_0001129658 read gray, 16 pages in
+             one [16, H, W] batch; six batches `pages + i % 5`, as
+             bench.py builds them) through the default engine, latency()
+             and 3d's calibrated production() engine. Each: a loop of
+             `run_pages` from a cold speculation state must dispatch every
+             batch after the first speculatively (engine.stats hits +
+             misses = 5); `run_stream(prefetch=4, depth=2)` from a cold
+             state, counts zeroed just before and read just after, must
+             equal the loop element by element, with K1-K3 launched on
+             every page, K6 and K7 on every batch of the fused presets and
+             every int8 conv on every batch under production(); `run_mixed`
+             over the four pages and two dense pages (max_batch=2) must
+             equal `run` on each. Prints the loop's and the stream's warm
+             pages/s in turns, their device busy ms/page and idle share
+             over one traced run each, the stream's peak memory and the
+             phase's seconds. First, what those equalities rest on: the
+             recognizer head's padded product must give rows 0-15 the
+             same values at 32 to 4096 rows (the unpadded 95-column one
+             printed beside it), and float CRAFT batched beside a page at
+             a time (scores and ms/page on the 16 dense pages) is printed.
 3c. path A:  the same pages at `OcrConfig(text_threshold=0.3)`, the
              detection branch text_threshold < low_text: counts zeroed just
              before and read just after, K4 (`label_components`), K2 and K5
@@ -158,6 +178,7 @@ K7_MAX_STEP0 = 5e-2
 K7_TILES = ((4, 4), (4, 6), (8, 4), (8, 6), (16, 4), (16, 6))  # (crops, CTAs) per cluster
 K8_MAX_REL = 1e-3
 K8_BATCH, K8_BATCH_PAGE = 16, "funsd_0001129658"  # BASELINE.md config 1's dense batch
+DENSE_STREAM = 6  # batches of the dense batch in phase 3e's stream, as bench.py builds them
 MIN_AGREEMENT = 0.98
 K2_MIN_AREAS = (1, 2, 10, 16)
 INT8_LAYERS = ("vgg/conv2_2/conv", "fc/fc6", "up/upconv2/conv1a", "up/upconv2/conv1b")
@@ -1388,7 +1409,9 @@ def check_calibration(pages):
 
 def warm_rates(engines, pages, reps=3):
     """Warm ms/page of each engine, in turns, with its detect/recognize
-    split."""
+    split (`last_timings`: with speculative recognition, detect spans the
+    dispatch to the combined fetch, recognition included, and recognize
+    only a fallback pass)."""
     import torch
 
     print(f"warm, in turns: {', '.join(engines)}", flush=True)
@@ -1411,8 +1434,166 @@ def warm_rates(engines, pages, reps=3):
               flush=True)
 
 
+def dense_batches():
+    """BASELINE.md config 1 as bench.py builds it: funsd_0001129658 read
+    gray, 16 times as one [16, H, W] batch; the stream is DENSE_STREAM
+    batches `pages + i % 5`."""
+    import numpy as np
+
+    from tuatara_tpu_torch.utils.image import load_image
+
+    img = load_image(os.path.join(ROOT, "images", f"{K8_BATCH_PAGE}.png"), keep_gray=True)
+    pages = np.broadcast_to(img, (K8_BATCH,) + img.shape).copy()
+    return [pages + np.uint8(i % 5) for i in range(DENSE_STREAM)]
+
+
+def traced_busy(fn):
+    """Device busy ms (the union of kernel, memcpy and memset records) and
+    the wall ms of one `torch.profiler` trace (CUDA activity only) of fn."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from profile_torch_port import busy_us
+
+    path = os.path.join(ROOT, "build", "serving_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return busy_us(events) / 1e3, wall
+
+
+def check_invariance(engine, batches):
+    """What the serving loop's equalities rest on, on this card: the
+    recognizer head's product (`PaddedLinear`, 96 columns) gives a row the
+    same result at any row count, where the plain 95-column product need
+    not (printed as a control; fatal if the padded one differs); and float
+    CRAFT batched beside page by page, in scores and in time on the dense
+    batch (printed: why `detect` runs it one page at a time, and what that
+    costs)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tuatara_tpu_torch.ops.resize import canvas_prep
+
+    head = engine.parseq.head
+    dev = engine.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(4096, head.weight.shape[1], device=dev, generator=g).to(head.weight.dtype)
+    rows = (32, 64, 256, 512, 1024, 4096)
+    bad = {}
+    with torch.inference_mode():
+        for name, fn in (("padded", head), ("plain", lambda v: F.linear(v, head.weight,
+                                                                         head.bias))):
+            ref = fn(x[:16])
+            bad[name] = [m for m in rows if not torch.equal(fn(x[:m])[:16], ref)]
+        pair = torch.from_numpy(np.stack([batches[0][0], batches[1][0]])).to(dev)[..., None]
+        can = torch.stack([canvas_prep(p, engine.config) for p in pair])
+        both = engine.craft(can)[0]
+        diff = max(float((engine.craft(can[i:i + 1])[0][0] - both[i]).abs().max())
+                   for i in range(2))
+        dense = torch.from_numpy(batches[0]).to(dev)[..., None]
+        can = torch.stack([canvas_prep(p, engine.config) for p in dense])
+        batched = cuda_ms(lambda: engine.craft(can), 3) / len(can)
+        one = cuda_ms(lambda: [engine.craft(c[None]) for c in can], 3) / len(can)
+    print(f"invariance: recognizer head ({tuple(head.weight.shape)}, {head.weight.dtype}) rows "
+          f"0-15 differ from a 16-row call at row counts {bad['padded']} padded to 96 columns, "
+          f"{bad['plain']} unpadded; float CRAFT, two dense pages batched vs one at a time: "
+          f"max abs score diff {diff}; on the {len(can)} dense pages {batched:.3f} ms/page "
+          f"batched, {one:.3f} ms/page one at a time (CUDA events)", flush=True)
+    if bad["padded"]:
+        fail(f"the padded recognizer head depends on the row count: {bad['padded']}")
+
+
+def check_serving(engines, pages, required):
+    """Phase 3e: the serving loop on the dense batch. For each engine: a
+    loop of run_pages from a cold speculation state (every batch after the
+    first dispatched speculatively), then run_stream(prefetch=4, depth=2)
+    from a cold state with launch counts zeroed just before and read just
+    after: equal results element by element, and every kernel of
+    `required[name]` ({kernel: least launches a batch}) launched; run_mixed
+    over the four pages and two dense pages equals run on each; warm
+    pages/s of the loop and the stream in turns, a traced run of each
+    (device busy ms/page, idle share) and the stream's peak memory."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    batches = dense_batches()
+    check_invariance(engines["default"], batches)
+    n_pages = sum(len(b) for b in batches)
+    mixed = list(pages.values()) + [batches[0][0], batches[1][0]]
+    for name, engine in engines.items():
+        engine._spec.clear()
+        engine.reset_stats()
+        want = [engine.run_pages(b) for b in batches]
+        st = dict(engine.stats)
+        spec = st["spec_hits"] + st["spec_misses"]
+        print(f"serving {name}: run_pages loop, cold: {st['boxes']} boxes on {n_pages} pages, "
+              f"spec hits {st['spec_hits']} misses {st['spec_misses']} wasted "
+              f"{st['spec_wasted']}", flush=True)
+        if spec != len(batches) - 1:
+            fail(f"serving {name}: {spec} speculative batches in the run_pages loop, not "
+                 f"{len(batches) - 1}")
+        engine._spec.clear()
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        got = engine.run_stream(batches, prefetch=4, depth=2)
+        launches = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        st = dict(engine.stats)
+        print(f"serving {name}: run_stream launches {json.dumps(launches)}; spec hits "
+              f"{st['spec_hits']} misses {st['spec_misses']}; peak memory {peak:.2f} GiB",
+              flush=True)
+        for kernel, least in required[name].items():
+            if launches.get(kernel, 0) < least * len(batches):
+                fail(f"serving {name}: kernel {kernel} launched {launches.get(kernel, 0)} "
+                     f"times on {len(batches)} batches (at least {least} a batch)")
+        if got != want:
+            diff = sum(g != w for gb, wb in zip(got, want) for g, w in zip(gb, wb))
+            fail(f"serving {name}: run_stream differs from the run_pages loop on {diff} of "
+                 f"{n_pages} pages")
+        if engine.run_mixed(mixed, max_batch=2) != [engine.run(p) for p in mixed]:
+            fail(f"serving {name}: run_mixed differs from run on each page")
+        rates = {"run_pages": 0.0, "run_stream": 0.0}
+        for kind in ("run_pages", "run_stream", "run_stream", "run_pages"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "run_pages":
+                for b in batches:
+                    engine.run_pages(b)
+            else:
+                engine.run_stream(batches, prefetch=4, depth=2)
+            torch.cuda.synchronize()
+            rates[kind] += time.perf_counter() - t0
+        line = [f"{kind} {2 * n_pages / s:.3f} pages/s" for kind, s in rates.items()]
+        for kind, fn in (("run_pages", lambda: [engine.run_pages(b) for b in batches]),
+                         ("run_stream", lambda: engine.run_stream(batches, prefetch=4,
+                                                                  depth=2))):
+            busy, wall = traced_busy(fn)
+            line.append(f"{kind} traced: device busy {busy / n_pages:.3f} ms/page, wall "
+                        f"{wall / n_pages:.3f} ms/page, idle share {1 - busy / wall:.3f}")
+        print(f"serving {name} warm, in turns: " + "; ".join(line), flush=True)
+    print(f"serving: run_stream == run_pages on {len(batches)} dense batches of "
+          f"{K8_BATCH} pages and run_mixed == run for {', '.join(engines)}; phase 3e "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1000, exit=True)
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1422,6 +1603,11 @@ def main() -> int:
     import tuatara_tpu_torch
     from tuatara_tpu_torch.kernels._build import build_all
     from tuatara_tpu_torch.utils.image import load_image
+
+    # The phases keep the first engines of get_engine's cache to the end
+    # and add others through image_to_data: room for all, so none is
+    # evicted (and closed) while held.
+    tuatara_tpu_torch.api.ENGINE_CACHE_MAX = 8
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1479,6 +1665,13 @@ def main() -> int:
     warm_rates({"default": engine, "latency": lat, "production": prod,
                 "production_calibrated": calibrated}, pages)
 
+    # 3e. the serving loop on the dense batch
+    per_page = dict.fromkeys(post, K8_BATCH)
+    fused = {**per_page, "vit_blocks": 1, "greedy_decode": 1}
+    check_serving({"default": engine, "latency": lat, "production_calibrated": calibrated},
+                  pages, {"default": per_page, "latency": fused,
+                          "production_calibrated": {**fused, "int8_conv": n_q}})
+
     # 3c. path A: text_threshold < low_text (K4, K5)
     low = tuatara_tpu_torch.OcrConfig(text_threshold=LOW_THRESHOLD)
     low_results, low_launches = drive(low, pages, ("label_components", "area_ok",
@@ -1535,6 +1728,7 @@ def main() -> int:
 
     print(json.dumps({"int8_conv": int8_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,10 @@ first freezes static activation scales from the first two pages), or with
 traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
 
 * the card (nvidia-smi name and power limit);
-* wall time per page, split into detect (canvas, CRAFT, post-processing)
-  and recognize (crops, PARSEQ, confidence) as the engine records them;
+* wall time per page, split into detect and recognize as the engine
+  records them (`last_timings`: detect from the dispatch to the combined
+  fetch, which includes a speculative recognition, and recognize a
+  correctly sized recognition pass where one ran);
 * device busy time per page (union of CUDA kernel and memcpy intervals on
   the trace) and the device's idle share of the wall time;
 * CRAFT's device time per page: the kernels launched inside its forward

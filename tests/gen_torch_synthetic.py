@@ -25,6 +25,14 @@ int8 CRAFT with dynamic activation scales, the fused recognizer kernels;
 without the two lowering fields a CPU backend would also quantize the
 encoder). Pallas runs only in interpret mode on the CPU, so the two fused
 kernels are called with interpret=True (about 8 s a page).
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/gen_torch_synthetic.py --config production \
+        --weights evals/production_weights_w64
+
+does the same on another weights directory, at the crop width its
+recognizer was trained for (`rec_width`, from its config.json): on the
+width-64 weights, `production(rec_width=64, ...)`, written to
+tests/fixtures/torch_synthetic_production_w64.json.
 """
 
 import argparse
@@ -40,7 +48,7 @@ OUT = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")
 N_PAGES = 16
 
 
-def production() -> int:
+def production(weights: str) -> int:
     """The production() record on the pages and truths already written."""
     import tuatara_tpu.ops.pallas.decode as pallas_decode
     import tuatara_tpu.ops.pallas.vit as pallas_vit
@@ -56,17 +64,22 @@ def production() -> int:
     from tuatara_tpu.api import OcrEngine
     from tuatara_tpu.config import OcrConfig
     from tuatara_tpu.utils.metrics import evaluate_engine
+    from tuatara_tpu.utils.weights import load_configs
 
     config = dict(canvas_size=256, max_boxes=32, rec_buckets=(32,), encoder_impl="pallas",
                   decode_impl="pallas")
-    engine = OcrEngine(OcrConfig.production(**config), weights_dir=WEIGHTS)
+    rec_width = load_configs(weights)[1].img_size[1]
+    if rec_width != OcrConfig().rec_width:
+        config["rec_width"] = rec_width
+    engine = OcrEngine(OcrConfig.production(**config), weights_dir=weights)
     pages = np.load(OUT + ".npz")["pages"]
     with open(OUT + ".json") as f:
         truths = json.load(f)["truths"]
     words = [[{"text": w["text"], "bbox": [float(v) for v in w["bbox"]]}
               for w in engine.run(img)] for img in pages]
     scores = evaluate_engine(engine, list(pages), truths, iou_threshold=0.5)
-    out = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_production.json")
+    suffix = f"_w{rec_width}" if "rec_width" in config else ""
+    out = os.path.join(ROOT, "tests", "fixtures", f"torch_synthetic_production{suffix}.json")
     with open(out, "w") as f:
         json.dump({
             "what": ("JAX engine production() words on the 16 held-out synthetic pages of "
@@ -74,7 +87,7 @@ def production() -> int:
                      "Pallas recognizer kernels in interpret mode)"),
             "config": {"preset": "production", **config, "rec_buckets": [32],
                        "compute_dtype": "bfloat16"},
-            "weights": "evals/production_weights",
+            "weights": os.path.relpath(weights, ROOT),
             "word_acc": scores["word_acc"], "matched": scores["matched"],
             "words": words}, f, indent=1)
     print(f"wrote {out}: word_acc {scores['word_acc']:.4f}, "
@@ -85,9 +98,12 @@ def production() -> int:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=("default", "production"), default="default")
+    ap.add_argument("--weights", default=WEIGHTS,
+                    help="weights directory of the production() record")
+    args = ap.parse_args()
     sys.path.insert(0, ROOT)
-    if ap.parse_args().config == "production":
-        return production()
+    if args.config == "production":
+        return production(os.path.abspath(args.weights))
     from tuatara_tpu.api import OcrEngine
     from tuatara_tpu.config import OcrConfig
     from tuatara_tpu.utils.data import synthetic_text_pages

@@ -55,6 +55,8 @@ from tuatara_tpu_torch.models.parseq import Parseq, confidence
 from tuatara_tpu_torch.tokenizer import Tokenizer
 from tuatara_tpu_torch.weights import parseq_state_dict
 
+from torch_common import torch_threads  # noqa: F401
+
 CFG = JaxParseqConfig(embed_dim=64, enc_depth=1, enc_heads=4, dec_heads=4, max_label_length=7)
 COMPUTED = ("qh_all", "k_tab", "v_tab")
 

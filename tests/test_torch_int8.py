@@ -64,6 +64,7 @@ from tuatara_tpu_torch.utils.image import load_image
 from tuatara_tpu_torch.weights import craft_state_dict
 
 from chip_smoke import word_share
+from torch_common import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden_weights")

@@ -50,6 +50,8 @@ from tuatara_tpu_torch.kernels import cc as tcc
 from tuatara_tpu_torch.kernels import stats as tstats
 from tuatara_tpu_torch.ops import connected_components as tplain
 
+from torch_common import torch_threads  # noqa: F401
+
 BIG = 2**30
 
 

@@ -38,6 +38,8 @@ from tuatara_tpu_torch.config import OcrConfig
 from tuatara_tpu_torch.ops.resize import canvas_shape
 from tuatara_tpu_torch.utils.metrics import match_boxes, transcript_agreement, word_accuracy
 
+from torch_common import torch_threads  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRODUCTION = os.path.join(ROOT, "evals", "production_weights")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")

@@ -47,6 +47,8 @@ from tuatara_tpu_torch.models.layers import set_compute_dtype
 from tuatara_tpu_torch.utils import weights as t_weights
 from tuatara_tpu_torch.weights import craft_state_dict
 
+from torch_common import torch_threads  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden_weights")
 BF16_STEP = 2.0 ** -7

@@ -38,6 +38,8 @@ from tuatara_tpu_torch.kernels.vit import check_geometry, stack_vit_block_weight
 from tuatara_tpu_torch.models.parseq import Parseq
 from tuatara_tpu_torch.weights import parseq_state_dict
 
+from torch_common import torch_threads  # noqa: F401
+
 MAX_ABS = 1e-2
 MEAN_REL = 1e-3
 

@@ -5,8 +5,10 @@ preset: `image_to_data(image)` -> `OcrEngine.run_pages`, axis-aligned
 boxes, greedy AR decode with one cloze refinement. A batch of same-sized
 pages goes through
 
-1. canvas prep and the CRAFT forward, batched (conv1_2 + ReLU + pool1 as
-   the CUDA kernel K8 where `models.craft.FUSED_STAGE1` lets it);
+1. canvas prep and the CRAFT forward (conv1_2 + ReLU + pool1 as the CUDA
+   kernel K8 where `models.craft.FUSED_STAGE1` lets it), batched under
+   int8 and a page at a time in float, so that no page's result depends
+   on the pages beside it;
 2. per page: `extract_boxes` (the CUDA kernels K1-K3 on the card, or K4,
    K2 and K5 when text_threshold < low_text), scaling
    to image coordinates, crop windows, and compaction of the valid boxes to
@@ -27,6 +29,16 @@ detector): its convolutions but conv1_1 and the head's 1x1s are int8 x int8
 `OcrEngine.calibrate(pages)` freezes static ones, or a `calibration.npz`
 beside the weights (`save_calibration`) supplies them at construction.
 
+`run_pages` is `_finalize(_dispatch(images))`, as in the JAX engine:
+`_dispatch` issues detection and, when the batch geometry has served a
+bucket before, the crop + recognition slab at that bucket (speculative
+recognition), with no host read; `_finalize` fetches the counts, boxes and
+recognition results in one copy and runs a correctly sized recognition pass
+only when the speculation fell short. `run_stream` pipelines batches over
+that split (uploads on a side stream from a producer thread, `depth`
+dispatches in flight), `run_mixed` groups pages of mixed sizes, and
+`engine.stats` accumulates the serving counters.
+
 Models load once per engine and stay on the device. The engine runs on the
 card unless the caller passes `device="cpu"`.
 """
@@ -36,6 +48,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import queue
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -176,7 +190,13 @@ class OcrEngine:
             # The recognizer's scales (saved under a quantized encoder) do
             # not apply: the encoder serves bf16 here, as in JAX.
             W.apply_static_scales(self.craft, W.load_calibration(calib)[0])
-        self.last_timings: Dict[str, float] = {}
+        self.last_timings: Dict[str, Any] = {}
+        # Cumulative serving counters since construction or reset_stats().
+        self.stats: Dict[str, float] = self._fresh_stats()
+        # Batch geometry (b, h, w, c) -> the bucket last served for it: the
+        # slab size `_dispatch` recognizes at before the box count is known.
+        self._spec: Dict[Tuple[int, int, int, int], int] = {}
+        self._closed = False
 
     # ------------------------------------------------------------------
 
@@ -187,10 +207,13 @@ class OcrEngine:
         return self.run_pages(np.asarray(image)[None])[0]
 
     @staticmethod
-    def _batch_geometry(images) -> Tuple[np.ndarray, int, int, int, int]:
-        """[B,H,W,3] / [B,H,W,1] / [B,H,W] / [H,W,3] / [H,W] -> (images,
-        b, h, w, channels), as the JAX package reads them."""
-        images = np.asarray(images)
+    def _batch_geometry(images) -> Tuple[Any, int, int, int, int]:
+        """[B,H,W,3] / [B,H,W,1] / [B,H,W] / [H,W,3] / [H,W] -> (images
+        [B, H, W, C], b, h, w, channels), as the JAX package reads them. A
+        torch.Tensor stays a tensor on its device (a view, no copy); any
+        other input becomes a numpy array."""
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images)
         if images.ndim == 2:
             images = images[None]
         if images.ndim == 3 and images.shape[-1] in (1, 3):
@@ -204,6 +227,48 @@ class OcrEngine:
         b, h, w, c = images.shape
         return images, b, h, w, c
 
+    @staticmethod
+    def _check_dtype(images) -> None:
+        """Pixels must be uint8 0-255: a float image in [0, 1] would be
+        divided by 255 again in canvas prep and give near-blank heatmaps."""
+        ok = (images.dtype == torch.uint8 if isinstance(images, torch.Tensor)
+              else images.dtype == np.uint8)
+        if not ok:
+            raise TypeError(
+                f"image dtype must be uint8 (0-255), got {images.dtype}; scale and cast "
+                f"float images with (img * 255).clip(0, 255).astype('uint8')")
+
+    @staticmethod
+    def _fresh_stats() -> Dict[str, float]:
+        return {"pages": 0, "batches": 0, "boxes": 0,
+                "detect_s": 0.0, "recognize_s": 0.0, "decode_s": 0.0,
+                "spec_hits": 0, "spec_misses": 0, "spec_wasted": 0}
+
+    def reset_stats(self) -> None:
+        """Zero the cumulative serving counters (`engine.stats`)."""
+        self.stats = self._fresh_stats()
+
+    def _account(self, b: int) -> None:
+        t, s = self.last_timings, self.stats
+        s["pages"] += b
+        s["batches"] += 1
+        s["boxes"] += t["boxes"]
+        for k in ("detect_s", "recognize_s", "decode_s"):
+            s[k] += t[k]
+        if t["speculative"]:
+            # A speculative slab of a batch with no boxes was thrown away;
+            # otherwise a fallback pass makes it a miss.
+            if t["boxes"] == 0:
+                s["spec_wasted"] += 1
+            else:
+                s["spec_misses" if t["spec_fallback"] else "spec_hits"] += 1
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError(
+                "OcrEngine is closed (close() was called or the engine was evicted "
+                "from the get_engine cache); construct a new one")
+
     def _bucket(self, count: int) -> int:
         for b in self.config.rec_buckets:
             if count <= b and b <= self.config.max_boxes:
@@ -215,11 +280,20 @@ class OcrEngine:
         """Device pages [B, H, W, C] uint8 -> per-slot bbox [B, K, 4], crop
         rects [B, K, 4], valid [B, K] (valid first, raster order kept),
         count [B], and the heatmaps [B, h, w, 2]."""
+        self._check_open()
         cfg = self.config
         b, h, w, c = images.shape
         ratio = canvas_shape(h, w, cfg)[4]
         canvases = torch.stack([canvas_prep(images[i], cfg) for i in range(b)])
-        scores, _ = self.craft(canvases)
+        if self.craft.quantized:
+            # int8 sums are exact: a calibrated page's heatmap is the same
+            # in any batch (dynamic scales span the batch, as in JAX).
+            scores, _ = self.craft(canvases)
+        else:
+            # cuDNN picks a float convolution's kernel by the batch size,
+            # so a page's heatmap would depend on the pages beside it
+            # (chip_smoke.py phase 3e measures it): one page at a time.
+            scores = torch.cat([self.craft(canvases[i:i + 1])[0] for i in range(b)])
         content = content_mask(h, w, cfg, images.device)
         out = collections.defaultdict(list)
         for i in range(b):
@@ -241,6 +315,7 @@ class OcrEngine:
         """Crops of the live boxes (padded to `bucket` rows) through PARSEQ.
         -> (ids [bucket, T], conf [bucket]) in (page, slot) raster order of
         the live boxes."""
+        self._check_open()
         cfg = self.config
         b, k = valid.shape
         flat_valid = valid.reshape(-1)
@@ -275,13 +350,14 @@ class OcrEngine:
         `run_pages` takes them. Each quantized layer's input abs-max over
         the pages gives sx = 127 / (amax * margin); inputs beyond it
         saturate. Re-calibration replaces the scales. -> layers set."""
+        self._check_open()
         if not self.config.quantized_serving:
             raise ValueError("calibrate() requires OcrConfig(quantized_serving=True)")
         batches = pages if isinstance(pages, (list, tuple)) else [pages]
         stats = []
         for batch in batches:
             images, b, _, _, _ = self._batch_geometry(batch)
-            images_d = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            images_d = self._to_device(images)
             canvases = torch.stack([canvas_prep(images_d[i], self.config) for i in range(b)])
             with L.calibration() as seen:
                 self.craft(canvases)
@@ -299,49 +375,240 @@ class OcrEngine:
                              "first (requires quantized_serving=True)")
         return path
 
-    def run_pages(self, images: np.ndarray) -> List[List[Dict]]:
+    def _to_device(self, images) -> torch.Tensor:
+        if isinstance(images, torch.Tensor):
+            return images.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+
+    def run_pages(self, images) -> List[List[Dict]]:
         """OCR a batch of same-sized pages [B, H, W, 3] uint8 RGB (or gray
-        [B, H, W] / [B, H, W, 1]) -> one result list per page."""
+        [B, H, W] / [B, H, W, 1]) -> one result list per page. A uint8
+        torch.Tensor on the engine's device is used in place, with no host
+        round trip (pair with `run_stream` to overlap uploads and result
+        fetches with compute)."""
+        self._check_open()
+        return self._finalize(self._dispatch(images))
+
+    def _dispatch(self, images) -> Dict[str, Any]:
+        """Issue the device work of one page batch with no host read:
+        detection, and when this geometry has served a bucket before, the
+        crop + recognition slab at that bucket. -> the state `_finalize`
+        takes."""
         images, b, h, w, c = self._batch_geometry(images)
-        if images.dtype != np.uint8:
-            raise TypeError(
-                f"image dtype must be uint8 (0-255), got {images.dtype}; scale "
-                f"and cast float images with (img * 255).clip(0, 255).astype('uint8')")
-        if images.size == 0:
+        self._check_dtype(images)
+        if 0 in images.shape:
             raise ValueError("empty image")
-        K = self.config.max_boxes
+        images_d = self._to_device(images)
         t0 = time.perf_counter()
-        images_d = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         det = self.detect(images_d)
-        counts = det["count"].tolist()
-        bboxes = det["bbox"].cpu().numpy()
+        geometry = (b, h, w, c)
+        spec = self._spec.get(geometry)
+        rec = None if spec is None else self._run_recognition(det, spec, images_d)
+        return {"det": det, "rec": rec, "spec": spec, "images_d": images_d,
+                "geometry": geometry, "t0": t0}
+
+    def _run_recognition(self, det: Dict[str, torch.Tensor], bucket: int,
+                         images_d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.recognize_slab(images_d, det["rects"], det["valid"], bucket)
+
+    def _fetch(self, tensors: List[torch.Tensor]) -> List[np.ndarray]:
+        """Device tensors -> host arrays in one wait: on the card,
+        non-blocking copies into pinned host tensors, then one event."""
+        if self.device.type != "cuda":
+            return [t.numpy() for t in tensors]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for dst, src in zip(host, tensors):
+            dst.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return [t.numpy() for t in host]
+
+    def _finalize(self, st: Dict[str, Any]) -> List[List[Dict]]:
+        """Fetch and decode one dispatched batch (see `_dispatch`): a
+        correctly sized recognition pass runs when there was no speculative
+        slab or it held fewer rows than the batch's live boxes."""
+        det, rec, spec, geometry = st["det"], st["rec"], st["spec"], st["geometry"]
+        b = geometry[0]
+        K = self.config.max_boxes
+        if rec is None:
+            counts, bboxes = self._fetch([det["count"], det["bbox"]])
+        else:
+            counts, bboxes, ids, conf = self._fetch([det["count"], det["bbox"], *rec])
         t1 = time.perf_counter()
-        total = sum(counts)
+        spans = [int(n) for n in counts]
+        total = sum(spans)
         results: List[List[Dict]] = [[] for _ in range(b)]
         if total == 0:
-            self.last_timings = {"detect_s": t1 - t0, "recognize_s": 0.0,
-                                 "decode_s": 0.0, "boxes": 0}
+            self._spec.pop(geometry, None)
+            self.last_timings = {"detect_s": t1 - st["t0"], "recognize_s": 0.0,
+                                 "decode_s": 0.0, "speculative": rec is not None,
+                                 "spec_fallback": False, "boxes": 0}
+            self._account(b)
             return results
+        # Totals past max_boxes round up to a multiple of rec_slab_multiple
+        # (default max_boxes), clamped to the b * K rows the gather has.
         gran = self.config.rec_slab_multiple or K
         bucket = (self._bucket(total) if total <= K
                   else gran * ((total + gran - 1) // gran))
         bucket = min(max(bucket, self.config.rec_buckets[0]), b * K)
-        ids_d, conf_d = self.recognize_slab(images_d, det["rects"], det["valid"], bucket)
-        ids, conf = ids_d.cpu().numpy(), conf_d.cpu().numpy()
+        fallback = spec is None or spec < total
+        if fallback:
+            ids, conf = self._fetch(list(self._run_recognition(det, bucket, st["images_d"])))
+        self._spec[geometry] = bucket
         t2 = time.perf_counter()
         texts = self.tokenizer.decode_ids(ids[:total])
         off = 0
         for i in range(b):
-            for j in range(counts[i]):
+            for j in range(spans[i]):
                 results[i].append({
                     "text": texts[off + j],
                     "bbox": [float(v) for v in bboxes[i, j]],
                     "confidence": float(conf[off + j]),
                 })
-            off += counts[i]
-        self.last_timings = {"detect_s": t1 - t0, "recognize_s": t2 - t1,
-                             "decode_s": time.perf_counter() - t2, "boxes": total}
+            off += spans[i]
+        # With a speculative slab, detect_s spans dispatch to the combined
+        # fetch (detection and recognition both), and recognize_s only a
+        # fallback pass.
+        self.last_timings = {"detect_s": t1 - st["t0"], "recognize_s": t2 - t1,
+                             "decode_s": time.perf_counter() - t2,
+                             "speculative": rec is not None,
+                             "spec_fallback": fallback and rec is not None, "boxes": total}
+        self._account(b)
         return results
+
+    def run_mixed(self, images, max_batch: int = 16, depth: int = 2) -> List[List[Dict]]:
+        """OCR a list of pages of mixed sizes: pages are grouped by exact
+        shape, run as batches of up to `max_batch` with `depth` dispatches
+        in flight, and returned in the original order (equal to `run` on
+        each page)."""
+        self._check_open()
+        groups: Dict[Tuple[int, ...], List[int]] = {}
+        parsed = []
+        for i, im in enumerate(images):
+            im = im if isinstance(im, torch.Tensor) else np.asarray(im)
+            parsed.append(im)
+            groups.setdefault(tuple(im.shape), []).append(i)
+        results: List[Optional[List[Dict]]] = [None] * len(parsed)
+        pending: "collections.deque" = collections.deque()
+
+        def finish():
+            chunk, st = pending.popleft()
+            for i, res in zip(chunk, self._finalize(st)):
+                results[i] = res
+
+        for idxs in groups.values():
+            for start in range(0, len(idxs), max_batch):
+                chunk = idxs[start:start + max_batch]
+                stack = torch.stack if isinstance(parsed[chunk[0]], torch.Tensor) else np.stack
+                pending.append((chunk, self._dispatch(stack([parsed[i] for i in chunk]))))
+                if len(pending) > depth:
+                    finish()
+        while pending:
+            finish()
+        return results  # type: ignore[return-value]
+
+    def run_stream(self, batches, prefetch: int = 2, depth: int = 1) -> List[List[List[Dict]]]:
+        """OCR an iterable of same-shaped page batches, the serving loop.
+
+        A producer thread uploads up to `prefetch` batches ahead: on the
+        card it pins each one and copies it on a side stream, recording an
+        event the compute stream waits on. The caller's thread launches all
+        compute, keeping `depth` dispatched batches in flight, so a batch's
+        result fetch waits behind the next batch's compute. -> per-batch
+        results, in order. An error in `batches` is raised here."""
+        self._check_open()
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        slots: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+        stop = threading.Event()
+        end = object()
+
+        def upload(batch):
+            """-> (device batch, its copy's event or None, the pinned
+            source, kept referenced until the batch is finalized)."""
+            if isinstance(batch, torch.Tensor) and batch.device.type == self.device.type:
+                return batch.to(self.device), None, None
+            host = batch if isinstance(batch, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(batch))
+            if not cuda:
+                return host, None, None
+            host = host.pin_memory()
+            with torch.cuda.stream(copy_stream):
+                dev = host.to(self.device, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(copy_stream)
+            return dev, copied, host
+
+        def producer():
+            try:
+                for batch in batches:
+                    if stop.is_set():
+                        return
+                    slots.put(upload(batch))
+            except BaseException as e:  # raised in the caller, not lost
+                slots.put(e)
+                return
+            slots.put(end)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        out: List[List[List[Dict]]] = []
+        pending: "collections.deque" = collections.deque()
+        try:
+            while True:
+                item = slots.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                dev, copied, pinned = item
+                if copied is not None:
+                    compute = torch.cuda.current_stream(self.device)
+                    compute.wait_event(copied)
+                    dev.record_stream(compute)  # allocated on the copy stream
+                st = self._dispatch(dev)
+                st["pinned"] = pinned
+                pending.append(st)
+                if len(pending) > depth:
+                    out.append(self._finalize(pending.popleft()))
+            while pending:
+                out.append(self._finalize(pending.popleft()))
+        finally:
+            stop.set()
+            while thread.is_alive():  # unblock a producer waiting on a full queue
+                try:
+                    slots.get(timeout=0.01)
+                except queue.Empty:
+                    pass
+            thread.join()
+        return out
+
+    @torch.inference_mode()
+    def warmup(self, h: int, w: int, batch: int = 1, channels: int = 3) -> None:
+        """Prepare the serving path for a page shape: on the card, build the
+        CUDA kernels; run a blank batch through `run_pages` (it detects no
+        boxes) and the crop + recognition slab at the smallest bucket."""
+        self._check_open()
+        if self.device.type == "cuda":
+            from tuatara_tpu_torch.kernels._build import build_all
+
+            build_all()
+        blank = np.zeros((batch, h, w, channels), np.uint8)
+        self.run_pages(blank)
+        K = self.config.max_boxes
+        rects = torch.zeros(batch, K, 4, device=self.device)
+        valid = torch.zeros(batch, K, dtype=torch.bool, device=self.device)
+        self._fetch(list(self.recognize_slab(self._to_device(blank), rects, valid,
+                                             self._bucket(1))))
+
+    def close(self) -> None:
+        """Drop the engine's models and device tensors. Every later call
+        raises RuntimeError. Idempotent."""
+        self.craft = None
+        self.parseq = None
+        self._spec.clear()
+        self._closed = True
 
 
 _engines: "collections.OrderedDict[Any, OcrEngine]" = collections.OrderedDict()
@@ -350,18 +617,25 @@ ENGINE_CACHE_MAX = 4
 
 def get_engine(config: OcrConfig = DEFAULT_CONFIG, weights_dir: Optional[str] = None,
                device: Optional[str] = None) -> OcrEngine:
-    """Process-wide engine cache keyed by (config, weights_dir, device),
-    least-recently-used first out."""
+    """Process-wide engine cache keyed by (config, weights_dir, device). Past
+    ENGINE_CACHE_MAX engines the least recently used one is evicted and
+    closed, even if a caller still holds it: later calls on it raise."""
     key = (config, weights_dir or "", str(resolve_device(device)))
     eng = _engines.get(key)
     if eng is None:
         eng = OcrEngine(config, weights_dir=weights_dir, device=device)
         _engines[key] = eng
         while len(_engines) > ENGINE_CACHE_MAX:
-            _engines.popitem(last=False)
+            _engines.popitem(last=False)[1].close()
     else:
         _engines.move_to_end(key)
     return eng
+
+
+def clear_engines() -> None:
+    """Close and drop every cached engine."""
+    while _engines:
+        _engines.popitem(last=False)[1].close()
 
 
 def image_to_data(image: np.ndarray, weights_dir: Optional[str] = None,

@@ -55,6 +55,24 @@ class Linear(nn.Module):
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
+class PaddedLinear(Linear):
+    """A Linear whose product runs at an output width rounded up to a
+    multiple of 8 (zero rows, sliced off after). On the card cuBLAS picks
+    the kernel of a bf16 product whose output width is not a multiple of 8
+    by its row count, so a row's result depended on how many rows shared
+    the call: the recognizer head (95 classes) gave other logits, and
+    other confidences, when a slab held more padding rows. At a multiple
+    of 8 the rows' results do not depend on the row count."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.weight.shape[0]
+        pad = -n % 8
+        if pad == 0:
+            return super().forward(x)
+        w = F.pad(self.weight, (0, 0, 0, pad))
+        return F.linear(x.to(w.dtype), w, F.pad(self.bias, (0, pad)))[..., :n]
+
+
 class LayerNorm(nn.Module):
     """LayerNorm in fp32 whatever the input dtype (output fp32)."""
 

@@ -40,7 +40,7 @@ from tuatara_tpu_torch.config import ParseqConfig
 from tuatara_tpu_torch.kernels import decode as K7
 from tuatara_tpu_torch.kernels import vit as K6
 from tuatara_tpu_torch.models.layers import (
-    MHA, LayerNorm, Linear, VitBlock, attention_core, gelu, merge_heads,
+    MHA, LayerNorm, Linear, PaddedLinear, VitBlock, attention_core, gelu, merge_heads,
 )
 
 
@@ -101,7 +101,7 @@ class Parseq(nn.Module):
             DecoderLayer(D, cfg.dec_heads, int(D * cfg.dec_mlp_ratio), eps)
         ])
         self.dec_norm = LayerNorm(D, eps)
-        self.head = Linear(D, cfg.charset_size + 1)
+        self.head = PaddedLinear(D, cfg.charset_size + 1)
         self.enc_stacked: Optional[Bundle] = None
         self.dec_stacked: Optional[Bundle] = None
 
