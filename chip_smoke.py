@@ -52,6 +52,27 @@ line without a CUDA device or outside the repo.
              same values at 32 to 4096 rows (the unpadded 95-column one
              printed beside it), and float CRAFT batched beside a page at
              a time (scores and ms/page on the 16 dense pages) is printed.
+3f. geometry: rotated boxes and tiled detection. At fp32, TF32
+             off: each variant of tests/fixtures/torch_reference_rotated.json
+             (box_mode="rotated", fit exact and pca) and _tiled.json
+             (tiled_detection at canvas 1024, where only table_english
+             tiles, and 512, where the four pages do) on the four pages and
+             rotated_text, page by page with counts zeroed just before and
+             read just after: >= 95% of JAX's words with the same bbox and
+             text, K1-K3 on every page, H1 (`lower_chains`) on every page
+             of the exact fit that does not tile and on no other.
+             production(tiled_detection=True, canvas_size=512): each tiled
+             page's tiles as one int8 CRAFT batch (rows counted by a
+             forward hook), every int8 conv and K1-K3 launched. The tiled
+             engine at canvas 512: run_mixed over the five pages and a
+             mirrored table_english equal to run; run_stream equal to a
+             run_pages loop. Warm pages/s of default, latency(), rotated
+             exact and pca, tiled at canvas 1024 and 512, in turns; each
+             one's `detect` under torch.cuda.set_sync_debug_mode("error"):
+             fatal if a rotated or tiled engine reads the host where the
+             default does not.
+             latency(box_mode="rotated") on the dense batch under phase
+             3e's gates, H1 launched on every page.
 3c. path A:  the same pages at `OcrConfig(text_threshold=0.3)`, the
              detection branch text_threshold < low_text: counts zeroed just
              before and read just after, K4 (`label_components`), K2 and K5
@@ -81,6 +102,21 @@ line without a CUDA device or outside the repo.
              of area m-1, m and m+1 as lines, staircases and an L across
              tile and image borders; all foreground; empty) at 512x384 and
              509x381. Prints one {"kernels": [...]} line.
+    Also on the stitched heatmaps of tiled pages (the four
+             pages at canvas 512; table_english and four funsd_0001129658
+             pages joined 2 x 2 into one 2000 x 1508 page at canvas 1024),
+             in the `other_inputs` of the kernels line.
+4f. H1:      `lower_chains` (csrc/hull.cu) against its plain version, bit
+             for bit (stacks and counts), on the dilated profiles the
+             rotated exact engine builds on 3f's five pages, seeded random
+             profiles at K = 256 and degenerate ones (nothing valid, one
+             row, one column, H = 1, K = 1, chains of 194 vertices, past
+             the budget of 192);
+             at most 2 records a call (the kernel and the stacks' memset);
+             ms, device ms, plain ms and the byte bound, and the edge
+             sweep's (`sweep_chains`) device ms a page, its corners equal
+             to the CPU's within 1e-4 (the same edge wins). Its entry
+             joins the kernels line.
 4c. K4, K5:  the same, on path A's inputs (hot at text_threshold 0.3, the
              normalized region map): labels, the four count planes and the
              peak (-1e30 in empty slots) equal bit for bit; ms/call, traced
@@ -166,11 +202,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "evals", "production_weights")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_reference_production.json")
 FIXTURE_LOW = os.path.join(ROOT, "tests", "fixtures", "torch_reference_lowthresh.json")
+FIXTURE_ROTATED = os.path.join(ROOT, "tests", "fixtures", "torch_reference_rotated.json")
+FIXTURE_TILED = os.path.join(ROOT, "tests", "fixtures", "torch_reference_tiled.json")
 LOW_THRESHOLD = 0.3  # text_threshold of path A, below the default low_text 0.4
 SYNTHETIC = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")
 SYNTHETIC_PRODUCTION = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_production.json")
 PAGES = ("resume_example", "funsd_0001129658", "funsd_91372360", "table_english")
 GRAY_PAGES = ("funsd_0001129658", "funsd_91372360")  # gray PNG files
+GEOMETRY_PAGES = PAGES + ("rotated_text",)  # phase 3f's pages
 MIN_WORD_SHARE = 0.95
 K6_MAX_REL = 7e-3
 K7_MIN_IDS = 0.99
@@ -180,6 +219,7 @@ K8_MAX_REL = 1e-3
 K8_BATCH, K8_BATCH_PAGE = 16, "funsd_0001129658"  # BASELINE.md config 1's dense batch
 DENSE_STREAM = 6  # batches of the dense batch in phase 3e's stream, as bench.py builds them
 MIN_AGREEMENT = 0.98
+SWEEP_MAX_DIFF = 1e-4  # the edge sweep's corners, card against CPU (another edge: >= 1 px)
 K2_MIN_AREAS = (1, 2, 10, 16)
 INT8_LAYERS = ("vgg/conv2_2/conv", "fc/fc6", "up/upconv2/conv1a", "up/upconv2/conv1b")
 INT8_PAGE = "funsd_0001129658"
@@ -313,11 +353,12 @@ def area_stress_masks(m, h, w, seed=0):
             ("empty", np.zeros((h, w), bool))]
 
 
-def kernel_cases(engine, pages):
+def kernel_cases(engine, pages, tiled=()):
     """(label, comb, hot, keep, tn, hot_low) on the card: each page's
     binarized heatmap from the main path's detector (hot_low: the hot
-    pixels at path A's text_threshold), then seeded random masks, then the
-    stress masks with seeded random hot, keep and tn."""
+    pixels at path A's text_threshold), the stitched heatmaps of `tiled`
+    ((label, tiled engine, page) of pages that tile), then seeded random
+    masks, then the stress masks with seeded random hot, keep and tn."""
     import dataclasses
 
     import numpy as np
@@ -336,6 +377,18 @@ def kernel_cases(engine, pages):
         comb, keep, hot, tn = binarize(scores[:, :, 0], scores[:, :, 1], mask, cfg)
         hot_low = binarize(scores[:, :, 0], scores[:, :, 1], mask, low)[2]
         cases.append((name,) + tuple(t.contiguous() for t in (comb, hot, keep, tn, hot_low)))
+    for label, eng, img in tiled:
+        h, w = img.shape[:2]
+        if not eng._tiled(h, w):
+            fail(f"{label}: the page does not tile")
+        scores = eng.detect(torch.from_numpy(img[None]).cuda())["scores"][0]
+        mask = eng._tiled_geometry(h, w, scores.device)[4]
+        comb, keep, hot, tn = binarize(scores[:, :, 0], scores[:, :, 1], mask, eng.config)
+        hot_low = binarize(scores[:, :, 0], scores[:, :, 1], mask,
+                           dataclasses.replace(eng.config, text_threshold=LOW_THRESHOLD))[2]
+        hh, ww = comb.shape
+        cases.append((f"{label}/{hh}x{ww}",) + tuple(
+            t.contiguous() for t in (comb, hot, keep, tn, hot_low)))
     rng = np.random.default_rng(0)
     for hh, ww in ((384, 384), (512, 384)):
         comb = rng.random((hh, ww)) < 0.55   # near the percolation threshold
@@ -555,10 +608,11 @@ def check_area_ok(cases, main_m, rows):
                   f"ms={ms:.4f} device_ms={dev_ms} launches/call={per_call}", flush=True)
 
 
-def check_kernels(engine, pages, launches, low_launches):
+def check_kernels(engine, pages, launches, low_launches, tiled=()):
     """Phases 4 and 4c: every kernel of detection post-processing equal to
     its plain version; times and bounds. K1-K3 on the default path's
-    inputs, K4 and K5 on path A's."""
+    inputs, K4 and K5 on path A's; all five also on the stitched heatmaps
+    of `tiled` (see kernel_cases)."""
     import torch
 
     from tuatara_tpu_torch.kernels import cc, stats
@@ -568,7 +622,7 @@ def check_kernels(engine, pages, launches, low_launches):
     m = engine.config.min_component_area
     rows = {n: [] for n in (cc.K1, cc.K2, stats.K3, cc.K4, stats.K5)}
     max_launches = {cc.K1: 3, cc.K2: 1, cc.K4: 2, stats.K3: 1, stats.K5: 1}
-    cases = kernel_cases(engine, pages)
+    cases = kernel_cases(engine, pages, tiled)
     for label, comb, hot, keep, tn, hot_low in cases:
         h, w = comb.shape
         n = h * w
@@ -1513,7 +1567,7 @@ def check_invariance(engine, batches):
         fail(f"the padded recognizer head depends on the row count: {bad['padded']}")
 
 
-def check_serving(engines, pages, required):
+def check_serving(engines, pages, required, phase="3e"):
     """Phase 3e: the serving loop on the dense batch. For each engine: a
     loop of run_pages from a cold speculation state (every batch after the
     first dispatched speculatively), then run_stream(prefetch=4, depth=2)
@@ -1529,7 +1583,8 @@ def check_serving(engines, pages, required):
 
     t_phase = time.perf_counter()
     batches = dense_batches()
-    check_invariance(engines["default"], batches)
+    if "default" in engines:
+        check_invariance(engines["default"], batches)
     n_pages = sum(len(b) for b in batches)
     mixed = list(pages.values()) + [batches[0][0], batches[1][0]]
     for name, engine in engines.items():
@@ -1587,8 +1642,333 @@ def check_serving(engines, pages, required):
                         f"{wall / n_pages:.3f} ms/page, idle share {1 - busy / wall:.3f}")
         print(f"serving {name} warm, in turns: " + "; ".join(line), flush=True)
     print(f"serving: run_stream == run_pages on {len(batches)} dense batches of "
-          f"{K8_BATCH} pages and run_mixed == run for {', '.join(engines)}; phase 3e "
+          f"{K8_BATCH} pages and run_mixed == run for {', '.join(engines)}; phase {phase} "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def geometry_engine(config):
+    """An engine of a rotated or tiled configuration, outside get_engine's
+    cache."""
+    import tuatara_tpu_torch
+
+    return tuatara_tpu_torch.OcrEngine(config, weights_dir=WEIGHTS)
+
+
+def check_geometry_parity(pages, post):
+    """Phase 3f, fp32 (TF32 off, as phase 5): each variant of the rotated
+    and tiled records on the four pages and rotated_text, page by page
+    with counts zeroed just before and read just after: at least
+    MIN_WORD_SHARE of JAX's words with the same bbox and text; K1-K3 on
+    every page; H1 on every page of the exact fit that does not tile and
+    on no other. -> {variant: summed launches}."""
+    import torch
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.kernels.hull import H1
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for fixture in (FIXTURE_ROTATED, FIXTURE_TILED):
+            with open(fixture) as f:
+                variants = json.load(f)["variants"]
+            for variant, rec in variants.items():
+                cfg = tuatara_tpu_torch.OcrConfig(**rec["config"])
+                eng = geometry_engine(cfg)
+                total = {}
+                for name, img in pages.items():
+                    h, w = img.shape[:2]
+                    exact = eng._rotated(h, w) and cfg.rotated_fit == "exact"
+                    reset_launches()
+                    got = eng.run(img)
+                    launches = dict(LAUNCHES)
+                    for k in post:
+                        if launches.get(k, 0) < 1:
+                            fail(f"geometry {variant} {name}: kernel {k} was not launched")
+                    if bool(launches.get(H1, 0)) != exact:
+                        fail(f"geometry {variant} {name}: {H1} launched {launches.get(H1, 0)} "
+                             f"times ({'an' if exact else 'no'} exact fit)")
+                    share = word_share(rec["pages"][name]["words"], got)
+                    print(f"geometry fp32 {variant} {name}: tiled={eng._tiled(h, w)} {share:.4f} "
+                          f"of {len(rec['pages'][name]['words'])} JAX words matched ({len(got)} "
+                          f"port words); launches {json.dumps(launches)}", flush=True)
+                    if share < MIN_WORD_SHARE:
+                        fail(f"geometry fp32 {variant} on {name}: {share:.4f} < {MIN_WORD_SHARE}")
+                    for k, n in launches.items():
+                        total[k] = total.get(k, 0) + n
+                out[variant] = total
+                del eng
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def check_geometry(engines, pages, post):
+    """Phase 3f: rotated boxes and tiled detection on the card. fp32
+    parity (check_geometry_parity); production(tiled_detection=True,
+    canvas_size=512) page by page: every page's tiles in one int8 CRAFT
+    batch (a forward hook counts the rows), all 28 int8 convs, K1-K3;
+    the tiled engine (canvas 512: the four pages tile, rotated_text does
+    not): run_mixed equal to run, run_stream equal to a run_pages loop;
+    warm pages/s of default, latency(), rotated exact and pca, tiled at
+    canvas 1024 and 512, in turns; then latency(box_mode="rotated") on
+    the dense batch under phase 3e's gates, H1 on every page.
+    -> (parity launches, the bf16 engines timed: default, latency,
+    rotated_exact, rotated_pca, tiled, tiled512)."""
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.kernels.hull import H1
+    from tuatara_tpu_torch.ops.tiling import tile_positions
+
+    t_phase = time.perf_counter()
+    OcrConfig = tuatara_tpu_torch.OcrConfig
+    parity = check_geometry_parity(pages, post)
+
+    prod = geometry_engine(OcrConfig.production(tiled_detection=True, canvas_size=512))
+    n_q = len(prod.craft.qconvs())
+    rows = []
+    hook = prod.craft.register_forward_pre_hook(lambda m, args: rows.append(args[0].shape[0]))
+    try:
+        for name, img in pages.items():
+            h, w = img.shape[:2]
+            if not prod._tiled(h, w):
+                continue
+            _, _, ph, pw, _ = prod._tiled_geometry(h, w, "cpu")
+            stride = prod.config.canvas_size - prod.config.tile_overlap
+            n_tiles = (len(tile_positions(ph, prod.config.canvas_size, stride))
+                       * len(tile_positions(pw, prod.config.canvas_size, stride)))
+            rows.clear()
+            reset_launches()
+            got = prod.run(img)
+            launches = dict(LAUNCHES)
+            print(f"geometry production tiled512 {name}: {n_tiles} tiles, CRAFT batches "
+                  f"{rows}, {len(got)} boxes; launches {json.dumps(launches)}", flush=True)
+            if rows != [n_tiles]:
+                fail(f"production tiled {name}: CRAFT saw batches {rows}, not one of "
+                     f"{n_tiles} tiles")
+            if launches.get("int8_conv", 0) < n_q or any(launches.get(k, 0) < 1 for k in post):
+                fail(f"production tiled {name}: int8 convs or K1-K3 not launched")
+            if not any(w_["text"] for w_ in got):
+                fail(f"production tiled {name}: no boxes with text")
+    finally:
+        hook.remove()
+
+    tiled512 = geometry_engine(OcrConfig(tiled_detection=True, canvas_size=512))
+    mixed = list(pages.values()) + [pages["table_english"][:, ::-1].copy()]
+    if tiled512.run_mixed(mixed, max_batch=2) != [tiled512.run(p) for p in mixed]:
+        fail("geometry tiled512: run_mixed differs from run on each page")
+    table = pages["table_english"]
+    batches = [table[None], table[None, :, ::-1].copy(), table[None]]
+    want = [tiled512.run_pages(b) for b in batches]
+    tiled512._spec.clear()
+    if tiled512.run_stream(batches, prefetch=2, depth=2) != want:
+        fail("geometry tiled512: run_stream differs from the run_pages loop")
+    print("geometry tiled512: run_mixed == run over pages that tile and one that does not; "
+          "run_stream == run_pages loop", flush=True)
+
+    rot = {fit: geometry_engine(OcrConfig(box_mode="rotated", rotated_fit=fit))
+           for fit in ("exact", "pca")}
+    timed = {**engines, "rotated_exact": rot["exact"], "rotated_pca": rot["pca"],
+             "tiled": geometry_engine(OcrConfig(tiled_detection=True)), "tiled512": tiled512}
+    for eng in timed.values():  # first calls at a new page size pick cuDNN plans
+        for img in pages.values():
+            eng.run(img)
+    warm_rates(timed, pages)
+    check_detect_sync_free(timed, pages)
+
+    lat_rot = geometry_engine(OcrConfig.latency(box_mode="rotated"))
+    per_page = dict.fromkeys(post + (H1,), K8_BATCH)
+    check_serving({"latency_rotated": lat_rot}, {k: pages[k] for k in PAGES},
+                  {"latency_rotated": {**per_page, "vit_blocks": 1, "greedy_decode": 1}},
+                  phase="3f")
+    print(f"geometry: phase 3f {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return parity, timed
+
+
+def check_detect_sync_free(engines, pages):
+    """`detect` issues its work with no host read (so `_dispatch` can queue
+    recognition behind it): each engine's detect on each page, from a
+    batch already on the card, under torch.cuda.set_sync_debug_mode
+    ("error"). Fatal for an engine whose detect reads the host where the
+    default engine's does not."""
+    import torch
+
+    bad = {}
+    for name, eng in engines.items():
+        for page, img in pages.items():
+            batch = torch.from_numpy(img[None]).cuda()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.detect(batch)
+            except RuntimeError as e:
+                bad.setdefault(name, f"{page}: {str(e).splitlines()[0][:160]}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    print(f"detect without a host read: {json.dumps({n: bad.get(n, 'yes') for n in engines})}",
+          flush=True)
+    if "default" not in bad and bad:
+        fail(f"detect reads the host on {sorted(bad)}, the default path does not")
+
+
+def hull_cases(engine, pages):
+    """(label, dmin, dmax, dval) on the card for H1: the dilated profiles
+    the rotated exact engine hands it on each page (captured by wrapping
+    `minarearect.lower_chains` during a run), seeded random profiles at the
+    main path's K = 256 (rows valid at random, x at random: many pops),
+    and degenerate ones: nothing valid, one valid row, one column of equal
+    x (every middle point popped), H = 1, K = 1, and convex chains of 194
+    vertices, past the budget of 192."""
+    import numpy as np
+    import torch
+
+    from tuatara_tpu_torch.ops import minarearect
+
+    seen = []
+    inner = minarearect.lower_chains
+
+    def record(dmin, dmax, dval):
+        seen.append((dmin.clone(), dmax.clone(), dval.clone()))
+        return inner(dmin, dmax, dval)
+
+    minarearect.lower_chains = record
+    cases = []
+    try:
+        for name, img in pages.items():
+            seen.clear()
+            engine.run(img)
+            if len(seen) != 1:
+                fail(f"{name}: the rotated exact fit built its chains {len(seen)} times")
+            cases.append((name,) + seen[0])
+    finally:
+        minarearect.lower_chains = inner
+    rng = np.random.default_rng(11)
+
+    def case(label, dmin, dmax, dval):
+        cases.append((label, torch.from_numpy(np.float32(dmin)).cuda(),
+                      torch.from_numpy(np.float32(dmax)).cuda(), torch.from_numpy(dval).cuda()))
+
+    for h in (384, 512):
+        x0 = rng.integers(0, 380, (h, 256))
+        case(f"random{h}x256", x0, x0 + rng.integers(0, 40, (h, 256)),
+             rng.random((h, 256)) < 0.3)
+    x = np.zeros((512, 256))
+    case("empty512x256", x, x, np.zeros((512, 256), bool))
+    one = np.zeros((512, 256), bool)
+    one[200] = True
+    case("one_row512x256", x + 5, x + 9, one)
+    case("column512x256", x + 7, x + 7, np.ones((512, 256), bool))
+    case("h1", x[:1] + 3, x[:1] + 4, np.ones((1, 256), bool))
+    case("k1", rng.integers(0, 99, (512, 1)), rng.integers(100, 200, (512, 1)),
+         rng.random((512, 1)) < 0.5)
+    # Rows 0-193 on a strictly convex (even columns) or concave (odd)
+    # curve of 193 slopes: one chain of each holds 194 vertices, past the
+    # budget of 192; differences stay below 2^14, products below 2^24.
+    curve = np.zeros((512, 256))
+    steps = np.cumsum(np.arange(-96, 97))
+    curve[1:194, 0::2] = steps[:, None]
+    curve[1:194, 1::2] = -steps[:, None]
+    rows = np.zeros((512, 256), bool)
+    rows[:194] = True
+    case("convex194x256", curve + 5000, 9000 - curve, rows)
+    torch.cuda.synchronize()
+    return cases
+
+
+def check_hull(engine, pages, launches):
+    """Phase 4f: H1 against its plain version on `hull_cases`, bit for bit
+    (hx, hy and cnt), at most 1 traced record a call; ms, device ms and
+    the byte bound a call; beside it the edge sweep's device ms a page
+    (`sweep_chains` on each page's chains, held to the CPU's corners
+    within SWEEP_MAX_DIFF: the same edge must win). -> the kernels line's
+    entry."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import hull
+    from tuatara_tpu_torch.ops.minarearect import sweep_chains
+
+    rows = []
+    sweep = []
+    for label, dmin, dmax, dval in hull_cases(engine, pages):
+        h, k = dmin.shape
+        got = hull.lower_chains(dmin, dmax, dval)
+        ref = hull.lower_chains_plain(dmin, dmax, dval)
+        torch.cuda.synchronize()
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"{hull.H1} differs from its plain version on {label} (max abs err {err})")
+        kfn = lambda: hull.lower_chains(dmin, dmax, dval)  # noqa: E731
+        ms = cuda_ms(kfn, 30)
+        dev_ms, per_call = traced_per_call(kfn)
+        if per_call is not None and per_call > 2:  # the kernel and the stacks' memset
+            fail(f"{hull.H1} took {per_call} records a call on {label}")
+        pms = cuda_ms(lambda: hull.lower_chains_plain(dmin, dmax, dval), 2, warmup=1)
+        nbytes = h * k * (4 + 4 + 1) + 2 * k * h * 4 * 2 + 2 * k * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        counts = got[2]
+        rows.append({"input": label, "shape": [h, k], "ms": ms, "device_ms": dev_ms,
+                     "launches_per_call": per_call, "plain_ms": pms, "bound_ms": bound,
+                     "max_abs_err": err})
+        print(f"kernel {hull.H1:24s} {label:18s} H={h} K={k} max_chain={int(counts.max())} "
+              f"ms={ms:.4f} device_ms={dev_ms} records/call={per_call} plain_ms={pms:.3f} "
+              f"bound_ms={bound:.5f}", flush=True)
+        if label in pages:
+            corners, over = sweep_chains(*got)
+            cpu, cpu_over = sweep_chains(*(t.cpu() for t in got))
+            diff = float((corners.cpu() - cpu).abs().max())
+            if diff > SWEEP_MAX_DIFF or not torch.equal(over.cpu(), cpu_over):
+                fail(f"edge sweep on {label}: the card's corners differ from the CPU's by "
+                     f"{diff} (another edge won)")
+            s_ms = cuda_ms(lambda: sweep_chains(*got), 10)
+            events = traced_kernels(lambda: [sweep_chains(*got) for _ in range(5)],
+                                    os.path.join(ROOT, "build", "sweep_trace.json"), False,
+                                    cats=("kernel", "gpu_memset", "gpu_memcpy"))
+            s_dev = sum(e["dur"] for e in events) / 1e3 / 5
+            sweep.append((s_ms, s_dev))
+            print(f"edge sweep {label:18s} K={k} ms={s_ms:.4f} device_ms={s_dev:.4f} "
+                  f"records/call={len(events) / 5} card==cpu bit for bit: "
+                  f"{torch.equal(corners.cpu(), cpu)} (max diff {diff})", flush=True)
+    main = [r for r in rows if r["input"] in pages]
+
+    def mean(key):
+        return mean_of([r[key] for r in main])
+
+    n_pages = len(pages)
+    per_page = launches.get(hull.H1, 0) / n_pages
+    traced = [r["launches_per_call"] for r in rows if r["launches_per_call"] is not None]
+    sweep_ms = mean_of([a for a, _ in sweep])
+    sweep_dev = mean_of([b for _, b in sweep])
+    print(f"edge sweep: mean over the pages ms/page={sweep_ms} device_ms/page={sweep_dev}",
+          flush=True)
+    return {
+        "name": hull.H1, "route": "cuda", "source": "tuatara_tpu_torch/csrc/hull.cu",
+        "replaces": "tuatara_tpu/ops/minarearect.py:117 (_lower_chains, outside Pallas: "
+                    "no TPU kernel)",
+        "launches": launches.get(hull.H1, 0), "launches_per_page": per_page,
+        "equal": True, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": mean("ms"), "device_ms": mean("device_ms"),
+        "device_ms_per_page": (mean("device_ms") * per_page
+                               if mean("device_ms") is not None else None),
+        "launches_per_call": max(traced) if traced else None,
+        "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"), "bound_by": "bytes",
+        "library_ms": None, "timed_on": "mean over the rotated exact path's pages",
+        "edge_sweep_ms_per_page": sweep_ms, "edge_sweep_device_ms_per_page": sweep_dev,
+        "other_inputs": {r["input"]: {"ms": r["ms"], "device_ms": r["device_ms"]}
+                         for r in rows if r["input"] not in pages},
+    }
+
+
+def large_page():
+    """Four funsd_0001129658 pages tiled 2 x 2 into one 2000 x 1508 RGB page."""
+    import numpy as np
+
+    from tuatara_tpu_torch.utils.image import load_image
+
+    img = load_image(os.path.join(ROOT, "images", f"{K8_BATCH_PAGE}.png"))
+    return np.concatenate([np.concatenate([img, img], 1)] * 2, 0)
 
 
 def main() -> int:
@@ -1688,9 +2068,20 @@ def main() -> int:
         print(f"path A {name}: {len(words)} boxes (default path {len(results[name])}): "
               + " ".join(w["text"] for w in words[:10]), flush=True)
 
+    # 3f. rotated boxes (H1) and tiled detection
+    geo_pages = {**pages, "rotated_text": load_image(os.path.join(ROOT, "images",
+                                                                  "rotated_text.png"))}
+    geo_launches, geo_engines = check_geometry({"default": engine, "latency": lat}, geo_pages,
+                                               post)
+
     # 4. kernels vs their plain versions (4, 4c, 4b; 4d after 6b, which
     # gives K8's launches on its path)
-    kernels = check_kernels(engine, pages, launches, low_launches)
+    tiled512, tiled1024 = geo_engines["tiled512"], geo_engines["tiled"]
+    stitched = ([(f"tiled512/{n}", tiled512, img) for n, img in pages.items()]
+                + [("tiled1024/table_english", tiled1024, pages["table_english"]),
+                   ("tiled1024/funsd2x2", tiled1024, large_page())])
+    kernels = check_kernels(engine, pages, launches, low_launches, stitched)
+    kernels.append(check_hull(geo_engines["rotated_exact"], geo_pages, geo_launches["exact"]))
     kernels += check_recognizer_kernels(lat, engine, pages, lat_launches)
     int8_summary = check_int8_conv(prod, pages)
     int8_summary["launches"] = prod_launches.get("int8_conv", 0)

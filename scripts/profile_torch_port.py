@@ -7,7 +7,11 @@ Runs `OcrEngine.run` (what `image_to_data` calls) at the default
 `OcrConfig.production()` (int8 CRAFT in front of K6, K7; `--calibrate`
 first freezes static activation scales from the first two pages), or with
 `--config lowthresh` at
-`OcrConfig(text_threshold=0.3)` (detection kernels K4, K5), and with
+`OcrConfig(text_threshold=0.3)` (detection kernels K4, K5), with
+`--config rotated` / `rotated_pca` at `OcrConfig(box_mode="rotated")`
+(exact fit with the hull kernel H1, or the PCA fit), with `--config
+tiled` / `tiled512` at `OcrConfig(tiled_detection=True)` at canvas 1024
+(only table_english tiles) or 512 (all four pages tile), and with
 `--fused-stage1` with CRAFT's stage 1 through K8; on
 `evals/production_weights` and the four main-path pages, it warms up, then
 traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
@@ -29,7 +33,8 @@ traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
 
 Writes the chrome trace to build/profile_torch_port_<config>.json.
 Usage: python3 scripts/profile_torch_port.py [--reps N]
-       [--config default|latency|production|lowthresh] [--calibrate] [--fused-stage1]
+       [--config default|latency|production|lowthresh|rotated|rotated_pca|tiled|tiled512]
+       [--calibrate] [--fused-stage1]
 """
 
 import argparse
@@ -78,7 +83,8 @@ def range_kernels(events, name):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--config", choices=("default", "latency", "production", "lowthresh"),
+    ap.add_argument("--config", choices=("default", "latency", "production", "lowthresh",
+                                         "rotated", "rotated_pca", "tiled", "tiled512"),
                     default="default")
     ap.add_argument("--calibrate", action="store_true")
     ap.add_argument("--fused-stage1", action="store_true")
@@ -102,10 +108,15 @@ def main() -> int:
     if args.fused_stage1:
         craft.FUSED_STAGE1 = "on"
     pages = [load_image(os.path.join(ROOT, "images", f"{n}.png")) for n in PAGES]
-    config = {"default": tuatara_tpu_torch.OcrConfig,
-              "latency": tuatara_tpu_torch.OcrConfig.latency,
-              "production": tuatara_tpu_torch.OcrConfig.production,
-              "lowthresh": lambda: tuatara_tpu_torch.OcrConfig(text_threshold=0.3)}[args.config]()
+    cfg = tuatara_tpu_torch.OcrConfig
+    config = {"default": cfg,
+              "latency": cfg.latency,
+              "production": cfg.production,
+              "lowthresh": lambda: cfg(text_threshold=0.3),
+              "rotated": lambda: cfg(box_mode="rotated"),
+              "rotated_pca": lambda: cfg(box_mode="rotated", rotated_fit="pca"),
+              "tiled": lambda: cfg(tiled_detection=True),
+              "tiled512": lambda: cfg(tiled_detection=True, canvas_size=512)}[args.config]()
     engine = tuatara_tpu_torch.OcrEngine(config, weights_dir=WEIGHTS)
     if args.calibrate:
         engine.calibrate([img[None] for img in pages[:2]])
@@ -165,7 +176,8 @@ def main() -> int:
     ours = {n: v for n, v in by_name.items()
             if any(f"(anonymous namespace)::{k}" in n
                    for k in ("cc_", "area_", "component_stats", "gemm_kernel",
-                             "attention", "decode_kernel", "fused_conv_pool"))}
+                             "attention", "decode_kernel", "fused_conv_pool",
+                             "lower_chains"))}
     print("port kernels: " + json.dumps(
         {n: {"ms_per_page": v[0] / n_pages, "launches_per_page": v[1] / n_pages}
          for n, v in ours.items()}))

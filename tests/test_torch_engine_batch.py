@@ -89,8 +89,9 @@ def test_construction_checks():
     with pytest.raises(ValueError, match="tokenizer/recognizer mismatch"):
         tuatara_tpu_torch.OcrEngine(OcrConfig(max_label_length=7, charset="abc"),
                                     weights_dir=GOLDEN, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tuatara_tpu_torch.OcrEngine(OcrConfig(box_mode="rotated"), device="cpu")
+    for mode in ("beam", "nar"):  # rotated boxes and tiling are served
+        with pytest.raises(NotImplementedError):
+            tuatara_tpu_torch.OcrEngine(OcrConfig(decode_mode=mode), device="cpu")
     with pytest.raises(ValueError, match="weights_dir is required"):
         tuatara_tpu_torch.OcrEngine(OcrConfig(), device="cpu")
     with pytest.raises(TypeError, match="uint8"):

@@ -39,7 +39,8 @@ def test_port_has_modules():
                  "tuatara_tpu_torch/kernels/vit.py", "tuatara_tpu_torch/kernels/decode.py",
                  "tuatara_tpu_torch/kernels/stage1.py", "tuatara_tpu_torch/kernels/int8.py",
                  "tuatara_tpu_torch/models/craft.py",
-                 "tuatara_tpu_torch/utils/metrics.py"):
+                 "tuatara_tpu_torch/utils/metrics.py", "tuatara_tpu_torch/kernels/hull.py",
+                 "tuatara_tpu_torch/ops/minarearect.py", "tuatara_tpu_torch/ops/tiling.py"):
         assert want in names
 
 

@@ -307,8 +307,9 @@ def test_calibration_files_refuse_and_skip(folded, tmp_path):
 
 def test_production_preset_and_refusals(folded):
     """production() has JAX's fields with the Pallas lowerings; the int8
-    encoder (quantized_serving without encoder_impl='pallas') and tiled
-    detection are refused, not served in bf16."""
+    encoder (quantized_serving without encoder_impl='pallas') and the beam
+    and NAR decodes are refused, not served otherwise; tiled detection and
+    rotated boxes are taken as overrides."""
     got = dataclasses.asdict(OcrConfig.production())
     want = dataclasses.asdict(JaxOcrConfig.production(encoder_impl="pallas",
                                                       decode_impl="pallas"))
@@ -316,6 +317,11 @@ def test_production_preset_and_refusals(folded):
     assert OcrConfig.production(rec_width=64).rec_width == 64
     for cfg in (OcrConfig(quantized_serving=True, max_label_length=7),
                 OcrConfig.production(encoder_impl="xla", max_label_length=7),
-                OcrConfig.production(tiled_detection=True, max_label_length=7)):
+                OcrConfig.production(decode_mode="beam", max_label_length=7),
+                OcrConfig.production(decode_mode="nar", max_label_length=7)):
         with pytest.raises(NotImplementedError):
             tuatara_tpu_torch.OcrEngine(cfg, weights_dir=folded[0], device="cpu")
+    for over in ({"tiled_detection": True}, {"box_mode": "rotated", "rotated_fit": "pca"}):
+        engine = tuatara_tpu_torch.OcrEngine(OcrConfig.production(max_label_length=7, **over),
+                                             weights_dir=folded[0], device="cpu")
+        assert engine.craft.quantized

@@ -639,7 +639,7 @@ def test_build_names_sources_without_compiling(tmp_path, monkeypatch):
     import."""
     from tuatara_tpu_torch.kernels import _build
 
-    assert set(_build.SOURCES) == {"cc", "stats", "vit", "decode", "stage1"}
+    assert set(_build.SOURCES) == {"cc", "stats", "vit", "decode", "stage1", "hull"}
     for name in _build.SOURCES:
         target = _build._target(name)
         assert target.startswith(_build.BUILD_DIR) and target.endswith(".so")

@@ -1,21 +1,27 @@
 """Engine + public API: image in -> word boxes + transcripts out.
 
-Port of `tuatara_tpu/api.py` on the default path and the `latency()`
-preset: `image_to_data(image)` -> `OcrEngine.run_pages`, axis-aligned
-boxes, greedy AR decode with one cloze refinement. A batch of same-sized
-pages goes through
+Port of `tuatara_tpu/api.py` with greedy AR decode and one cloze
+refinement: `image_to_data(image)` -> `OcrEngine.run_pages`. A batch of
+same-sized pages goes through
 
 1. canvas prep and the CRAFT forward (conv1_2 + ReLU + pool1 as the CUDA
    kernel K8 where `models.craft.FUSED_STAGE1` lets it), batched under
    int8 and a page at a time in float, so that no page's result depends
-   on the pages beside it;
+   on the pages beside it. With `tiled_detection`, a page whose magnified
+   long side exceeds the canvas is not downscaled: its overlapping
+   canvas-sized tiles go through CRAFT as one batch (that page's alone)
+   and their heatmaps are max-blended back (`ops/tiling.py`);
 2. per page: `extract_boxes` (the CUDA kernels K1-K3 on the card, or K4,
-   K2 and K5 when text_threshold < low_text), scaling
-   to image coordinates, crop windows, and compaction of the valid boxes to
-   the front (stable, so component raster order is kept);
+   K2 and K5 when text_threshold < low_text; with `box_mode="rotated"`
+   also a rotated rectangle per box, with the hull kernel H1), scaling
+   to image coordinates, crop windows (or the rotated corners), and
+   compaction of the valid boxes to the front (stable, so component
+   raster order is kept). A tiled page takes axis boxes in either mode,
+   as in JAX;
 3. one recognition slab over all pages' live boxes, padded to the
    `rec_buckets` ladder, its rows ordered by box aspect ratio (a pure
-   permutation, undone before decoding);
+   permutation, undone before decoding); rotated boxes are cropped by a
+   perspective warp of their corners;
 4. PARSEQ, the sequence confidence (product of per-step max probability up
    to and including the first EOS), and the tokenizer on the host. With
    `encoder_impl` / `decode_impl` "pallas" at bf16 (the `latency()` preset)
@@ -63,8 +69,11 @@ from tuatara_tpu_torch.models.craft import Craft
 from tuatara_tpu_torch.models.layers import set_compute_dtype
 from tuatara_tpu_torch.models.parseq import Parseq, confidence
 from tuatara_tpu_torch.ops.boxes import extract_boxes, scale_boxes, tesseract_bbox
-from tuatara_tpu_torch.ops.resize import canvas_prep, canvas_shape
-from tuatara_tpu_torch.ops.warp import crop_rects, extract_crops_batched
+from tuatara_tpu_torch.ops.minarearect import fma
+from tuatara_tpu_torch.ops.resize import canvas_prep, canvas_shape, pad32, resample
+from tuatara_tpu_torch.ops.tiling import extract_tiles, stitch_heatmaps
+from tuatara_tpu_torch.ops.warp import (crop_rects, extract_crops_batched,
+                                        extract_crops_perspective_batched)
 from tuatara_tpu_torch.tokenizer import Tokenizer
 from tuatara_tpu_torch.utils import weights as W
 from tuatara_tpu_torch.weights import craft_state_dict, parseq_state_dict
@@ -102,13 +111,12 @@ class OcrEngine:
                  weights_dir: Optional[str] = None, device: Optional[str] = None):
         self.device = resolve_device(device)
         self.config = config
-        for field, ported in (("decode_mode", "greedy"), ("box_mode", "axis")):
-            if getattr(config, field) != ported:
-                raise NotImplementedError(
-                    f"OcrConfig.{field}={getattr(config, field)!r} is not ported "
-                    f"yet (only {ported!r}; see ROADMAP.md)")
-        if config.tiled_detection:
-            raise NotImplementedError("tiled detection is not ported yet (see ROADMAP.md)")
+        if config.decode_mode != "greedy":
+            raise NotImplementedError(
+                f"OcrConfig.decode_mode={config.decode_mode!r} is not ported yet "
+                f"(only 'greedy'; see ROADMAP.md)")
+        # Tiled pages take axis boxes whatever box_mode says (JAX's _crop_fn).
+        self._axis_config = dataclasses.replace(config, box_mode="axis")
         for field in ("encoder_impl", "decode_impl"):
             if getattr(config, field) not in (None, "xla", "pallas"):
                 raise NotImplementedError(
@@ -269,6 +277,15 @@ class OcrEngine:
                 "OcrEngine is closed (close() was called or the engine was evicted "
                 "from the get_engine cache); construct a new one")
 
+    def _tiled(self, h: int, w: int) -> bool:
+        """Whether a page of this size takes tiled detection."""
+        cfg = self.config
+        return cfg.tiled_detection and cfg.mag_ratio * max(h, w) > cfg.canvas_size
+
+    def _rotated(self, h: int, w: int) -> bool:
+        """Whether a page of this size gets rotated boxes ([K, 4, 2] rects)."""
+        return self.config.box_mode == "rotated" and not self._tiled(h, w)
+
     def _bucket(self, count: int) -> int:
         for b in self.config.rec_buckets:
             if count <= b and b <= self.config.max_boxes:
@@ -278,11 +295,15 @@ class OcrEngine:
     @torch.inference_mode()
     def detect(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Device pages [B, H, W, C] uint8 -> per-slot bbox [B, K, 4], crop
-        rects [B, K, 4], valid [B, K] (valid first, raster order kept),
-        count [B], and the heatmaps [B, h, w, 2]."""
+        rects [B, K, 4] (rotated corners [B, K, 4, 2] where `_rotated`),
+        valid [B, K] (valid first, raster order kept), count [B], and the
+        heatmaps [B, h, w, 2]."""
         self._check_open()
         cfg = self.config
         b, h, w, c = images.shape
+        if self._tiled(h, w):
+            return self._detect_tiled(images)
+        rotated = self._rotated(h, w)
         ratio = canvas_shape(h, w, cfg)[4]
         canvases = torch.stack([canvas_prep(images[i], cfg) for i in range(b)])
         if self.craft.quantized:
@@ -298,14 +319,72 @@ class OcrEngine:
         out = collections.defaultdict(list)
         for i in range(b):
             det = extract_boxes(scores[i, :, :, 0], scores[i, :, :, 1], content, cfg)
-            scaled = scale_boxes(det["boxes"], ratio, cfg)
-            order = torch.argsort((~det["valid"]).to(torch.int8), stable=True)
-            out["bbox"].append(tesseract_bbox(scaled)[order])
-            out["rects"].append(crop_rects(scaled, h, w)[order])
-            out["valid"].append(det["valid"][order])
-            out["count"].append(det["count"])
+            if rotated:
+                # bbox: the AABB of the rotated corners (tuatara.cpp:256-274);
+                # the corners themselves go to the perspective crop.
+                corners = scale_boxes(det["corners"], ratio, cfg)
+                bbox = tesseract_bbox(torch.cat([corners.amin(1), corners.amax(1)], -1))
+                self._add_page(out, det, bbox, corners)
+            else:
+                scaled = scale_boxes(det["boxes"], ratio, cfg)
+                self._add_page(out, det, tesseract_bbox(scaled), crop_rects(scaled, h, w))
         res = {k: torch.stack(v) for k, v in out.items()}
         res["scores"] = scores
+        return res
+
+    @staticmethod
+    def _add_page(out, det, bbox, rects) -> None:
+        """Append one page's slots to `out`, valid slots first (stable)."""
+        order = torch.argsort((~det["valid"]).to(torch.int8), stable=True)
+        out["bbox"].append(bbox[order])
+        out["rects"].append(rects[order])
+        out["valid"].append(det["valid"][order])
+        out["count"].append(det["count"])
+
+    def _tiled_geometry(self, h: int, w: int, device) -> Tuple[int, int, int, int,
+                                                               torch.Tensor]:
+        """A tiled page's (th, tw) at magnification, its size padded to /32
+        and to at least a tile (ph, pw), and the content mask of its
+        stitched heatmap [ph / r, pw / r] (JAX `_build_tiled_detect`)."""
+        cfg = self.config
+        r, tile = cfg.ratio_net, cfg.canvas_size
+        th, tw = int(h * cfg.mag_ratio), int(w * cfg.mag_ratio)
+        ch, cw = pad32(th, cfg.size_multiple), pad32(tw, cfg.size_multiple)
+        ph, pw = max(ch, tile), max(cw, tile)
+        content = ((torch.arange(ph // r, device=device) < ch // r)[:, None]
+                   & (torch.arange(pw // r, device=device) < cw // r)[None, :])
+        return th, tw, ph, pw, content
+
+    def _detect_tiled(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """`detect` for a page larger than the canvas (JAX
+        `_build_tiled_detect`): the page at magnification, not shrunk to
+        the canvas, cut into canvas-sized tiles with `tile_overlap`, one CRAFT
+        batch per page (int8's dynamic scales then span that page's tiles,
+        as under JAX's per-page vmap, and no page depends on another), the
+        heatmaps max-blended, axis boxes at ratio = mag_ratio."""
+        cfg = self.config
+        b, h, w, c = images.shape
+        r, tile = cfg.ratio_net, cfg.canvas_size
+        th, tw, ph, pw, content = self._tiled_geometry(h, w, images.device)
+        out = collections.defaultdict(list)
+        stitched = []
+        for i in range(b):
+            x = resample(images[i], th, tw)
+            x = torch.nn.functional.pad(x, (0, 0, 0, pw - tw, 0, ph - th))  # input dtype
+            x = x.float() / 255.0
+            if c == 1:  # gray: to three channels after the pad, no flip
+                x = x.expand(ph, pw, 3)
+            elif cfg.channel_mode == "python":
+                x = x.flip(-1)
+            tiles, coords = extract_tiles(x, tile, cfg.tile_overlap, r)
+            scores, _ = self.craft(tiles.contiguous())
+            heat = stitch_heatmaps(scores, coords, ph // r, pw // r, r)
+            det = extract_boxes(heat[:, :, 0], heat[:, :, 1], content, self._axis_config)
+            scaled = scale_boxes(det["boxes"], cfg.mag_ratio, cfg)
+            self._add_page(out, det, tesseract_bbox(scaled), crop_rects(scaled, h, w))
+            stitched.append(heat)
+        res = {k: torch.stack(v) for k, v in out.items()}
+        res["scores"] = torch.stack(stitched)
         return res
 
     @torch.inference_mode()
@@ -320,9 +399,19 @@ class OcrEngine:
         b, k = valid.shape
         flat_valid = valid.reshape(-1)
         raster = torch.argsort((~flat_valid).to(torch.int8), stable=True)[:bucket]
+        rotated = rects.dim() == 4
         if cfg.rec_sort_by_width:
-            r = rects.reshape(b * k, 4)
-            aspect = (r[:, 2] - r[:, 0]) / torch.clamp(r[:, 3] - r[:, 1], min=1.0)
+            if rotated:
+                # Long side over short side. XLA's CPU backend sums the
+                # squares as fma(dy, dy, dx * dx): the sort sees its keys.
+                q = rects.reshape(b * k, 4, 2)
+                d1, d2 = q[:, 1] - q[:, 0], q[:, 2] - q[:, 1]
+                e1 = fma(d1[:, 1], d1[:, 1], d1[:, 0] * d1[:, 0])
+                e2 = fma(d2[:, 1], d2[:, 1], d2[:, 0] * d2[:, 0])
+                aspect = torch.maximum(e1, e2) / torch.clamp(torch.minimum(e1, e2), min=1.0)
+            else:
+                r = rects.reshape(b * k, 4)
+                aspect = (r[:, 2] - r[:, 0]) / torch.clamp(r[:, 3] - r[:, 1], min=1.0)
             key = torch.where(flat_valid, aspect, torch.full_like(aspect, float("inf")))
             order = torch.argsort(key, stable=True)[:bucket]
             rank = torch.zeros(b * k, dtype=torch.long, device=valid.device)
@@ -331,8 +420,13 @@ class OcrEngine:
         else:
             order = raster
             inv = None
-        rc = rects.reshape(b * k, 4)[order]
-        crops = extract_crops_batched(images, order // k, rc, cfg.rec_height, cfg.rec_width)
+        if rotated:
+            crops = extract_crops_perspective_batched(
+                images, order // k, rects.reshape(b * k, 4, 2)[order], cfg.rec_height,
+                cfg.rec_width)
+        else:
+            crops = extract_crops_batched(images, order // k, rects.reshape(b * k, 4)[order],
+                                          cfg.rec_height, cfg.rec_width)
         if crops.shape[-1] == 1:
             crops = crops.expand(-1, -1, -1, 3)
         if cfg.channel_mode == "cpp":
@@ -597,7 +691,9 @@ class OcrEngine:
         blank = np.zeros((batch, h, w, channels), np.uint8)
         self.run_pages(blank)
         K = self.config.max_boxes
-        rects = torch.zeros(batch, K, 4, device=self.device)
+        # Rotated corners or axis windows, as this page size gets them.
+        shape = (batch, K, 4, 2) if self._rotated(h, w) else (batch, K, 4)
+        rects = torch.zeros(shape, device=self.device)
         valid = torch.zeros(batch, K, dtype=torch.bool, device=self.device)
         self._fetch(list(self.recognize_slab(self._to_device(blank), rects, valid,
                                              self._bucket(1))))

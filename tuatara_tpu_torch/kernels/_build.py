@@ -28,7 +28,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("cc", "stats", "vit", "decode", "stage1")
+SOURCES = ("cc", "stats", "vit", "decode", "stage1", "hull")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, object] = {}

@@ -1,4 +1,4 @@
-"""CRAFT heatmaps -> text boxes (axis-aligned mode).
+"""CRAFT heatmaps -> text boxes, axis-aligned or rotated.
 
 Port of `tuatara_tpu/ops/boxes.py extract_boxes`, itself a rebuild of the
 reference's `get_detected_boxes` (tuatara.cpp:119-204):
@@ -18,10 +18,17 @@ reference's `get_detected_boxes` (tuatara.cpp:119-204):
    component's peak tn — kernel K5 — and components whose peak is below
    `text_threshold` are dropped;
 5. extents of the reduced set grown by the reference's dilation radius,
-   clamped to the content — the square dilation applied in box space.
+   clamped to the content — the square dilation applied in box space;
+6. with `box_mode="rotated"`, a rotated rectangle per component: by default
+   the exact minimum-area rectangle of the dilated, clipped reduced set
+   (`ops/minarearect.py`, with the hull kernel H1), falling back per
+   component to the PCA fit, or the PCA fit alone (`rotated_fit="pca"`).
+   Membership is each pixel's slot among the selected roots, from the same
+   labels and roots that feed K3/K5.
 
-On CUDA tensors steps 2-4 run the CUDA kernels, on CPU tensors their plain
-versions; everything else is the same PyTorch code on both.
+On CUDA tensors steps 2-4 and the hull run the CUDA kernels, on CPU
+tensors their plain versions; everything else is the same PyTorch code on
+both.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ from tuatara_tpu_torch.kernels.cc import (MIN_AREA_RANGE, area_ok, label_compone
 from tuatara_tpu_torch.kernels.stats import component_stats, component_stats_nopeak
 from tuatara_tpu_torch.ops import connected_components as plain
 from tuatara_tpu_torch.ops.connected_components import BIG, component_roots_filtered
+from tuatara_tpu_torch.ops.minarearect import (component_slots, fma,
+                                               min_area_rect_from_profiles, row_profiles,
+                                               SPARE_CELLS, spare_cells)
 
 _INF = 1e30
 
@@ -96,10 +106,9 @@ def extract_boxes(textmap: torch.Tensor, linkmap: torch.Tensor,
                   content_mask: torch.Tensor, cfg: OcrConfig) -> Dict[str, torch.Tensor]:
     """Heatmaps [H, W] fp32 + content mask [H, W] bool -> K = max_boxes
     slots: boxes [K, 4] fp32 (x0, y0, x1, y1 inclusive heatmap pixels,
-    dilated), valid [K] bool, count (scalar), num_components (scalar).
-    Invalid slots hold zero boxes."""
-    if cfg.box_mode != "axis":
-        raise NotImplementedError("box_mode='rotated' is not ported yet")
+    dilated), corners [K, 4, 2] fp32 (the rotated rectangle in "rotated"
+    mode, the box's corners in "axis" mode), valid [K] bool, count
+    (scalar), num_components (scalar). Invalid slots hold zeros."""
     H, W = textmap.shape
     K = cfg.max_boxes
     comb, keep, hot, tn = (m.contiguous() for m in binarize(textmap, linkmap, content_mask, cfg))
@@ -147,13 +156,88 @@ def extract_boxes(textmap: torch.Tensor, linkmap: torch.Tensor,
     if peak is not None:
         valid &= peak >= cfg.text_threshold
     boxes = torch.stack([x0, y0, x1, y1], dim=-1).float()
+    if cfg.box_mode == "rotated":
+        slots = component_slots(labels, roots)
+        slots = torch.where(keep, slots, torch.full_like(slots, K))  # the reduced set
+        corners = _pca_corners(slots, K, grow_lt, grow_rb, boxes)
+        if cfg.rotated_fit == "exact":
+            exact, exact_ok = min_area_rect_from_profiles(
+                *row_profiles(slots, K), grow_lt, grow_rb, cw, ch)
+            corners = torch.where(exact_ok[:, None, None], exact, corners)
+        corners = torch.where(valid[:, None, None], corners, torch.zeros_like(corners))
     boxes = torch.where(valid[:, None], boxes, torch.zeros_like(boxes))
+    if cfg.box_mode != "rotated":
+        corners = _aabb_corners(boxes)
     return {
         "boxes": boxes,
+        "corners": corners,
         "valid": valid,
         "count": valid.sum(),
         "num_components": ncomp,
     }
+
+
+def _aabb_corners(boxes: torch.Tensor) -> torch.Tensor:
+    """[K, 4] (x0, y0, x1, y1) -> [K, 4, 2]: tl, tr, br, bl."""
+    x0, y0, x1, y1 = boxes.unbind(1)
+    return torch.stack([x0, y0, x1, y0, x1, y1, x0, y1], dim=1).view(-1, 4, 2)
+
+
+def _pca_corners(slots: torch.Tensor, K: int, grow_lt: torch.Tensor, grow_rb: torch.Tensor,
+                 aabb: torch.Tensor) -> torch.Tensor:
+    """PCA-oriented rectangle per slot (JAX `ops/boxes._pca_corners`, an
+    approximate minAreaRect): the principal axis of the reduced pixels'
+    second moments, their projection extents on it, inflated by the
+    dilation radius; the AABB where a corner is not finite.
+
+    slots [H, W] int64 (K = no slot). JAX sums the moments in fp32 over an
+    [H, W, K] one-hot; here the integer moments are summed exactly in
+    int64 by slot (run to run the same on the card, unlike float atomics)
+    and then divided in fp32 as JAX does, so a corner differs from JAX's
+    only by the rounding of JAX's own sums. Products fused into sums take
+    `fma`, as XLA's CPU backend computes them."""
+    H, W = slots.shape
+    dev = slots.device
+    cell = spare_cells(slots, slots < K, K).reshape(-1)
+    ys = torch.arange(H, device=dev).repeat_interleave(W)
+    xs = torch.arange(W, device=dev).repeat(H)
+    mom = torch.stack([torch.ones_like(xs), xs, ys, xs * xs, ys * ys, xs * ys], dim=1)
+    sums = torch.zeros((K + SPARE_CELLS, 6), dtype=torch.int64, device=dev).index_add_(
+        0, cell, mom)
+    sums = sums[:K].float()
+    n = torch.clamp(sums[:, 0], min=1.0)
+    sx = sums[:, 1] / n
+    sy = sums[:, 2] / n
+    sxx = fma(-sx, sx, sums[:, 3] / n)
+    syy = fma(-sy, sy, sums[:, 4] / n)
+    sxy = fma(-sx, sy, sums[:, 5] / n)
+    theta = 0.5 * torch.atan2(2 * sxy, sxx - syy)
+    c, s = torch.cos(theta), torch.sin(theta)
+
+    # Every pixel projects on its slot's axes (a spare cell's on slot 0's).
+    at = torch.where(cell < K, cell, torch.zeros_like(cell))
+    fx, fy = xs.float(), ys.float()
+    pc, ps = c[at], s[at]
+    u = fma(fx, pc, fy * ps)
+    v = fma(fy, pc, -(fx * ps))
+    full = torch.full((K + SPARE_CELLS,), 1e30, device=dev)
+    umin = full.clone().scatter_reduce_(0, cell, u, "amin")[:K]
+    umax = (-full).scatter_reduce_(0, cell, u, "amax")[:K]
+    vmin = full.clone().scatter_reduce_(0, cell, v, "amin")[:K]
+    vmax = (-full).scatter_reduce_(0, cell, v, "amax")[:K]
+    # Square dilation inflates projections by at most r * (|c| + |s|).
+    spread = torch.abs(c) + torch.abs(s)
+    lo, hi = grow_lt.float(), grow_rb.float()
+    umin, umax = fma(-lo, spread, umin), fma(hi, spread, umax)
+    vmin, vmax = fma(-lo, spread, vmin), fma(hi, spread, vmax)
+
+    def corner(uu, vv):
+        return torch.stack([fma(uu, c, -(vv * s)), fma(uu, s, vv * c)], dim=-1)
+
+    corners = torch.stack([corner(umin, vmin), corner(umax, vmin), corner(umax, vmax),
+                           corner(umin, vmax)], dim=1)
+    bad = ~torch.isfinite(corners).all(2).all(1)
+    return torch.where(bad[:, None, None], _aabb_corners(aabb), corners)
 
 
 def scale_boxes(boxes: torch.Tensor, ratio: float, cfg: OcrConfig) -> torch.Tensor:

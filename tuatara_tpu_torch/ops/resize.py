@@ -48,6 +48,17 @@ def canvas_shape(h: int, w: int, cfg: OcrConfig) -> Tuple[int, int, int, int, fl
     return canvas_h, canvas_w, ch, cw, ratio
 
 
+def resample(image: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """[H, W, C] -> fp32 [th, tw, C], or the page itself when the size
+    does not change (as JAX skips the identity resize)."""
+    h, w = image.shape[:2]
+    if (th, tw) == (h, w):
+        return image
+    x = F.interpolate(image.float().permute(2, 0, 1)[None], size=(th, tw),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return x[0].permute(1, 2, 0)
+
+
 def detect_canvas(image: torch.Tensor, cfg: OcrConfig
                   ) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
     """uint8/float [H, W, C] -> (fp32 canvas [1, CH, CW, C] in [0, 1], ratio,
@@ -55,11 +66,7 @@ def detect_canvas(image: torch.Tensor, cfg: OcrConfig
     h, w, c = image.shape
     canvas_h, canvas_w, ch, cw, ratio = canvas_shape(h, w, cfg)
     th, tw, _ = resize_geometry(h, w, cfg)
-    x = image
-    if (th, tw) != (h, w):
-        x = F.interpolate(x.float().permute(2, 0, 1)[None], size=(th, tw),
-                          mode="bilinear", align_corners=False, antialias=True)
-        x = x[0].permute(1, 2, 0)
+    x = resample(image, th, tw)
     x = F.pad(x.float(), (0, 0, 0, canvas_w - tw, 0, canvas_h - th))
     return (x / 255.0)[None], ratio, (ch, cw)
 

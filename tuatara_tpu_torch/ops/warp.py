@@ -1,7 +1,8 @@
 """Recognition crops: crop + resize as one bilinear sample.
 
 Port of `tuatara_tpu/ops/warp.py` (`crop_rects`, `_sample_coords`,
-`extract_crops_batched`). The reference crops each box's bounding rect
+`extract_crops_batched`, and for rotated boxes `_quad_sample_points` and
+`extract_crops_perspective_batched`). The reference crops each box's bounding rect
 (tuatara.cpp:409-418) and resizes it to 128x32 (tuatara.cpp:438-448); here
 both are one sample per output pixel, cv::resize INTER_LINEAR's half-pixel
 convention, src = x0 + (j + 0.5) * w_box / out_w - 0.5, clamped to the crop
@@ -14,6 +15,8 @@ the form the JAX package's column product uses.
 from __future__ import annotations
 
 import torch
+
+from tuatara_tpu_torch.ops.minarearect import fma
 
 
 def crop_rects(scaled_boxes: torch.Tensor, img_h: int, img_w: int) -> torch.Tensor:
@@ -70,3 +73,57 @@ def extract_crops_batched(images: torch.Tensor, page: torch.Tensor, rects: torch
     gb = torch.gather(rows, 2, ib[:, None, :, None].expand(k, oh, out_w, C))
     out = ga * wa[:, None, :, None] + gb * wb[:, None, :, None]
     return out / 255.0
+
+
+def _lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """a * (1 - t) + b * t with the first product fused into the sum, as
+    XLA's CPU backend computes one lerp. In the nested lerps of a quad its
+    choice was not pinned down; this form keeps crops within ~1e-7 of
+    JAX's (rounding both products: ~1e-5)."""
+    return fma(a, 1 - t, b * t)
+
+
+def _quad_sample_points(corners: torch.Tensor, out_h: int, out_w: int):
+    """Source coordinates of every output pixel of a quad's crop: corners
+    [K, 4, 2] (tl, tr, br, bl) -> (sx, sy) [K, out_h, out_w]. Bilinear in
+    the quad's edges, which for a parallelogram (every rotated rectangle)
+    is the projective warp itself."""
+    dev = corners.device
+    u = ((torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) / out_w)[None, None, :,
+                                                                              None]
+    v = ((torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) / out_h)[None, :, None,
+                                                                              None]
+    tl, tr, br, bl = (corners[:, i][:, None, None, :] for i in range(4))
+    pts = _lerp(_lerp(tl, tr, u), _lerp(bl, br, u), v)          # [K, out_h, out_w, 2]
+    return pts[..., 0], pts[..., 1]
+
+
+def extract_crops_perspective_batched(images: torch.Tensor, page: torch.Tensor,
+                                      corners: torch.Tensor, out_h: int = 32,
+                                      out_w: int = 128) -> torch.Tensor:
+    """Rectified crops of rotated boxes, sampled straight from the page
+    batch: images [B, H, W, C] (uint8 or float, 0..255), source page per
+    crop [K], corners [K, 4, 2] -> crops [K, out_h, out_w, C] fp32 in
+    [0, 1]. Each output pixel gathers its four bilinear taps from the
+    flat batch at the crop's page offset, in the source dtype; no page is
+    copied per crop."""
+    B, H, W, C = images.shape
+    K = corners.shape[0]
+    sx, sy = _quad_sample_points(corners, out_h, out_w)
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    wx = (sx - x0)[..., None]
+    wy = (sy - y0)[..., None]
+    x0 = x0.long().clamp(0, W - 1)
+    y0 = y0.long().clamp(0, H - 1)
+    x1 = (x0 + 1).clamp(0, W - 1)
+    y1 = (y0 + 1).clamp(0, H - 1)
+    flat = images.reshape(B * H * W, C)
+    base = page.long()[:, None, None] * H
+
+    def at(yy, xx):
+        return flat[((base + yy) * W + xx).reshape(-1)].reshape(K, out_h, out_w, C).float()
+
+    top = _lerp(at(y0, x0), at(y0, x1), wx)
+    bot = _lerp(at(y1, x0), at(y1, x1), wx)
+    return _lerp(top, bot, wy) / 255.0
