@@ -73,6 +73,45 @@ line without a CUDA device or outside the repo.
              default does not.
              latency(box_mode="rotated") on the dense batch under phase
              3e's gates, H1 launched on every page.
+3g. modes:   beam and NAR decode and the int8 recognizer encoder. At
+             fp32, TF32 off: each variant of tests/fixtures/
+             torch_reference_modes.json (decode_mode "beam" and "nar";
+             quantized_serving=True with the int8 encoder, calibrated on
+             the record's two pages) on the four pages and rotated_text,
+             page by page: >= 95% of JAX's words with the same bbox and
+             text under beam and NAR, K1-K3 on every page, every int8 conv
+             and int8 linear layer on every page of the int8 engine,
+             K6/K7 on none. The int8 engine's shares on those pages are
+             printed, not gated (these weights read real pages as
+             near-ties, and int8 grows the float layers' ulps into whole
+             steps: ROADMAP Queue 3 item 14); its words are held on the 16
+             synthetic pages at fp32, dynamic and calibrated, against
+             tests/fixtures/torch_synthetic_quantized_fp32.json under
+             phase 6's gates.
+             latency(decode_mode="beam"), latency(decode_mode="nar") and
+             production(encoder_impl="xla") on the four pages, page by
+             page: K1-K3 everywhere, K6 under beam and NAR and K7 not, K7
+             and every int8 layer and no K6 under the int8 encoder. The 16
+             synthetic pages through the same three (the int8 one dynamic
+             and calibrated on two pages) against the JAX records
+             tests/fixtures/torch_synthetic_{latency_beam,latency_nar,
+             production_xla}.json under phase 6's gates (the dynamic int8
+             encoder at 97% of JAX's words: MIN_AGREEMENT_DYNAMIC_INT8).
+             `int8_linear` on
+             the encoder's real inputs (INT8_LINEARS): int32 sums equal to
+             a float64 product on the card and an int64 one on the host,
+             timed beside bf16 cuBLAS (one {"int8_linear": ...} line).
+             Beam's T steps under set_sync_debug_mode("error"), and the
+             `invariance:` probe of the beam decoder at 32-4096 rows
+             (fatal if a crop's ids or score change). Phase 3e's serving
+             gates on the dense batch for latency(decode_mode="beam") and
+             the int8 encoder calibrated on two pages. Warm pages/s in
+             turns (latency() greedy beside the new engines) at B = 1 on
+             the four pages and on the dense batch's run_pages loop, with
+             device busy and idle share. The command line once:
+             `python -m tuatara_tpu_torch images/resume_example.png
+             evals/production_weights --json-out ...`, exit 0 and >= 95%
+             of the in-process default engine's words.
 3c. path A:  the same pages at `OcrConfig(text_threshold=0.3)`, the
              detection branch text_threshold < low_text: counts zeroed just
              before and read just after, K4 (`label_components`), K2 and K5
@@ -219,11 +258,22 @@ K8_MAX_REL = 1e-3
 K8_BATCH, K8_BATCH_PAGE = 16, "funsd_0001129658"  # BASELINE.md config 1's dense batch
 DENSE_STREAM = 6  # batches of the dense batch in phase 3e's stream, as bench.py builds them
 MIN_AGREEMENT = 0.98
+# The bf16 int8 encoder with dynamic scales on the synthetic pages (3g): its
+# abs-max spans the slab, padding rows included, whose crops come from the
+# invalid slots of the card's bf16 detection; one near-tie character more
+# than the calibrated engine's 2 misses (PERF.md §6, PR 13).
+MIN_AGREEMENT_DYNAMIC_INT8 = 0.97
 SWEEP_MAX_DIFF = 1e-4  # the edge sweep's corners, card against CPU (another edge: >= 1 px)
 K2_MIN_AREAS = (1, 2, 10, 16)
 INT8_LAYERS = ("vgg/conv2_2/conv", "fc/fc6", "up/upconv2/conv1a", "up/upconv2/conv1b")
 INT8_PAGE = "funsd_0001129658"
 MAX_ACC_DROP = 0.02
+FIXTURE_MODES = os.path.join(ROOT, "tests", "fixtures", "torch_reference_modes.json")
+SYNTHETIC_MODES = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_{}.json")
+# Phase 3g's int8 encoder layers held exact (the patch embed: K = 96).
+INT8_LINEARS = ("patch_embed", "enc/0/attn/q", "enc/5/mlp/fc1", "enc/11/mlp/fc2")
+BEAM_ROWS = (32, 64, 256, 1024, 4096)  # beam decoder rows (crops x beams) in the probe
+INT8_OPS_PER_S = 1979e12  # int8 tensor-core peak, dense (NVIDIA data sheet, SXM, 700 W)
 # H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate, the vector
 # (non-tensor-core) rate used for the kernels' compares, adds and atomics,
 # and the bf16 tensor-core rate.
@@ -1307,34 +1357,48 @@ def check_recognizer_kernels(lat, default, pages, launches):
     return out
 
 
+def synthetic_pages():
+    """(the 16 synthetic pages uint8, their truths)."""
+    import numpy as np
+
+    with open(SYNTHETIC + ".json") as f:
+        truths = json.load(f)["truths"]
+    return np.load(SYNTHETIC + ".npz")["pages"], truths
+
+
+def synthetic_gate(label, got, ref, truths, min_agreement=MIN_AGREEMENT):
+    """Phase 6's gates: at least `min_agreement` of the JAX record's words
+    (`ref`: {"words", "word_acc"}) matched by a distinct word with the same
+    text and bbox IoU >= 0.5, and word accuracy at most MAX_ACC_DROP below
+    the record's."""
+    from tuatara_tpu_torch.utils.metrics import transcript_agreement, word_accuracy
+
+    hit = sum(transcript_agreement(r, g)[0] for r, g in zip(ref["words"], got))
+    total = sum(len(r) for r in ref["words"])
+    acc = word_accuracy(got, truths)
+    print(f"synthetic {label}: {hit}/{total} JAX words matched ({hit / total:.4f}); word "
+          f"accuracy {acc:.4f} (JAX record {ref['word_acc']:.4f})", flush=True)
+    if hit / total < min_agreement:
+        fail(f"synthetic pages ({label}): transcript agreement {hit / total:.4f} < "
+             f"{min_agreement}")
+    if acc < ref["word_acc"] - MAX_ACC_DROP:
+        fail(f"synthetic pages ({label}): word accuracy {acc:.4f} more than {MAX_ACC_DROP} "
+             f"below the JAX record's {ref['word_acc']:.4f}")
+
+
 def check_synthetic(weights, preset="latency", record=SYNTHETIC + ".json"):
     """Phase 6 (and 6c with preset "production"): the 16 synthetic pages
     through `OcrConfig.<preset>(canvas_size=256, max_boxes=32,
     rec_buckets=(32,))` against the JAX record."""
-    import numpy as np
-
     import tuatara_tpu_torch
-    from tuatara_tpu_torch.utils.metrics import transcript_agreement, word_accuracy
 
-    pages = np.load(SYNTHETIC + ".npz")["pages"]
-    with open(SYNTHETIC + ".json") as f:
-        truths = json.load(f)["truths"]
+    pages, truths = synthetic_pages()
     with open(record) as f:
         ref = json.load(f)
     cfg = getattr(tuatara_tpu_torch.OcrConfig, preset)(canvas_size=256, max_boxes=32,
                                                        rec_buckets=(32,))
     got = [tuatara_tpu_torch.image_to_data(p, weights, config=cfg) for p in pages]
-    hit = sum(transcript_agreement(r, g)[0] for r, g in zip(ref["words"], got))
-    total = sum(len(r) for r in ref["words"])
-    acc = word_accuracy(got, truths)
-    print(f"synthetic {preset}: {hit}/{total} JAX words matched ({hit / total:.4f}); word "
-          f"accuracy {acc:.4f} (JAX record {ref['word_acc']:.4f})", flush=True)
-    if hit / total < MIN_AGREEMENT:
-        fail(f"synthetic pages ({preset}): transcript agreement {hit / total:.4f} < "
-             f"{MIN_AGREEMENT}")
-    if acc < ref["word_acc"] - MAX_ACC_DROP:
-        fail(f"synthetic pages ({preset}): word accuracy {acc:.4f} more than {MAX_ACC_DROP} "
-             f"below the JAX record's {ref['word_acc']:.4f}")
+    synthetic_gate(preset, got, ref, truths)
 
 
 def check_fused_stage1(engine, pages, results):
@@ -1961,6 +2025,353 @@ def check_hull(engine, pages, launches):
     }
 
 
+def mode_engines():
+    """Phase 3g's bf16 engines: latency() under beam and NAR, and the int8
+    encoder (`production(encoder_impl="xla")`), dynamic and calibrated on
+    two pages of the dense batch's kind (the four pages' first two)."""
+    import tuatara_tpu_torch
+
+    cfg = tuatara_tpu_torch.OcrConfig
+    return {"latency_beam": cfg.latency(decode_mode="beam"),
+            "latency_nar": cfg.latency(decode_mode="nar"),
+            "production_xla": cfg.production(encoder_impl="xla")}
+
+
+def check_modes_parity(pages, post):
+    """Phase 3g, fp32 (TF32 off, as phase 5): each variant of
+    tests/fixtures/torch_reference_modes.json (decode_mode "beam" and
+    "nar"; quantized_serving=True, the int8 encoder, calibrated on the
+    record's two pages) on the four pages and rotated_text, page by page
+    with counts zeroed just before and read just after: at least
+    MIN_WORD_SHARE of JAX's words with the same bbox and text under beam
+    and NAR (the int8 engine's shares of words and bboxes are printed: its
+    words are held on the 16 synthetic pages at fp32, dynamic and
+    calibrated, against tests/fixtures/torch_synthetic_quantized_fp32.json);
+    K1-K3 on every page, every int8 conv and int8 linear layer on every
+    page of the int8 engine, K6 and K7 on none (fp32 takes the plain
+    recognizer). -> {variant: summed launches}."""
+    import torch
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        with open(FIXTURE_MODES) as f:
+            variants = json.load(f)["variants"]
+        for variant, rec in variants.items():
+            eng = tuatara_tpu_torch.OcrEngine(tuatara_tpu_torch.OcrConfig(**rec["config"]),
+                                              weights_dir=WEIGHTS)
+            required = dict.fromkeys(post, 1)
+            if "calibration_pages" in rec:
+                n = eng.calibrate([pages[p][None] for p in rec["calibration_pages"]])
+                if n != rec["calibration_layers"]:
+                    fail(f"modes fp32 {variant}: {n} layers calibrated, JAX "
+                         f"{rec['calibration_layers']}")
+                required.update(int8_conv=len(eng.craft.qconvs()),
+                                int8_linear=len(eng.parseq.qlinears()))
+            total = {}
+            for name, img in pages.items():
+                reset_launches()
+                got = eng.run(img)
+                launches = dict(LAUNCHES)
+                for k, least in required.items():
+                    if launches.get(k, 0) < least:
+                        fail(f"modes fp32 {variant} {name}: kernel {k} launched "
+                             f"{launches.get(k, 0)} times (at least {least})")
+                for k in ("vit_blocks", "greedy_decode"):
+                    if launches.get(k, 0):
+                        fail(f"modes fp32 {variant} {name}: {k} launched at fp32")
+                want = rec["pages"][name]["words"]
+                share = word_share(want, got)
+                boxes = word_share([{"text": "", "bbox": w["bbox"]} for w in want],
+                                   [{"text": "", "bbox": w["bbox"]} for w in got])
+                print(f"modes fp32 {variant} {name}: {share:.4f} of {len(want)} JAX words "
+                      f"matched, {boxes:.4f} of their bboxes ({len(got)} port words); launches "
+                      f"{json.dumps(launches)}", flush=True)
+                # The int8 encoder turns the float layers' ulps into int8
+                # steps, and these weights read real pages as near-ties:
+                # its words are held on the synthetic pages below instead.
+                if share < MIN_WORD_SHARE and "calibration_pages" not in rec:
+                    fail(f"modes fp32 {variant} on {name}: {share:.4f} < {MIN_WORD_SHARE}")
+                for k, n in launches.items():
+                    total[k] = total.get(k, 0) + n
+            out[variant] = total
+            del eng
+        check_synthetic_modes(WEIGHTS, ("quantized_fp32",))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def check_synthetic_modes(weights, names=("latency_beam", "latency_nar", "production_xla")):
+    """Phase 3g: the 16 synthetic pages through latency() under beam and
+    NAR and production(encoder_impl="xla") (bf16), or `names`, e.g.
+    "quantized_fp32" (OcrConfig(quantized_serving=True) at fp32), the
+    int8 encoders dynamic and calibrated on the first two pages, each with
+    counts zeroed just before and read just after, against the JAX records
+    tests/fixtures/torch_synthetic_<name>.json under phase 6's gates: K6
+    on every page of beam and NAR and K7 on none; under the int8 encoder
+    K6 on none, the int8 linear layers (and at bf16 K7) on every page."""
+    import dataclasses
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    pages, truths = synthetic_pages()
+    n = len(pages)
+    cfgs = {**mode_engines(), "quantized_fp32": tuatara_tpu_torch.OcrConfig(
+        quantized_serving=True, compute_dtype="float32")}
+    for name in names:
+        cfg = cfgs[name]
+        with open(SYNTHETIC_MODES.format(name)) as f:
+            ref = json.load(f)
+        cfg = dataclasses.replace(cfg, canvas_size=256, max_boxes=32, rec_buckets=(32,))
+        eng = tuatara_tpu_torch.OcrEngine(cfg, weights_dir=weights)
+        runs = [("", ref)]
+        if "calibrated" in ref:
+            runs.append(("calibrated", ref["calibrated"]))
+        for tag, want in runs:
+            if tag:
+                eng.calibrate([p[None] for p in pages[:ref["calibration_pages"]]])
+            reset_launches()
+            got = [eng.run(p) for p in pages]
+            launches = dict(LAUNCHES)
+            label = f"{name}{'/' + tag if tag else ''}"
+            print(f"synthetic {label} launches: {json.dumps(launches)}", flush=True)
+            quantized = eng.parseq.quantized
+            fused = cfg.compute_dtype == "bfloat16"
+            least = ({"int8_linear": n * len(eng.parseq.qlinears())} if quantized
+                     else {"vit_blocks": n})
+            if quantized and fused:
+                least["greedy_decode"] = n
+            for k, m in least.items():
+                if launches.get(k, 0) < m:
+                    fail(f"synthetic {label}: {k} launched {launches.get(k, 0)} times "
+                         f"(at least {m})")
+            for k in (("vit_blocks",) if quantized else ("greedy_decode",)):
+                if launches.get(k, 0):
+                    fail(f"synthetic {label}: {k} launched {launches[k]} times")
+            dynamic_int8 = quantized and fused and not tag
+            synthetic_gate(label, got, want, truths,
+                           MIN_AGREEMENT_DYNAMIC_INT8 if dynamic_int8 else MIN_AGREEMENT)
+        del eng
+
+
+def check_int8_linear(engine, img):
+    """Phase 3g: the int8 encoder's products (`kernels/int8.int8_linear`,
+    torch._int_mm) on real inputs, INT8_LINEARS of `engine` (the int8
+    encoder, bf16) on a page's slab: int32 sums equal to the plain version
+    (a float64 product on the card, exact) everywhere and to an int64
+    product on the host at 256 sampled rows. Times: int8_linear, the whole
+    layer (quantize, product, dequant), the plain version and a bf16
+    cuBLAS product of the same shapes; the bound (bytes or int8 peak).
+    -> the {"int8_linear": ...} summary."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tuatara_tpu_torch.kernels import int8
+
+    layers = dict(engine.parseq.qlinears())
+    seen = {}
+    handles = [layers[n].register_forward_hook(
+        lambda mod, args, out, n=n: seen.__setitem__(n, args[0])) for n in INT8_LINEARS]
+    try:
+        engine.run(img)
+    finally:
+        for hd in handles:
+            hd.remove()
+    rng = np.random.default_rng(11)
+    rows = []
+    for name in INT8_LINEARS:
+        q, x = layers[name], seen[name]
+        xq, _ = q.quantize_input(x)
+        acc = int8.int8_linear(xq, q.wmat)
+        ref = int8.int8_linear_plain(xq, q.wmat)
+        if not torch.equal(acc, ref):
+            fail(f"int8 linear {name}: int32 sums differ from the float64 product")
+        flat = xq.reshape(-1, q.cin)
+        picks = torch.from_numpy(rng.integers(0, flat.shape[0], 256)).cuda()
+        want = flat[picks].cpu().long() @ q.wq.cpu().long()
+        if not torch.equal(acc.reshape(-1, q.cout)[picks].cpu().long(), want):
+            fail(f"int8 linear {name}: int32 sums differ from the int64 product on the host")
+        m, k, n_out = flat.shape[0], q.cin, q.cout
+        xb, wb = x.to(torch.bfloat16), q.wmat.to(torch.bfloat16)
+        nbytes = m * k + n_out * k + m * n_out * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, 2 * m * n_out * k / INT8_OPS_PER_S) * 1e3
+        rows.append({
+            "layer": name, "m": m, "k": k, "n": n_out, "equal": True,
+            "ms": cuda_ms(lambda: int8.int8_linear(xq, q.wmat), 20),
+            "layer_ms": cuda_ms(lambda: q(x), 20),
+            "plain_ms": cuda_ms(lambda: int8.int8_linear_plain(xq, q.wmat), 5),
+            "bf16_cublas_ms": cuda_ms(lambda: F.linear(xb, wb), 20),
+            "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= 2 * m * n_out * k / INT8_OPS_PER_S
+            else "operations"})
+        r = rows[-1]
+        print(f"int8 linear {name:14s} [{m}, {k}] x [{k}, {n_out}] equal (float64 everywhere, "
+              f"int64 at 256 rows); ms={r['ms']:.4f} layer_ms={r['layer_ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} bf16_cublas_ms={r['bf16_cublas_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+    return {"route": "library", "library": "torch._int_mm (cuBLASLt)",
+            "source": "tuatara_tpu_torch/kernels/int8.py",
+            "replaces": "tuatara_tpu/models/layers.py:412 (XLA linear_q, not Pallas)",
+            "per_layer": rows}
+
+
+def beam_memory(engine, img, n):
+    """The encoder memory of `n` crops of a page's slab (its live crops,
+    repeated), under `engine`."""
+    import torch
+
+    with torch.inference_mode():
+        images = torch.from_numpy(img[None]).cuda()
+        det = engine.detect(images)
+        crops, _ = engine._crop_slab(images, det["rects"], det["valid"],
+                                     min(int(det["count"].sum()), n))
+        reps = -(-n // crops.shape[0])
+        return engine.parseq.encode(crops.repeat(reps, 1, 1, 1)[:n])
+
+
+def check_beam(engine, img):
+    """Phase 3g: the beam decode under latency(decode_mode="beam") issues
+    its T steps with no host read (torch.cuda.set_sync_debug_mode
+    ("error")), and gives a crop the same ids and score at BEAM_ROWS rows
+    (crops x beams; the serving loop's equalities rest on it, as on the
+    padded head). Prints the probe as part of the `invariance:` record."""
+    import torch
+
+    beams = engine.config.beam_size
+    memory = beam_memory(engine, img, max(BEAM_ROWS) // beams)
+    with torch.inference_mode():
+        m8 = memory[:8].clone()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            engine.parseq.beam_decode(m8, beams)
+        except RuntimeError as e:
+            fail(f"beam decode reads the host: {str(e).splitlines()[0][:200]}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ref_ids, ref_scores = engine.parseq.beam_decode(m8, beams)
+        bad = []
+        for rows in BEAM_ROWS:
+            ids, scores = engine.parseq.beam_decode(memory[:rows // beams], beams)
+            if not (torch.equal(ids[:8], ref_ids) and torch.equal(scores[:8], ref_scores)):
+                bad.append(rows)
+        ms = cuda_ms(lambda: engine.parseq.beam_decode(memory[:256], beams), 3)
+    print(f"beam: {engine.config.max_label_length + 1} steps with no host read; "
+          f"invariance: beam decoder ({beams} beams, bf16) crops 0-7 differ from an 8-crop "
+          f"call at row counts {bad} of {list(BEAM_ROWS)}; {ms:.3f} ms a 256-crop slab "
+          f"(CUDA events)", flush=True)
+    if bad:
+        fail(f"the beam decoder depends on the row count: {bad}")
+
+
+def dense_rates(engines, reps=2):
+    """Warm pages/s of each engine's run_pages loop over the dense batches,
+    in turns, and one traced loop each (device busy ms/page, idle share)."""
+    import torch
+
+    batches = dense_batches()
+    n_pages = sum(len(b) for b in batches)
+    acc = dict.fromkeys(engines, 0.0)
+    for _ in range(reps):
+        for name, engine in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches:
+                engine.run_pages(b)
+            torch.cuda.synchronize()
+            acc[name] += time.perf_counter() - t0
+    for name, engine in engines.items():
+        busy, wall = traced_busy(lambda: [engine.run_pages(b) for b in batches])
+        print(f"dense warm, in turns: {name} {reps * n_pages / acc[name]:.3f} pages/s; traced "
+              f"device busy {busy / n_pages:.3f} ms/page, wall {wall / n_pages:.3f} ms/page, "
+              f"idle share {1 - busy / wall:.3f}", flush=True)
+
+
+def check_cli(reference):
+    """Phase 3g: `python -m tuatara_tpu_torch images/resume_example.png
+    evals/production_weights --json-out ...` once on the card: exit 0, and
+    at least MIN_WORD_SHARE of `reference`'s words (the default engine's in
+    this process) with the same bbox and text."""
+    path = os.path.join(ROOT, "build", "cli_resume_example.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tuatara_tpu_torch",
+                           os.path.join(ROOT, "images", "resume_example.png"), WEIGHTS,
+                           "--json-out", path], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        fail(f"cli: exit {proc.returncode}: {proc.stderr.strip()[-400:]}")
+    with open(path) as f:
+        got = json.load(f)
+    share = word_share(reference, got)
+    print(f"cli: exit 0 in {time.perf_counter() - t0:.1f} s, {len(got)} words, {share:.4f} of "
+          f"the in-process default engine's {len(reference)} ({'equal' if got == reference else 'not equal'}); "
+          f"{proc.stderr.strip().splitlines()[-1]}", flush=True)
+    if share < MIN_WORD_SHARE:
+        fail(f"cli: {share:.4f} of the in-process words < {MIN_WORD_SHARE}")
+
+
+def check_modes(lat, pages, geo_pages, post, reference):
+    """Phase 3g: beam and NAR decode, the int8 recognizer encoder, the
+    command line; `lat` is the latency() engine timed beside them. -> the
+    int8_linear summary."""
+    import tuatara_tpu_torch
+
+    t_phase = time.perf_counter()
+    parity = check_modes_parity(geo_pages, post)
+    get = tuatara_tpu_torch.api.get_engine
+    cfgs = mode_engines()
+    mode = {name: get(cfg, WEIGHTS) for name, cfg in cfgs.items()}
+    cal = tuatara_tpu_torch.OcrEngine(cfgs["production_xla"], weights_dir=WEIGHTS)
+    names = list(pages)[:2]
+    print(f"production_xla calibrated: {cal.calibrate([pages[p][None] for p in names])} layers "
+          f"on {names}", flush=True)
+    mode["production_xla_calibrated"] = cal
+    n_q, n_l = len(cal.craft.qconvs()), len(cal.parseq.qlinears())
+    per_page = dict.fromkeys(post, 1)
+    required = {"latency_beam": {**per_page, "vit_blocks": 1},
+                "latency_nar": {**per_page, "vit_blocks": 1},
+                "production_xla": {**per_page, "greedy_decode": 1, "int8_conv": n_q,
+                                   "int8_linear": n_l}}
+    launches = {}
+    for name in cfgs:
+        results, launches[name] = drive_each_page(cfgs[name], pages, required[name])
+        absent = ("vit_blocks",) if name == "production_xla" else ("greedy_decode",)
+        for k in absent:
+            if launches[name].get(k, 0):
+                fail(f"{name}: {k} launched {launches[name][k]} times")
+        print(f"{name} launches on {len(pages)} pages: {json.dumps(launches[name])}", flush=True)
+        for page, words in results.items():
+            print(f"{name} {page}: {len(words)} boxes: " + " ".join(w["text"] for w in words[:8]),
+                  flush=True)
+    check_synthetic_modes(WEIGHTS)
+    summary = check_int8_linear(cal, pages["resume_example"])
+    summary["launches"] = launches["production_xla"].get("int8_linear", 0)
+    check_beam(mode["latency_beam"], pages["resume_example"])
+    per_batch = dict.fromkeys(post, K8_BATCH)
+    check_serving({"latency_beam": mode["latency_beam"],
+                   "production_xla_calibrated": cal}, pages,
+                  {"latency_beam": {**per_batch, "vit_blocks": 1},
+                   "production_xla_calibrated": {**per_batch, "greedy_decode": 1,
+                                                 "int8_conv": n_q, "int8_linear": n_l}},
+                  phase="3g")
+    timed = {"latency": lat, **mode}
+    warm_rates(timed, pages)
+    dense_rates(timed)
+    check_cli(reference)
+    print(f"phase 3g {time.perf_counter() - t_phase:.1f} s; parity launches "
+          f"{json.dumps(parity)}", flush=True)
+    return summary
+
+
+
 def large_page():
     """Four funsd_0001129658 pages tiled 2 x 2 into one 2000 x 1508 RGB page."""
     import numpy as np
@@ -1987,7 +2398,7 @@ def main() -> int:
     # The phases keep the first engines of get_engine's cache to the end
     # and add others through image_to_data: room for all, so none is
     # evicted (and closed) while held.
-    tuatara_tpu_torch.api.ENGINE_CACHE_MAX = 8
+    tuatara_tpu_torch.api.ENGINE_CACHE_MAX = 12
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2074,6 +2485,9 @@ def main() -> int:
     geo_launches, geo_engines = check_geometry({"default": engine, "latency": lat}, geo_pages,
                                                post)
 
+    # 3g. beam and NAR decode, the int8 recognizer encoder, the command line
+    int8_linear_summary = check_modes(lat, pages, geo_pages, post, results["resume_example"])
+
     # 4. kernels vs their plain versions (4, 4c, 4b; 4d after 6b, which
     # gives K8's launches on its path)
     tiled512, tiled1024 = geo_engines["tiled512"], geo_engines["tiled"]
@@ -2118,6 +2532,7 @@ def main() -> int:
     kernels += check_stage1(engine, pages, stage1_launches)
 
     print(json.dumps({"int8_conv": int8_summary}), flush=True)
+    print(json.dumps({"int8_linear": int8_linear_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -11,7 +11,11 @@ first freezes static activation scales from the first two pages), or with
 `--config rotated` / `rotated_pca` at `OcrConfig(box_mode="rotated")`
 (exact fit with the hull kernel H1, or the PCA fit), with `--config
 tiled` / `tiled512` at `OcrConfig(tiled_detection=True)` at canvas 1024
-(only table_english tiles) or 512 (all four pages tile), and with
+(only table_english tiles) or 512 (all four pages tile), with `--config
+latency_beam` / `latency_nar` at `OcrConfig.latency(decode_mode="beam" /
+"nar")` (K6, the plain beam or NAR decode), with `--config
+production_xla` at `OcrConfig.production(encoder_impl="xla")` (int8 CRAFT
+and int8 recognizer encoder in front of K7), and with
 `--fused-stage1` with CRAFT's stage 1 through K8; on
 `evals/production_weights` and the four main-path pages, it warms up, then
 traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
@@ -33,7 +37,8 @@ traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
 
 Writes the chrome trace to build/profile_torch_port_<config>.json.
 Usage: python3 scripts/profile_torch_port.py [--reps N]
-       [--config default|latency|production|lowthresh|rotated|rotated_pca|tiled|tiled512]
+       [--config default|latency|production|lowthresh|rotated|rotated_pca|tiled|tiled512|
+                 latency_beam|latency_nar|production_xla]
        [--calibrate] [--fused-stage1]
 """
 
@@ -84,7 +89,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--config", choices=("default", "latency", "production", "lowthresh",
-                                         "rotated", "rotated_pca", "tiled", "tiled512"),
+                                         "rotated", "rotated_pca", "tiled", "tiled512",
+                                         "latency_beam", "latency_nar", "production_xla"),
                     default="default")
     ap.add_argument("--calibrate", action="store_true")
     ap.add_argument("--fused-stage1", action="store_true")
@@ -116,7 +122,10 @@ def main() -> int:
               "rotated": lambda: cfg(box_mode="rotated"),
               "rotated_pca": lambda: cfg(box_mode="rotated", rotated_fit="pca"),
               "tiled": lambda: cfg(tiled_detection=True),
-              "tiled512": lambda: cfg(tiled_detection=True, canvas_size=512)}[args.config]()
+              "tiled512": lambda: cfg(tiled_detection=True, canvas_size=512),
+              "latency_beam": lambda: cfg.latency(decode_mode="beam"),
+              "latency_nar": lambda: cfg.latency(decode_mode="nar"),
+              "production_xla": lambda: cfg.production(encoder_impl="xla")}[args.config]()
     engine = tuatara_tpu_torch.OcrEngine(config, weights_dir=WEIGHTS)
     if args.calibrate:
         engine.calibrate([img[None] for img in pages[:2]])

@@ -12,11 +12,14 @@ it runs `OcrConfig(compute_dtype="float32", text_threshold=0.3)` instead
 runs `tiled_detection=True` at canvas 1024 (only table_english tiles) and
 512 (all four tile), each on the four pages and `rotated_text`, into
 `torch_reference_rotated.json` / `torch_reference_tiled.json`, one section
-a variant. The GPU machine has no JAX, so the references are recorded
-here and committed (a few KB each).
+a variant. `--config modes` runs `decode_mode` "beam" and "nar" and
+`quantized_serving=True` (int8 CRAFT and int8 recognizer encoder)
+calibrated on resume_example and rotated_text, into
+`torch_reference_modes.json`. The GPU machine has no JAX, so the
+references are recorded here and committed (a few KB each).
 
 Usage: PYTHONPATH=. JAX_PLATFORMS=cpu python tests/gen_torch_reference.py
-       [--config default|lowthresh|rotated|tiled]
+       [--config default|lowthresh|rotated|tiled|modes]
 """
 
 import argparse
@@ -53,7 +56,13 @@ VARIANTS = {
         "canvas1024": {"compute_dtype": "float32", "tiled_detection": True},
         "canvas512": {"compute_dtype": "float32", "tiled_detection": True,
                       "canvas_size": 512}}),
+    "modes": ("torch_reference_modes.json", {
+        "beam": {"compute_dtype": "float32", "decode_mode": "beam"},
+        "nar": {"compute_dtype": "float32", "decode_mode": "nar"},
+        "int8_calibrated": {"compute_dtype": "float32", "quantized_serving": True}}),
 }
+# Variants whose engine calibrates first, on these pages.
+CALIBRATED = {"int8_calibrated": ("resume_example", "rotated_text")}
 
 
 def record_pages(engine, names):
@@ -79,8 +88,14 @@ def main():
         record = {"weights": "evals/production_weights", "backend": "jax cpu", "variants": {}}
         for variant, overrides in variants.items():
             engine = OcrEngine(OcrConfig(**overrides), weights_dir=WEIGHTS)
-            record["variants"][variant] = {"config": overrides,
-                                           "pages": record_pages(engine, GEOMETRY_PAGES)}
+            entry = {"config": overrides}
+            if variant in CALIBRATED:
+                entry["calibration_pages"] = CALIBRATED[variant]
+                entry["calibration_layers"] = engine.calibrate(
+                    [load_image(os.path.join(ROOT, "images", f"{n}.png"))[None]
+                     for n in CALIBRATED[variant]])
+            entry["pages"] = record_pages(engine, GEOMETRY_PAGES)
+            record["variants"][variant] = entry
         with open(os.path.join(HERE, "fixtures", name), "w") as f:
             json.dump(record, f, indent=0)
             f.write("\n")

@@ -33,6 +33,21 @@ does the same on another weights directory, at the crop width its
 recognizer was trained for (`rec_width`, from its config.json): on the
 width-64 weights, `production(rec_width=64, ...)`, written to
 tests/fixtures/torch_synthetic_production_w64.json.
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/gen_torch_synthetic.py \
+        --config latency_beam|latency_nar|production_xla|quantized_fp32
+
+writes tests/fixtures/torch_synthetic_<config>.json, the JAX engine's
+words and word accuracy on the same pages at bf16 under
+`latency(decode_mode="beam")`, `latency(decode_mode="nar")` (the Pallas
+encoder in interpret mode, the XLA decode: JAX's `decode_impl` affects the
+greedy decode only) and `production(encoder_impl="xla")` (int8 CRAFT and
+int8 recognizer encoder; the greedy decode's Pallas kernel in interpret
+mode), and at fp32 under `OcrConfig(quantized_serving=True)` (int8 CRAFT
+and encoder), each with canvas_size=256, max_boxes=32, rec_buckets=(32,).
+For the two int8 encoder variants it also calibrates the engine on the
+first two pages and records the calibrated engine's words and accuracy
+("calibrated").
 """
 
 import argparse
@@ -48,8 +63,9 @@ OUT = os.path.join(ROOT, "tests", "fixtures", "torch_synthetic_pages")
 N_PAGES = 16
 
 
-def production(weights: str) -> int:
-    """The production() record on the pages and truths already written."""
+def _interpret_pallas() -> None:
+    """Run the JAX package's Pallas recognizer kernels in interpret mode,
+    all that Pallas runs on a CPU."""
     import tuatara_tpu.ops.pallas.decode as pallas_decode
     import tuatara_tpu.ops.pallas.vit as pallas_vit
 
@@ -61,6 +77,11 @@ def production(weights: str) -> int:
 
     pallas_vit.vit_blocks_pallas = interpreted(pallas_vit.vit_blocks_pallas)
     pallas_decode.greedy_decode_pallas = interpreted(pallas_decode.greedy_decode_pallas)
+
+
+def production(weights: str) -> int:
+    """The production() record on the pages and truths already written."""
+    _interpret_pallas()
     from tuatara_tpu.api import OcrEngine
     from tuatara_tpu.config import OcrConfig
     from tuatara_tpu.utils.metrics import evaluate_engine
@@ -95,15 +116,66 @@ def production(weights: str) -> int:
     return 0
 
 
+VARIANTS = {  # name -> (OcrConfig preset or None, overrides, also calibrated)
+    "latency_beam": ("latency", {"decode_mode": "beam"}, False),
+    "latency_nar": ("latency", {"decode_mode": "nar"}, False),
+    "production_xla": ("production", {"encoder_impl": "xla"}, True),
+    "quantized_fp32": (None, {"quantized_serving": True, "compute_dtype": "float32"}, True),
+}
+CALIB_PAGES = 2  # the int8 encoder variants' calibrated engine: the first two pages
+
+
+def variant(name: str) -> int:
+    """One of VARIANTS on the pages and truths already written."""
+    _interpret_pallas()
+    from tuatara_tpu.api import OcrEngine
+    from tuatara_tpu.config import OcrConfig
+    from tuatara_tpu.utils.metrics import evaluate_engine
+
+    preset, over, calibrated = VARIANTS[name]
+    config = dict(canvas_size=256, max_boxes=32, rec_buckets=(32,), **over)
+    make = getattr(OcrConfig, preset) if preset else OcrConfig
+    engine = OcrEngine(make(**config), weights_dir=WEIGHTS)
+    pages = np.load(OUT + ".npz")["pages"]
+    with open(OUT + ".json") as f:
+        truths = json.load(f)["truths"]
+
+    def run():
+        words = [[{"text": w["text"], "bbox": [float(v) for v in w["bbox"]]}
+                  for w in engine.run(img)] for img in pages]
+        scores = evaluate_engine(engine, list(pages), truths, iou_threshold=0.5)
+        return {"word_acc": scores["word_acc"], "matched": scores["matched"], "words": words}
+
+    dtype = over.get("compute_dtype", "bfloat16")
+    record = {"what": (f"JAX engine {preset or 'OcrConfig'}({over}) words on the 16 held-out "
+                       f"synthetic pages of torch_synthetic_pages.npz, {dtype}; Pallas kernels "
+                       "in interpret mode"),
+              "config": {"preset": preset, **config, "rec_buckets": [32], "compute_dtype": dtype},
+              "weights": "evals/production_weights", **run()}
+    if calibrated:
+        record["calibration_pages"] = CALIB_PAGES
+        record["calibration_layers"] = engine.calibrate([p[None] for p in pages[:CALIB_PAGES]])
+        record["calibrated"] = run()
+    out = os.path.join(ROOT, "tests", "fixtures", f"torch_synthetic_{name}.json")
+    with open(out, "w") as f:
+        json.dump(record, f, indent=1)
+    print(f"wrote {out}: word_acc {record['word_acc']:.4f}, "
+          f"{sum(len(w) for w in record['words'])} JAX words")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("default", "production"), default="default")
+    ap.add_argument("--config", choices=("default", "production") + tuple(VARIANTS),
+                    default="default")
     ap.add_argument("--weights", default=WEIGHTS,
                     help="weights directory of the production() record")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     if args.config == "production":
         return production(os.path.abspath(args.weights))
+    if args.config in VARIANTS:
+        return variant(args.config)
     from tuatara_tpu.api import OcrEngine
     from tuatara_tpu.config import OcrConfig
     from tuatara_tpu.utils.data import synthetic_text_pages

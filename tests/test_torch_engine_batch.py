@@ -89,9 +89,12 @@ def test_construction_checks():
     with pytest.raises(ValueError, match="tokenizer/recognizer mismatch"):
         tuatara_tpu_torch.OcrEngine(OcrConfig(max_label_length=7, charset="abc"),
                                     weights_dir=GOLDEN, device="cpu")
-    for mode in ("beam", "nar"):  # rotated boxes and tiling are served
-        with pytest.raises(NotImplementedError):
-            tuatara_tpu_torch.OcrEngine(OcrConfig(decode_mode=mode), device="cpu")
+    for mode in ("beam", "nar"):  # served, as rotated boxes and tiling are
+        engine = tuatara_tpu_torch.OcrEngine(OcrConfig(decode_mode=mode, max_label_length=7),
+                                             weights_dir=GOLDEN, device="cpu")
+        assert engine.config.decode_mode == mode
+    with pytest.raises(ValueError, match="unknown decode_mode"):
+        tuatara_tpu_torch.OcrEngine(OcrConfig(decode_mode="sample"), device="cpu")
     with pytest.raises(ValueError, match="weights_dir is required"):
         tuatara_tpu_torch.OcrEngine(OcrConfig(), device="cpu")
     with pytest.raises(TypeError, match="uint8"):

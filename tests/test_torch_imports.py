@@ -40,7 +40,10 @@ def test_port_has_modules():
                  "tuatara_tpu_torch/kernels/stage1.py", "tuatara_tpu_torch/kernels/int8.py",
                  "tuatara_tpu_torch/models/craft.py",
                  "tuatara_tpu_torch/utils/metrics.py", "tuatara_tpu_torch/kernels/hull.py",
-                 "tuatara_tpu_torch/ops/minarearect.py", "tuatara_tpu_torch/ops/tiling.py"):
+                 "tuatara_tpu_torch/ops/minarearect.py", "tuatara_tpu_torch/ops/tiling.py",
+                 "tuatara_tpu_torch/cli.py", "tuatara_tpu_torch/__main__.py",
+                 "tuatara_tpu_torch/ops/grouping.py", "tuatara_tpu_torch/utils/data.py",
+                 "tuatara_tpu_torch/utils/image.py"):
         assert want in names
 
 

@@ -16,17 +16,21 @@ package (a weights directory under the test's tmp path). Then:
   card's route, im2col rows and one `torch._int_mm`, here on the CPU),
   and the dequant is one fused
   multiply-add, as XLA compiles JAX's `y * (sw / xs) + b`;
-* the int8 CRAFT forward on one input is within 1e-5 (fp32) and 0.1
-  (bf16, where the port's float layers already differ) of JAX's compiled
+* the int8 CRAFT forward on one input is equal (fp32) and within 0.1
+  (bf16, where the port's float layers already differ) to JAX's compiled
   forward;
+* at fp32 the int8 CRAFT forward of a reference page is JAX's bit for bit,
+  stage by stage: the canvas (XLA compiles `x / 255.0` as a product with
+  the rounded reciprocal), every quantized layer's int8 input and output,
+  the decoder's fused `ya + acc * s`, the 2x upsamples (rounded as XLA's
+  dots round `jax.image.resize`, whose rule is held here on its own over
+  many shapes), the head's float 1x1 convs (XLA's split sums, held per
+  shape) and the scores;
 * `OcrEngine(OcrConfig.production(compute_dtype="float32"))` against the
   JAX engine's `production(..., encoder_impl="pallas",
   decode_impl="pallas")` on the golden pages (its record,
-  tests/fixtures/torch_int8_golden.json): int8's rounding turns
-  one-ulp differences of the float layers before the first int8 conv
-  (the canvas resample, conv1_1) into threshold flips, so the pages are
-  held to a share of JAX's words (ROADMAP Queue 3 records the divergence
-  and its input), not to equality;
+  tests/fixtures/torch_int8_golden.json): every word of every page
+  (ROADMAP Queue 3 item 6 records how the divergence was closed);
 * `calibrate` gives JAX's scales (its saved calibration.npz, equal to 1e-5
   relative: an abs-max may move by an ulp for the same reason) and a
   `calibration.npz` saved by either package loads in the other; an engine
@@ -70,9 +74,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden_weights")
 PAGES = ["funsd_0001129658", "funsd_91372360", "resume_example", "table_english",
          "rotated_text"]
-MIN_PAGE_SHARE = 0.75   # per page, of the JAX engine's words (same bbox and text)
-MIN_SHARE = 0.9         # over the five pages
-CRAFT_MAX_ABS = {"float32": 1e-5, "bfloat16": 0.1}
+MIN_PAGE_SHARE = 1.0    # per page, of the JAX engine's words (same bbox and text)
+MIN_SHARE = 1.0         # over the five pages
+CRAFT_MAX_ABS = {"float32": 0.0, "bfloat16": 0.1}
 CALIB_RTOL = 1e-5
 # The JAX engine's results on those pages and its calibration, recorded by
 # tests/gen_torch_int8.py (a JAX engine compiles once a page geometry).
@@ -236,9 +240,8 @@ def record():
 
 def test_production_engine_matches_jax_fp32(engine, record):
     """The int8 engine on the golden pages at fp32 against the JAX engine's
-    record: at least 75% of its words on each page and 90% over the five
-    with the same bbox and text; confidences of the matched words to
-    1e-4."""
+    record: every word of each page with the same bbox and text;
+    confidences of the matched words to 1e-4."""
     assert record["config"] == {"preset": "production", "compute_dtype": "float32",
                                 "max_label_length": 7, "encoder_impl": "pallas",
                                 "decode_impl": "pallas"}
@@ -308,20 +311,182 @@ def test_calibration_files_refuse_and_skip(folded, tmp_path):
 def test_production_preset_and_refusals(folded):
     """production() has JAX's fields with the Pallas lowerings; the int8
     encoder (quantized_serving without encoder_impl='pallas') and the beam
-    and NAR decodes are refused, not served otherwise; tiled detection and
-    rotated boxes are taken as overrides."""
+    and NAR decodes construct and serve; an unknown encoder_impl is
+    refused; tiled detection and rotated boxes are taken as overrides."""
     got = dataclasses.asdict(OcrConfig.production())
     want = dataclasses.asdict(JaxOcrConfig.production(encoder_impl="pallas",
                                                       decode_impl="pallas"))
     assert got == want
     assert OcrConfig.production(rec_width=64).rec_width == 64
+    page = _image("rotated_text")
     for cfg in (OcrConfig(quantized_serving=True, max_label_length=7),
                 OcrConfig.production(encoder_impl="xla", max_label_length=7),
                 OcrConfig.production(decode_mode="beam", max_label_length=7),
                 OcrConfig.production(decode_mode="nar", max_label_length=7)):
-        with pytest.raises(NotImplementedError):
-            tuatara_tpu_torch.OcrEngine(cfg, weights_dir=folded[0], device="cpu")
+        engine = tuatara_tpu_torch.OcrEngine(cfg, weights_dir=folded[0], device="cpu")
+        assert engine.craft.quantized
+        assert engine.parseq.quantized == (cfg.encoder_impl != "pallas")
+        got = engine.run(page)
+        assert got and all(w["text"] and 0.0 <= w["confidence"] <= 1.0 for w in got)
+    with pytest.raises(NotImplementedError):
+        tuatara_tpu_torch.OcrEngine(OcrConfig.production(encoder_impl="mosaic"),
+                                    weights_dir=folded[0], device="cpu")
     for over in ({"tiled_detection": True}, {"box_mode": "rotated", "rotated_fit": "pca"}):
         engine = tuatara_tpu_torch.OcrEngine(OcrConfig.production(max_label_length=7, **over),
                                              weights_dir=folded[0], device="cpu")
         assert engine.craft.quantized
+
+
+def _jax_taps(jq, canvas, jcfg):
+    """JAX's compiled int8 CRAFT forward at fp32 with its intermediate
+    values as outputs (the quantized layers' inputs, int8 inputs, scales,
+    int32 sums and outputs, the upsamples, the float convs), in call order.
+    The JAX package is not changed: its functions are wrapped while the
+    forward is traced."""
+    taps, names = [], []
+    saved = JL.conv2d, JL.quantize_act_q, JL.conv2d_q_pre, jcraft._upsample_to
+
+    def conv(*a, **k):
+        y = saved[0](*a, **k)
+        taps.append(("conv", y))
+        return y
+
+    def quantize(qp, x):
+        xq, xs = saved[1](qp, x)
+        taps.extend([("in", x), ("xq", xq), ("xs", xs)])
+        return xq, xs
+
+    def pre(qp, xq, xs, stride=1, padding="SAME", dilation=1, out_dtype=jnp.float32):
+        acc = jax.lax.conv_general_dilated(xq, qp["wq"], (stride, stride), padding,
+                                           rhs_dilation=(dilation, dilation),
+                                           dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                                           preferred_element_type=jnp.int32)
+        taps.append(("acc", acc))
+        y = saved[2](qp, xq, xs, stride, padding, dilation, out_dtype)
+        taps.append(("out", y))
+        return y
+
+    def up(x, h, w):
+        y = saved[3](x, h, w)
+        taps.append(("up", y))
+        return y
+
+    def fwd(x):
+        taps.clear()
+        scores = jcraft.craft_forward(jq, x, jcfg, compute_dtype=jnp.float32)[0]
+        names[:] = [t[0] for t in taps]
+        return scores, [t[1] for t in taps]
+
+    JL.conv2d, JL.quantize_act_q, JL.conv2d_q_pre, jcraft._upsample_to = conv, quantize, pre, up
+    try:
+        scores, values = jax.jit(fwd)(canvas)
+    finally:
+        JL.conv2d, JL.quantize_act_q, JL.conv2d_q_pre, jcraft._upsample_to = saved
+    return scores, list(zip(names, values))
+
+
+def _port_taps(m, canvas):
+    """The port's int8 CRAFT forward with the same intermediate values, NHWC."""
+    taps = []
+    saved = TL.Conv.forward, TL.QConv.sums, tcraft.upsample_to, tcraft._conv1x1_xla
+
+    def conv(self, x):
+        y = saved[0](self, x)
+        taps.append(("conv", y.permute(0, 2, 3, 1)))
+        return y
+
+    def sums(self, x):
+        taps.append(("in", x.permute(0, 2, 3, 1)))
+        xq, xs = self.quantize_input(x)
+        acc = int8_conv(xq, self.wmat, self.wq.shape[0], self.dilation)
+        taps.extend([("xq", xq), ("xs", xs), ("acc", acc),
+                     ("out", TL.dequant(acc, self.sw / xs, self.bias, self.out_dtype))])
+        return acc, self.sw / xs
+
+    def up(x, h, w):
+        y = saved[2](x, h, w)
+        taps.append(("up", y.permute(0, 2, 3, 1)))
+        return y
+
+    def conv1x1(c, x):
+        y = saved[3](c, x)
+        taps.append(("conv", y.permute(0, 2, 3, 1)))
+        return y
+
+    TL.Conv.forward, TL.QConv.sums, tcraft.upsample_to, tcraft._conv1x1_xla = conv, sums, up, conv1x1
+    try:
+        with torch.no_grad():
+            scores, _ = m(canvas)
+    finally:
+        TL.Conv.forward, TL.QConv.sums, tcraft.upsample_to, tcraft._conv1x1_xla = saved
+    return scores, taps
+
+
+def test_int8_craft_fp32_equals_jax_stage_by_stage(folded):
+    """funsd_0001129658 at production(compute_dtype="float32"): the canvas
+    equals JAX's compiled one, and every stage of int8 CRAFT after it
+    equals JAX's bit for bit, to the scores. JAX's head runs width-packed
+    (`_pack4`): its taps there are unpacked before the comparison."""
+    _, jfold, jq, ccfg = folded
+    img = _image("funsd_0001129658")
+    cfg = OcrConfig.production(compute_dtype="float32", max_label_length=7)
+    jcfg = JaxOcrConfig.production(compute_dtype="float32", max_label_length=7)
+    from tuatara_tpu.api import _canvas_prep as jax_canvas_prep
+    from tuatara_tpu_torch.ops.resize import canvas_prep
+
+    want_canvas = np.asarray(jax.jit(lambda im: jax_canvas_prep(im, jcfg))(img))
+    canvas = canvas_prep(torch.from_numpy(img), cfg)
+    np.testing.assert_array_equal(canvas.numpy(), want_canvas)
+    jscores, jtaps = _jax_taps(jq, jnp.asarray(want_canvas)[None],
+                               JaxCraftConfig(**dataclasses.asdict(ccfg)))
+    scores, ptaps = _port_taps(_port_craft(jfold, ccfg), canvas[None])
+    assert [n for n, _ in ptaps] == [n for n, _ in jtaps]
+    assert sum(n == "up" for n, _ in ptaps) == 3
+    for i, ((name, want), (_, got)) in enumerate(zip(jtaps, ptaps)):
+        want = np.asarray(want)
+        if want.ndim == 4 and want.shape != tuple(got.shape):
+            want = np.asarray(jcraft._unpack4(jnp.asarray(want)))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"stage {i} ({name})")
+    np.testing.assert_array_equal(scores.numpy(), np.asarray(jscores))
+
+
+UPSAMPLE_SHAPES = [(1, 64, 48, 16), (1, 128, 96, 16), (1, 256, 192, 8), (2, 32, 24, 64),
+                   (1, 24, 32, 8), (1, 48, 48, 4), (1, 40, 20, 8), (1, 34, 26, 16),
+                   (1, 90, 58, 4), (1, 16, 62, 8), (1, 8, 128, 2), (3, 8, 6, 32)]
+
+
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES, ids=str)
+def test_upsample2x_rounds_as_xla(shape):
+    """`models.craft.upsample_to`'s fp32 2x path equals XLA's compiled
+    `jax.image.resize` bilinear bit for bit: both axis orders (the longer
+    axis first) and both roundings of the second contraction (fused where
+    its output width is at most 12 short of a multiple of 64)."""
+    b, h, w, c = shape
+    x = np.random.default_rng(sum(shape)).random(shape, dtype=np.float32) * 3
+    want = jax.jit(lambda v: jax.image.resize(v, (b, 2 * h, 2 * w, c), "bilinear"))(x)
+    got = tcraft.upsample_to(torch.from_numpy(x).permute(0, 3, 1, 2), 2 * h, 2 * w)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cin,cout", sorted(tcraft._HEAD_1X1_LANES))
+def test_head_conv1x1_rounds_as_xla(cin, cout):
+    """The head's float 1x1 convs, for each shape of `_HEAD_1X1_LANES`,
+    equal XLA's compiled width-packed conv (JAX's serving head) bit for
+    bit."""
+    rng = np.random.default_rng(cin * 10 + cout)
+    x = np.maximum(rng.standard_normal((2, 24, 40, cin)).astype(np.float32), 0)
+    w = (rng.standard_normal((cout, cin)) * 0.3).astype(np.float32)
+    b = rng.standard_normal(cout).astype(np.float32)
+
+    def packed(v):
+        kp = {"w": jcraft._pack4_1x1_w(jnp.asarray(w.T[None, None])),
+              "b": jnp.tile(jnp.asarray(b), 4)}
+        return jcraft._unpack4(JL.conv2d(kp, jcraft._pack4(v), compute_dtype=jnp.float32))
+
+    want = jax.jit(packed)(x)
+    conv = TL.Conv(cin, cout, 1)
+    conv.weight.data = torch.from_numpy(w[:, :, None, None].copy())
+    conv.bias.data = torch.from_numpy(b)
+    with torch.no_grad():
+        got = tcraft._conv1x1_xla(conv, torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), np.asarray(want))

@@ -215,8 +215,8 @@ def test_extract_boxes_low_text_threshold_matches_jax(golden, name):
     valid = np.asarray(ref["valid"])
     assert valid.sum() > 0
     np.testing.assert_array_equal(got["valid"].numpy(), valid)
-    # The port zeroes the invalid slots' boxes; JAX leaves their extents.
-    np.testing.assert_array_equal(got["boxes"].numpy()[valid], np.asarray(ref["boxes"])[valid])
+    # Invalid slots too: the recognition slab crops them as padding rows.
+    np.testing.assert_array_equal(got["boxes"].numpy(), np.asarray(ref["boxes"]))
     assert int(got["count"]) == int(ref["count"])
     assert int(got["num_components"]) == int(ref["num_components"])
 

@@ -22,18 +22,29 @@ same-sized pages goes through
    `rec_buckets` ladder, its rows ordered by box aspect ratio (a pure
    permutation, undone before decoding); rotated boxes are cropped by a
    perspective warp of their corners;
-4. PARSEQ, the sequence confidence (product of per-step max probability up
-   to and including the first EOS), and the tokenizer on the host. With
-   `encoder_impl` / `decode_impl` "pallas" at bf16 (the `latency()` preset)
-   the encoder blocks and the greedy decode run as the fused CUDA kernels
-   K6 and K7, their weight bundles stacked once at construction.
+4. PARSEQ (`Parseq.recognize`, JAX `_recognize_body`) under
+   `decode_mode` "greedy" (AR decode + cloze refinement), "nar" (one
+   non-autoregressive pass + refinement) or "beam" (`beam_size` beams, no
+   refinement), the sequence confidence (greedy and NAR: the product of
+   per-step max probability up to and including the first EOS; beam: the
+   exp of the best beam's log-probability), and the tokenizer on the host.
+   With `encoder_impl` / `decode_impl` "pallas" at bf16 (the `latency()`
+   preset) the encoder blocks and the greedy decode run as the fused CUDA
+   kernels K6 and K7, their weight bundles stacked once at construction
+   (K7 decodes greedily only, so beam and NAR take the plain decode, as
+   JAX's `decode_impl` affects greedy alone).
 
 With `quantized_serving` (the `production()` preset) CRAFT serves int8
 (`Craft.quantize`, after the weights load, as the JAX engine quantizes its
 detector): its convolutions but conv1_1 and the head's 1x1s are int8 x int8
--> int32 GEMMs (`kernels/int8.py`). Activation scales are dynamic until
+-> int32 GEMMs (`kernels/int8.py`). With an `encoder_impl` other than
+"pallas" (e.g. `OcrConfig(quantized_serving=True)`) the recognizer's
+encoder serves int8 too (`Parseq.quantize`: the patch embed and every
+block's linear layers; then K6 is off). Activation scales are dynamic until
 `OcrEngine.calibrate(pages)` freezes static ones, or a `calibration.npz`
 beside the weights (`save_calibration`) supplies them at construction.
+`run_lines` / `run_blocks` group a page's words into lines and blocks
+(`ops/grouping.py`).
 
 `run_pages` is `_finalize(_dispatch(images))`, as in the JAX engine:
 `_dispatch` issues detection and, when the batch geometry has served a
@@ -67,10 +78,11 @@ from tuatara_tpu_torch.kernels.int8 import check_shapes as check_int8_shapes
 from tuatara_tpu_torch.models import layers as L
 from tuatara_tpu_torch.models.craft import Craft
 from tuatara_tpu_torch.models.layers import set_compute_dtype
-from tuatara_tpu_torch.models.parseq import Parseq, confidence
+from tuatara_tpu_torch.models.parseq import Parseq
 from tuatara_tpu_torch.ops.boxes import extract_boxes, scale_boxes, tesseract_bbox
+from tuatara_tpu_torch.ops.grouping import group_blocks, group_lines
 from tuatara_tpu_torch.ops.minarearect import fma
-from tuatara_tpu_torch.ops.resize import canvas_prep, canvas_shape, pad32, resample
+from tuatara_tpu_torch.ops.resize import INV_255, canvas_prep, canvas_shape, pad32, resample
 from tuatara_tpu_torch.ops.tiling import extract_tiles, stitch_heatmaps
 from tuatara_tpu_torch.ops.warp import (crop_rects, extract_crops_batched,
                                         extract_crops_perspective_batched)
@@ -111,10 +123,9 @@ class OcrEngine:
                  weights_dir: Optional[str] = None, device: Optional[str] = None):
         self.device = resolve_device(device)
         self.config = config
-        if config.decode_mode != "greedy":
-            raise NotImplementedError(
-                f"OcrConfig.decode_mode={config.decode_mode!r} is not ported yet "
-                f"(only 'greedy'; see ROADMAP.md)")
+        if config.decode_mode not in ("greedy", "beam", "nar"):
+            raise ValueError(f"unknown decode_mode {config.decode_mode!r} "
+                             f"('greedy', 'beam' or 'nar')")
         # Tiled pages take axis boxes whatever box_mode says (JAX's _crop_fn).
         self._axis_config = dataclasses.replace(config, box_mode="axis")
         for field in ("encoder_impl", "decode_impl"):
@@ -138,12 +149,6 @@ class OcrEngine:
                 if getattr(config, k) is not None}
         if impl:
             self.parseq_config = dataclasses.replace(self.parseq_config, **impl)
-        if config.quantized_serving and self.parseq_config.encoder_impl != "pallas":
-            # JAX quantizes the recognizer encoder too under this pairing.
-            raise NotImplementedError(
-                "quantized_serving with encoder_impl != 'pallas' serves an int8 "
-                "recognizer encoder, which is not ported yet (ROADMAP.md Queue 1); "
-                "use OcrConfig.production() or encoder_impl='pallas'")
 
         # Decode table: explicit charset > explicit reference_charset > the
         # charset stored with the weights > the standard table.
@@ -182,12 +187,17 @@ class OcrEngine:
         self.craft.load_state_dict(craft_state_dict(craft_tree, self.craft_config.bn_eps))
         self.parseq = Parseq(self.parseq_config)
         self.parseq.load_state_dict(parseq_state_dict(parseq_tree))
-        self.parseq.prestack(self.dtype, self.device)  # fp32 weights, before the cast
         if config.quantized_serving:
-            self.craft.quantize()  # from the fp32 folded weights, before the cast
+            # From the fp32 weights, before the cast. The bf16 K6 encoder is
+            # faster than an int8 one, so under encoder_impl="pallas" the
+            # recognizer stays float, as in JAX.
+            self.craft.quantize()
+            if self.parseq_config.encoder_impl != "pallas":
+                self.parseq.quantize()
             if self.device.type == "cuda":
-                for _, q in self.craft.qconvs():
+                for _, q in self.craft.qconvs() + self.parseq.qlinears():
                     check_int8_shapes(q.cin, q.cout)
+        self.parseq.prestack(self.dtype, self.device, config.decode_mode)
         for m in (self.craft, self.parseq):
             m.eval().requires_grad_(False)
             set_compute_dtype(m, self.dtype)
@@ -195,9 +205,12 @@ class OcrEngine:
         self.weights_dir = weights_dir
         calib = os.path.join(weights_dir, W.CALIB_FILE)
         if config.quantized_serving and os.path.isfile(calib):
-            # The recognizer's scales (saved under a quantized encoder) do
-            # not apply: the encoder serves bf16 here, as in JAX.
-            W.apply_static_scales(self.craft, W.load_calibration(calib)[0])
+            craft_sx, parseq_sx = W.load_calibration(calib)
+            W.apply_static_scales(self.craft, craft_sx)
+            if self.parseq.quantized:
+                W.apply_static_scales(self.parseq, parseq_sx)
+            # Else the recognizer's scales (saved under a quantized encoder)
+            # do not apply: the encoder serves float here, as in JAX.
         self.last_timings: Dict[str, Any] = {}
         # Cumulative serving counters since construction or reset_stats().
         self.stats: Dict[str, float] = self._fresh_stats()
@@ -371,7 +384,7 @@ class OcrEngine:
         for i in range(b):
             x = resample(images[i], th, tw)
             x = torch.nn.functional.pad(x, (0, 0, 0, pw - tw, 0, ph - th))  # input dtype
-            x = x.float() / 255.0
+            x = x.float() * INV_255
             if c == 1:  # gray: to three channels after the pad, no flip
                 x = x.expand(ph, pw, 3)
             elif cfg.channel_mode == "python":
@@ -387,14 +400,12 @@ class OcrEngine:
         res["scores"] = torch.stack(stitched)
         return res
 
-    @torch.inference_mode()
-    def recognize_slab(self, images: torch.Tensor, rects: torch.Tensor,
-                       valid: torch.Tensor, bucket: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Crops of the live boxes (padded to `bucket` rows) through PARSEQ.
-        -> (ids [bucket, T], conf [bucket]) in (page, slot) raster order of
-        the live boxes."""
-        self._check_open()
+    def _crop_slab(self, images: torch.Tensor, rects: torch.Tensor, valid: torch.Tensor,
+                   bucket: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The crops of the live boxes, padded to `bucket` rows (JAX
+        `_crop_fn`) -> (crops [bucket, rec_h, rec_w, 3] in [0, 1], inv: the
+        slab row of each live crop in (page, slot) raster order, or None
+        when the slab is in that order already)."""
         cfg = self.config
         b, k = valid.shape
         flat_valid = valid.reshape(-1)
@@ -431,7 +442,19 @@ class OcrEngine:
             crops = crops.expand(-1, -1, -1, 3)
         if cfg.channel_mode == "cpp":
             crops = crops.flip(-1)
-        ids, conf = confidence(self.parseq(crops))
+        return crops, inv
+
+    @torch.inference_mode()
+    def recognize_slab(self, images: torch.Tensor, rects: torch.Tensor,
+                       valid: torch.Tensor, bucket: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Crops of the live boxes (padded to `bucket` rows) through PARSEQ
+        under the configured decode mode. -> (ids [bucket, T], conf
+        [bucket]) in (page, slot) raster order of the live boxes."""
+        self._check_open()
+        crops, inv = self._crop_slab(images, rects, valid, bucket)
+        ids, conf = self.parseq.recognize(crops, self.config.decode_mode,
+                                          self.config.beam_size)
         if inv is not None:
             ids, conf = ids[inv], conf[inv]
         return ids, conf
@@ -439,24 +462,35 @@ class OcrEngine:
     @torch.inference_mode()
     def calibrate(self, pages, margin: float = 1.1) -> int:
         """Freeze static int8 activation scales from sample pages (JAX
-        `OcrEngine.calibrate`, detector layers only: the encoder is not
-        quantized here). `pages`: one batch or a list of batches, as
-        `run_pages` takes them. Each quantized layer's input abs-max over
-        the pages gives sx = 127 / (amax * margin); inputs beyond it
-        saturate. Re-calibration replaces the scales. -> layers set."""
+        `OcrEngine.calibrate`). `pages`: one batch or a list of batches, as
+        `run_pages` takes them. Each batch runs through the int8 detector
+        and, when the recognizer's encoder is int8 too, is detected (at the
+        current scales), cropped at the largest bucket its boxes could
+        fill, and encoded. Each quantized layer's input abs-max over the
+        pages gives sx = 127 / (amax * margin); inputs beyond it saturate.
+        Re-calibration replaces the scales. -> layers set."""
         self._check_open()
-        if not self.config.quantized_serving:
+        cfg = self.config
+        if not cfg.quantized_serving:
             raise ValueError("calibrate() requires OcrConfig(quantized_serving=True)")
         batches = pages if isinstance(pages, (list, tuple)) else [pages]
-        stats = []
+        craft_stats, rec_stats = [], []
         for batch in batches:
             images, b, _, _, _ = self._batch_geometry(batch)
             images_d = self._to_device(images)
-            canvases = torch.stack([canvas_prep(images_d[i], self.config) for i in range(b)])
+            canvases = torch.stack([canvas_prep(images_d[i], cfg) for i in range(b)])
             with L.calibration() as seen:
                 self.craft(canvases)
-            stats.append(dict(seen))
-        return L.make_static_quant(L.merge_calib_stats(stats), margin)
+            craft_stats.append(dict(seen))
+            if self.parseq.quantized:
+                det = self.detect(images_d)
+                bucket = self._bucket(min(max(cfg.rec_buckets), b * cfg.max_boxes))
+                crops, _ = self._crop_slab(images_d, det["rects"], det["valid"], bucket)
+                with L.calibration() as seen:
+                    self.parseq.encode(crops)
+                rec_stats.append(dict(seen))
+        return (L.make_static_quant(L.merge_calib_stats(craft_stats), margin)
+                + L.make_static_quant(L.merge_calib_stats(rec_stats), margin))
 
     def save_calibration(self, path: Optional[str] = None) -> str:
         """Write the calibrated scales to `path` (default: `calibration.npz`
@@ -464,7 +498,7 @@ class OcrEngine:
         construction). -> the path. Raises if nothing is calibrated."""
         if path is None:
             path = os.path.join(self.weights_dir, W.CALIB_FILE)
-        if W.save_calibration(path, self.craft) == 0:
+        if W.save_calibration(path, self.craft, self.parseq) == 0:
             raise ValueError("no calibrated scales to save: run engine.calibrate(pages) "
                              "first (requires quantized_serving=True)")
         return path
@@ -677,6 +711,16 @@ class OcrEngine:
                     pass
             thread.join()
         return out
+
+    def run_lines(self, image: np.ndarray, **group_kwargs) -> List[Dict]:
+        """OCR one image -> lines in reading order, [{text, bbox, confidence,
+        words}] (`ops/grouping.group_lines`; JAX `OcrEngine.run_lines`)."""
+        return group_lines(self.run(image), **group_kwargs)
+
+    def run_blocks(self, image: np.ndarray, **group_kwargs) -> List[Dict]:
+        """OCR one image -> blocks of lines, [{text, bbox, confidence,
+        lines}] (`ops/grouping.group_blocks` over `run_lines`)."""
+        return group_blocks(self.run_lines(image), **group_kwargs)
 
     @torch.inference_mode()
     def warmup(self, h: int, w: int, batch: int = 1, channels: int = 3) -> None:

@@ -14,8 +14,8 @@ kernels (the hand-written CUDA kernels K6 `kernels/vit.py` and K7
 `kernels/decode.py`), "xla" or None the plain PyTorch lowering. The port
 refuses any other value. `OcrConfig.latency()` and `OcrConfig.production()`
 are carried over; `quantized_serving` quantizes the detector (CRAFT) to
-int8 and needs `encoder_impl="pallas"` (the int8 recognizer encoder is not
-ported: ROADMAP.md Queue 1).
+int8, and the recognizer's encoder too unless `encoder_impl="pallas"`.
+`decode_mode` takes "greedy", "beam" (`beam_size` beams) or "nar".
 """
 
 from __future__ import annotations
@@ -58,7 +58,8 @@ class OcrConfig:
     rec_height: int = 32
     rec_width: int = 128
     max_label_length: int = 25     # PARSEQ decode budget (26 steps incl. EOS)
-    # "greedy": AR argmax + cloze refinement (the only mode ported so far).
+    # "greedy": AR argmax + cloze refinement; "nar": one non-autoregressive
+    # pass + refinement; "beam": beam search (beam_size beams), no refinement.
     decode_mode: str = "greedy"
     beam_size: int = 4
     encoder_impl: Optional[str] = None

@@ -5,8 +5,9 @@ Each wrapper (in `cc.py`, `stats.py`, `vit.py`, `decode.py`, `stage1.py`,
 the CPU to the plain PyTorch version beside it.
 `LAUNCHES[name]` counts the kernel launches only, so a run can show that
 the main path went through the kernels. `int8.py` holds int8 serving's
-convolution, a library GEMM (`torch._int_mm`) rather than a hand-written
-kernel, counted as "int8_conv" once a convolution.
+convolution and linear layer, library GEMMs (`torch._int_mm`) rather than
+hand-written kernels, counted as "int8_conv" once a convolution and
+"int8_linear" once a product.
 """
 
 from collections import Counter

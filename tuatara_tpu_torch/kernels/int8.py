@@ -1,24 +1,28 @@
-"""The int8 convolution of int8 serving: int8 x int8 -> exact int32 sums.
+"""int8 serving's products: int8 x int8 -> exact int32 sums.
 
-The JAX package runs it as an XLA convolution (`tuatara_tpu/models/
-layers.py:conv2d_q_pre`), not as a Pallas kernel, so on the card it is a
-library GEMM: `torch._int_mm` (cuBLASLt, int32 accumulators) over im2col
-rows. The activation [B, H, W, C] is padded once ("SAME" zeros, exact: 0
-quantizes to 0), its k*k shifted windows are concatenated along the
-channels into rows [B*H*W, k*k*C] (moved as int64 words, 8 channels each,
-since C is a multiple of 8 on the card), and one GEMM multiplies them by
-the weights held as [O, k*k*C], K-contiguous (cuBLASLt's int8 tensor-core
-kernels take that "TN" layout; the row-major [K, O] one ran slower on the
-H100). The int32 sums are exact, so they equal JAX's bit
-for bit.
+The JAX package runs them in XLA (`tuatara_tpu/models/layers.py:
+conv2d_q_pre` and `linear_q`), not as Pallas kernels, so on the card they
+are library GEMMs: `torch._int_mm` (cuBLASLt, int32 accumulators).
 
-`int8_conv` counts `LAUNCHES["int8_conv"]` once a convolution. On the CPU
-it takes the plain version, the im2col rows times the weights in float64:
-every product and partial sum is an integer below 2^53, so it is exact
-too. On the card
+`int8_conv`, CRAFT's convolutions: the activation [B, H, W, C] is padded
+once ("SAME" zeros, exact: 0 quantizes to 0), its k*k shifted windows are
+concatenated along the channels into rows [B*H*W, k*k*C] (moved as int64
+words, 8 channels each, since C is a multiple of 8 on the card), and one
+GEMM multiplies them by the weights held as [O, k*k*C], K-contiguous
+(cuBLASLt's int8 tensor-core kernels take that "TN" layout; the row-major
+[K, O] one ran slower on the H100).
+
+`int8_linear`, the recognizer encoder's linear layers (`QLinear`): rows
+[M, K] times the weights held as [N, K], K-contiguous, the same GEMM.
+
+The int32 sums are exact, so they equal JAX's bit for bit. `int8_conv`
+counts `LAUNCHES["int8_conv"]` once a convolution and `int8_linear`
+`LAUNCHES["int8_linear"]` once a product. On the CPU both take their plain
+versions, the rows times the weights in float64: every product and partial
+sum is an integer below 2^53, so they are exact too. On the card
 `torch._int_mm` needs more than 16 rows (padded here) and K and N
-multiples of 8: `check_shapes` raises unless cin and cout are, and the
-engine calls it at construction.
+multiples of 8: `check_shapes` raises unless they are, and the engine
+calls it at construction for every quantized layer.
 """
 
 from __future__ import annotations
@@ -29,13 +33,15 @@ import torch.nn.functional as F
 from tuatara_tpu_torch.kernels import LAUNCHES
 
 INT8_CONV = "int8_conv"
+INT8_LINEAR = "int8_linear"
 _MIN_ROWS = 17  # torch._int_mm on CUDA: more than 16 rows
 
 
 def check_shapes(cin: int, cout: int) -> None:
-    """ValueError unless the card's int8 GEMM takes K = k*k*cin and N = cout."""
+    """ValueError unless the card's int8 GEMM takes K = cin (k*k*cin for a
+    conv) and N = cout."""
     if cin % 8 or cout % 8:
-        raise ValueError(f"int8 conv on the card needs cin and cout multiples of 8 "
+        raise ValueError(f"int8 products on the card need cin and cout multiples of 8 "
                          f"(torch._int_mm), got {cin} -> {cout}")
 
 
@@ -95,3 +101,29 @@ def int8_conv(xq: torch.Tensor, wmat: torch.Tensor, k: int, dilation: int = 1) -
     out = int8_conv_im2col(xq, wmat, k, dilation)
     LAUNCHES[INT8_CONV] += 1
     return out
+
+
+def int8_linear_plain(xq: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
+    """xq [..., K] int8, wmat [N, K] int8 -> [..., N] int32: the rows times
+    the weights in float64 (exact)."""
+    return (xq.double() @ wmat.double().t()).to(torch.int32)
+
+
+def int8_linear(xq: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
+    """xq [..., K] int8 contiguous, wmat [N, K] int8 contiguous -> [..., N]
+    int32 (JAX `linear_q`'s dot_general with int32 accumulation)."""
+    if not xq.is_cuda:
+        return int8_linear_plain(xq, wmat)
+    n, k = wmat.shape
+    if (xq.dtype, wmat.dtype) != (torch.int8, torch.int8) or xq.shape[-1] != k \
+            or not (xq.is_contiguous() and wmat.is_contiguous()):
+        raise ValueError(f"int8_linear: expected int8 [..., K] and [N, K] contiguous, got "
+                         f"{tuple(xq.shape)} {xq.dtype}, {tuple(wmat.shape)} {wmat.dtype}")
+    check_shapes(k, n)
+    rows = xq.reshape(-1, k)
+    m = rows.shape[0]
+    if m < _MIN_ROWS:
+        rows = torch.cat([rows, rows.new_zeros(_MIN_ROWS - m, k)])
+    out = torch._int_mm(rows, wmat.t())[:m]
+    LAUNCHES[INT8_LINEAR] += 1
+    return out.view(*xq.shape[:-1], n)

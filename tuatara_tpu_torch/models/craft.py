@@ -25,6 +25,12 @@ output is upsampled, as JAX orders it (`tuatara_tpu/models/craft.py:
 width for the TPU; the packed int8 conv is bit-equal to the unpacked one,
 so the head runs unpacked here.
 
+At fp32 the port rounds where XLA's CPU backend rounds JAX's compiled
+forward, so that int8 CRAFT's scores equal JAX's bit for bit given one
+folded tree: the 2x upsamples (`_upsample2x`), each int8 decoder level's
+`ya + acc * s` as one fused multiply-add, and the head's float 1x1 convs
+(`_conv1x1_xla`, for the committed weight sets' shapes).
+
 `FUSED_STAGE1` gates kernel K8 (`kernels/stage1.py`), which runs conv1_2,
 its ReLU and pool1 as one pass, as the JAX package's gate of the same name
 does (`tuatara_tpu/models/craft.py:279-298`). K8 reads conv1_2's weights
@@ -43,7 +49,8 @@ from torch import nn
 
 from tuatara_tpu_torch.config import CraftConfig
 from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool, pack_conv_pool_weights
-from tuatara_tpu_torch.models.layers import Conv, QConv
+from tuatara_tpu_torch.models.layers import Conv, QConv, dequant
+from tuatara_tpu_torch.ops.minarearect import fma
 
 _STAGE_COUNTS = (2, 2, 3, 3, 2)
 
@@ -67,8 +74,68 @@ def vgg_plan(cfg: CraftConfig):
 
 
 def upsample_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Bilinear resize with half-pixel (align_corners=False) semantics."""
+    """Bilinear resize with half-pixel (align_corners=False) semantics. An
+    fp32 2x upsample (every level of the U-Net: canvases are multiples of
+    32) rounds as XLA's CPU backend rounds JAX's `jax.image.resize`, on
+    either device (`_upsample2x`)."""
+    if x.dtype == torch.float32 and (h, w) == (2 * x.shape[-2], 2 * x.shape[-1]):
+        return _upsample2x(x)
     return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+
+
+def _upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """fp32 NCHW 2x bilinear upsample, rounded as XLA's CPU backend rounds
+    `jax.image.resize`. JAX contracts one [n, 2n] weight matrix per axis
+    (weights 0.75 and 0.25, exact; 1 at the two edge outputs): the first
+    contraction is the longer axis (H when H >= W), the second the other.
+    An output adds its taps in index order: 0.25 * x[k - 1] (exact), then
+    0.75 * x[k], fused into one rounding in the first contraction; in the
+    second only when its output width 2n falls at most 12 short of a
+    multiple of 64 (XLA's dot takes another kernel there), else the
+    product rounds first. Odd outputs add 0.25 * x[k + 1] last, exact
+    either way. Both orders are held against XLA on the CPU by
+    tests/test_torch_int8.py."""
+    first, second = (3, 2) if x.shape[3] > x.shape[2] else (2, 3)
+    x = _upsample2x_axis(x, first, fused=True)
+    n2 = 2 * x.shape[second]
+    return _upsample2x_axis(x, second, fused=(-n2) % 64 <= 12)
+
+
+def _upsample2x_axis(x: torch.Tensor, dim: int, fused: bool) -> torch.Tensor:
+    n = x.shape[dim]
+    lo = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim) * 0.25
+    hi = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim) * 0.25
+    mid = x * 0.75
+    even = fma(x, torch.full_like(x, 0.75), lo) if fused else mid + lo
+    odd = mid + hi
+    even.narrow(dim, 0, 1).copy_(x.narrow(dim, 0, 1))
+    odd.narrow(dim, n - 1, 1).copy_(x.narrow(dim, n - 1, 1))
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+# XLA's CPU backend runs JAX's width-packed head 1x1 convs (`_pack4_1x1_w`:
+# cin 4C, cout 4O) as dots whose reduction it splits by shape: channel c
+# goes to partial sum c % lanes (a chain of fused multiply-adds in channel
+# order), and the partial sums add pairwise. Measured for the committed
+# weight sets' heads, (C, O) -> lanes; other shapes take cuDNN/oneDNN.
+_HEAD_1X1_LANES = {(8, 8): 2, (8, 2): 4, (16, 16): 1, (16, 2): 4}
+
+
+def _conv1x1_xla(conv: Conv, x: torch.Tensor) -> torch.Tensor:
+    """An fp32 head 1x1 conv over NCHW rounded as XLA's CPU backend rounds
+    JAX's packed one (`_HEAD_1X1_LANES`), on either device."""
+    w = conv.weight[:, :, 0, 0].double()
+    lanes = _HEAD_1X1_LANES[(w.shape[1], w.shape[0])]
+    parts = []
+    for lane in range(lanes):
+        acc = None
+        for c in range(lane, w.shape[1], lanes):
+            p = x[:, c:c + 1].double() * w[:, c, None, None]
+            acc = p.float() if acc is None else (p + acc.double()).float()
+        parts.append(acc)
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0] + conv.bias[:, None, None]
 
 
 def _qconv(conv: Conv) -> QConv:
@@ -175,8 +242,14 @@ class Craft(nn.Module):
         ya = blk["conv1a"](y)
         if up:
             ya = upsample_to(ya, *size)
-        y = F.relu(ya + blk["conv1b"](skip))
-        return F.relu(blk["conv2"](y))
+        if ya.dtype == torch.float32:
+            # XLA fuses the skip side's dequant into the sum: ya + acc * s
+            # rounds once (conv1b has no bias).
+            acc, scale = blk["conv1b"].sums(skip)
+            y = dequant(acc, scale, ya.permute(0, 2, 3, 1), torch.float32).permute(0, 3, 1, 2)
+        else:
+            y = ya + blk["conv1b"](skip)
+        return F.relu(blk["conv2"](F.relu(y)))
 
     def _fused_stage1_ok(self, x: torch.Tensor) -> bool:
         """JAX's gate (`models/craft.py:283-298`): serving (not training), a
@@ -244,7 +317,13 @@ class Craft(nn.Module):
         y = F.relu(hd["conv1"](feat))
         y = F.relu(hd["conv2"](y))
         y = F.relu(hd["conv3"](y))
-        y = F.relu(hd["conv4"](y))
-        y = hd["conv5"](y)
+        if self.quantized and y.dtype == torch.float32 and all(
+                (hd[n].weight.shape[1], hd[n].weight.shape[0]) in _HEAD_1X1_LANES
+                for n in ("conv4", "conv5")):
+            # The int8 convs before are exact: round the float 1x1s as XLA
+            # does and the fp32 scores equal JAX's.
+            y = _conv1x1_xla(hd["conv5"], F.relu(_conv1x1_xla(hd["conv4"], y)))
+        else:
+            y = hd["conv5"](F.relu(hd["conv4"](y)))
         return (y.float().permute(0, 2, 3, 1).contiguous(),
                 feat.float().permute(0, 2, 3, 1).contiguous())

@@ -8,11 +8,12 @@ compute dtype (`set_compute_dtype`), and each such layer casts its input to
 that dtype, so products run in the compute dtype with fp32 accumulation.
 LayerNorm and softmax always run in fp32. GELU is the exact erf form.
 
-int8 serving (`QConv`, JAX's `quantize_conv` / `conv2d_q` family): weights
-per output channel and activations per tensor, symmetric, int8 x int8 ->
-int32 sums (exact, so equal to JAX's), then `y.float() * (sw / xs) + b`
-and a cast to the compute dtype, in JAX's order. An activation's scale is
-dynamic (its abs-max) until `make_static_quant` freezes a calibrated one.
+int8 serving (`QConv`, JAX's `quantize_conv` / `conv2d_q` family, and
+`QLinear`, its `quantize_linear` / `linear_q`): weights per output channel
+and activations per tensor, symmetric, int8 x int8 -> int32 sums (exact,
+so equal to JAX's), then `y.float() * (sw / xs) + b` and a cast to the
+compute dtype, in JAX's order. An activation's scale is dynamic (its
+abs-max) until `make_static_quant` freezes a calibrated one.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tuatara_tpu_torch.kernels.int8 import int8_conv, weight_matrix
+from tuatara_tpu_torch.kernels.int8 import int8_conv, int8_linear, weight_matrix
 
 
 class Conv(nn.Module):
@@ -89,13 +90,13 @@ class LayerNorm(nn.Module):
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the weights of every Conv and Linear to `dtype` (LayerNorms and
-    free parameters such as embeddings stay fp32); every QConv keeps its
-    int8 weights and fp32 scales and outputs `dtype`."""
+    free parameters such as embeddings stay fp32); every QConv and QLinear
+    keeps its int8 weights and fp32 scales and outputs `dtype`."""
     for m in module.modules():
         if isinstance(m, (Conv, Linear)):
             m.weight.data = m.weight.data.to(dtype)
             m.bias.data = m.bias.data.to(dtype)
-        elif isinstance(m, QConv):
+        elif isinstance(m, (QConv, QLinear)):
             m.out_dtype = dtype
     return module
 
@@ -204,25 +205,92 @@ class QConv(nn.Module):
             return quantize_act(x)
         return _round_int8(x, self.sx), self.sx
 
+    def sums(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (the exact int32 sums [B, H, W, O], the dequant scale sw / xs)."""
+        xq, xs = self.quantize_input(x)
+        return int8_conv(xq, self.wmat, self.wq.shape[0], self.dilation), self.sw / xs
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """JAX `conv2d_q`: quantize, the exact int32 sums, then `y.float() *
         (sw / xs) + b`, cast to `out_dtype`."""
+        acc, scale = self.sums(x)
+        return dequant(acc, scale, self.bias, self.out_dtype).permute(0, 3, 1, 2)
+
+
+def quantize_linear(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-column symmetric int8 weights (JAX `quantize_linear`):
+    [out, in] fp32 -> (wq [in, out] int8, JAX's layout; sw [out] fp32),
+    sw = max(amax, 1e-12) / 127, wq = clip(round(w / sw), +-127)."""
+    w = w.float()
+    sw = torch.clamp(w.abs().amax(dim=1), min=1e-12) / 127.0
+    wq = torch.clamp(torch.round(w / sw[:, None]), -127, 127).to(torch.int8)
+    return wq.t().contiguous(), sw
+
+
+class QLinear(nn.Module):
+    """int8 linear layer (JAX `linear_q`): int8 weights `wq` [in, out]
+    (also held as `wmat` [out, in], K-contiguous, for the GEMM), their
+    scales `sw` [out], the fp32 bias (or None) and `sx`, the calibrated
+    static activation scale (None: dynamic, one abs-max over the whole
+    input, every row of the slab included). x [..., in] in any float dtype
+    -> [..., out] in `out_dtype`."""
+
+    def __init__(self, wq: torch.Tensor, sw: torch.Tensor, bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("wq", wq)
+        self.register_buffer("wmat", wq.t().contiguous(), persistent=False)
+        self.register_buffer("sw", sw)
+        self.register_buffer("bias", bias)
+        self.register_buffer("sx", None)
+        self.out_dtype = torch.float32
+
+    @classmethod
+    def from_linear(cls, lin: "Linear") -> "QLinear":
+        """Quantize an fp32 Linear."""
+        wq, sw = quantize_linear(lin.weight.detach())
+        return cls(wq, sw, lin.bias.detach().float().clone())
+
+    @property
+    def cin(self) -> int:
+        return self.wq.shape[0]
+
+    @property
+    def cout(self) -> int:
+        return self.wq.shape[1]
+
+    def quantize_input(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """JAX `quantize_act_q` over [..., in]: the static scale when
+        calibrated, else 127 / max(amax, 1e-12); the input's abs-max goes
+        to an open `calibration()`."""
+        if _CALIB is not None or self.sx is None:
+            lo, hi = torch.aminmax(x)
+            amax = torch.maximum(-lo, hi).float()
+            if _CALIB is not None:
+                _CALIB[self] = max(_CALIB.get(self, float(amax)), float(amax))
+        if self.sx is None:
+            amax = torch.clamp(amax, min=1e-12)
+            xs = torch.full_like(amax, 127.0) / amax  # a true division, as in JAX
+        else:
+            xs = self.sx
+        xq = torch.mul(x, xs.reshape(1)).round_().clamp_(-127, 127).to(torch.int8)
+        return xq, xs
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         xq, xs = self.quantize_input(x)
-        acc = int8_conv(xq, self.wmat, self.wq.shape[0], self.dilation)
-        return dequant(acc, self.sw / xs, self.bias, self.out_dtype).permute(0, 3, 1, 2)
+        return dequant(int8_linear(xq, self.wmat), self.sw / xs, self.bias, self.out_dtype)
 
 
-# Calibration: while a `calibration()` context is open, every QConv records
-# its input's abs-max under its own module (JAX keys on id() of the weight
-# array; a module is the port's stable identity for the layer).
-_CALIB: Optional[Dict[QConv, float]] = None
+# Calibration: while a `calibration()` context is open, every QConv and
+# QLinear records its input's abs-max under its own module (JAX keys on id()
+# of the weight array; a module is the port's stable identity for the layer).
+_CALIB: Optional[Dict[nn.Module, float]] = None
 
 
 class calibration:
-    """Context collecting {QConv: input abs-max} over the forwards it
-    encloses (JAX `layers.calibration`)."""
+    """Context collecting {QConv or QLinear: input abs-max} over the
+    forwards it encloses (JAX `layers.calibration`)."""
 
-    def __enter__(self) -> Dict[QConv, float]:
+    def __enter__(self) -> Dict[nn.Module, float]:
         global _CALIB
         self._prev = _CALIB
         _CALIB = {}
@@ -233,9 +301,9 @@ class calibration:
         _CALIB = self._prev
 
 
-def merge_calib_stats(stats: Iterable[Dict[QConv, float]]) -> Dict[QConv, float]:
+def merge_calib_stats(stats: Iterable[Dict[nn.Module, float]]) -> Dict[nn.Module, float]:
     """Per-layer max across per-batch calibration stats."""
-    out: Dict[QConv, float] = {}
+    out: Dict[nn.Module, float] = {}
     for s in stats:
         for k, v in s.items():
             out[k] = max(out[k], float(v)) if k in out else float(v)
@@ -248,8 +316,8 @@ def static_scale(amax: float, margin: float) -> np.float32:
     return np.float32(127.0 / (max(float(amax), 1e-12) * margin))
 
 
-def make_static_quant(stats: Dict[QConv, float], margin: float = 1.1) -> int:
-    """Freeze sx into every QConv in `stats` (replacing an earlier one);
+def make_static_quant(stats: Dict[nn.Module, float], margin: float = 1.1) -> int:
+    """Freeze sx into every QConv / QLinear in `stats` (replacing an earlier one);
     layers the calibration never ran keep dynamic scales. -> layers set."""
     for q, amax in stats.items():
         q.sx = torch.tensor(static_scale(amax, margin), device=q.wq.device)

@@ -17,12 +17,27 @@ Port of `tuatara_tpu/models/parseq.py`. The default (XLA) lowering:
   each query blind to its own input position and to positions at or after
   the first EOS.
 
+* `nar_decode`: the non-autoregressive decode, one pass with BOS as the
+  whole content and every position query at once (`decode_mode="nar"`),
+  followed by the cloze passes as the AR decode is.
+* `beam_decode`: beam search with the beams folded into the batch (N * B
+  rows), a KV-cached step a position, log-probabilities in fp32, finished
+  beams proposing only EOS at no cost, one top-B a sequence over its B * C
+  candidates (a stable sort: equal scores go lowest index first, as
+  `jax.lax.top_k` orders them, on any device), and the best beam chosen by
+  GNMT length normalisation; it returns that beam's raw log-probability.
+  All T steps are issued with no host read (`decode_mode="beam"`).
+
 With `encoder_impl="pallas"` / `decode_impl="pallas"` at bf16 compute (the
 JAX gates that mean something on the card), `prestack` builds the weight
 bundles of the fused kernels K6 (`kernels/vit.py`, the 12 blocks) and K7
 (`kernels/decode.py`, the whole greedy loop) once, and `encode` /
 `greedy_decode` go through them. At float32 the plain lowering stays, as
-in JAX.
+in JAX. K7 decodes greedily only: under beam and NAR its bundle is not
+built. `quantize` makes the encoder int8 (JAX `quantize_parseq_encoder`:
+the patch embed and every block's q/k/v/o and fc1/fc2 become `QLinear`s;
+the decoder stays float); a quantized encoder never takes K6, as JAX's
+gate keeps the int8 encoder on XLA.
 
 Vocabulary: [EOS=0, charset..., BOS, PAD]; the head emits charset_size + 1
 classes (EOS + charset).
@@ -40,8 +55,10 @@ from tuatara_tpu_torch.config import ParseqConfig
 from tuatara_tpu_torch.kernels import decode as K7
 from tuatara_tpu_torch.kernels import vit as K6
 from tuatara_tpu_torch.models.layers import (
-    MHA, LayerNorm, Linear, PaddedLinear, VitBlock, attention_core, gelu, merge_heads,
+    MHA, LayerNorm, Linear, PaddedLinear, QLinear, VitBlock, attention_core, gelu, merge_heads,
 )
+
+_INV_6 = float(torch.tensor(1.0 / 6.0, dtype=torch.float32))  # XLA's `x / 6.0`
 
 
 class Bundle(nn.Module):
@@ -82,6 +99,7 @@ class Parseq(nn.Module):
     def __init__(self, cfg: ParseqConfig = ParseqConfig()):
         super().__init__()
         if cfg.dec_depth != 1:
+            # The greedy and beam decodes cache the content stream's K/V.
             raise NotImplementedError("the KV-cached decode assumes dec_depth == 1")
         self.cfg = cfg
         D = cfg.embed_dim
@@ -106,27 +124,55 @@ class Parseq(nn.Module):
         self.dec_stacked: Optional[Bundle] = None
 
     def prestack(self, compute_dtype: torch.dtype,
-                 device: Optional[torch.device] = None) -> None:
+                 device: Optional[torch.device] = None,
+                 decode_mode: str = "greedy") -> None:
         """Build the fused kernels' weight bundles from the fp32 parameters
         (before `set_compute_dtype`), as the JAX engine pre-stacks at
-        construction: K6's when encoder_impl == "pallas", K7's when
-        decode_impl == "pallas", both only at bf16 compute. For a CUDA
-        `device`, a geometry that K6's kernel does not take (e.g. S outside
-        {64, 128}) raises here, not at the first page; on the CPU the plain
-        version takes any. Once K6's bundle is built, `encode` no longer
-        reads the per-block modules, so they are released rather than kept
-        as a second copy of the encoder."""
+        construction: K6's when encoder_impl == "pallas" and the encoder is
+        not quantized, K7's when decode_impl == "pallas" and the decode is
+        greedy, both only at bf16 compute. For a CUDA `device`, a geometry
+        that K6's kernel does not take (e.g. S outside {64, 128}) raises
+        here, not at the first page; on the CPU the plain version takes
+        any. Once K6's bundle is built, `encode` no longer reads the
+        per-block modules, so they are released rather than kept as a
+        second copy of the encoder."""
         if compute_dtype != torch.bfloat16:
             return
-        if self.cfg.encoder_impl == "pallas":
+        if self.cfg.encoder_impl == "pallas" and not self.quantized:
             cfg = self.cfg
             if device is not None and torch.device(device).type == "cuda":
                 K6.check_geometry(cfg.seq_len, cfg.embed_dim, cfg.enc_heads,
                                   int(cfg.embed_dim * cfg.enc_mlp_ratio))
             self.enc_stacked = Bundle(K6.stack_vit_block_weights(self.enc))
             self.enc = nn.ModuleList()
-        if self.cfg.decode_impl == "pallas":
+        if self.cfg.decode_impl == "pallas" and decode_mode == "greedy":
             self.dec_stacked = Bundle(K7.stack_decode_weights(self))
+
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.patch_embed, QLinear)
+
+    def qlinears(self):
+        """[(name, QLinear)] of a quantized encoder, in module order; the
+        names are the '/'-joined paths of the JAX tree (`enc/0/attn/q`)."""
+        return [(n.replace(".", "/"), m) for n, m in self.named_modules()
+                if isinstance(m, QLinear)]
+
+    @torch.no_grad()
+    def quantize(self) -> "Parseq":
+        """JAX `quantize_parseq_encoder` on the fp32 weights (call it before
+        `prestack` and `set_compute_dtype`): the patch embed and each
+        encoder block's attention q/k/v/o and MLP fc1/fc2 become int8
+        `QLinear`s; LayerNorms and the decoder stay float. Idempotent."""
+        if self.quantized:
+            return self
+        self.patch_embed = QLinear.from_linear(self.patch_embed)
+        for blk in self.enc:
+            for name in ("q", "k", "v", "o"):
+                setattr(blk.attn, name, QLinear.from_linear(getattr(blk.attn, name)))
+            for name in ("fc1", "fc2"):
+                setattr(blk.mlp, name, QLinear.from_linear(getattr(blk.mlp, name)))
+        return self
 
     # ---- encoder ----
 
@@ -164,8 +210,8 @@ class Parseq(nn.Module):
         [N, Lq, C]. query_mask broadcastable to [N, heads, Lq, L]."""
         layer = self.dec[0]
         N, L_ = tgt_ids.shape
-        pos = self.pos_queries[0, : L_ - 1]
-        pos = torch.cat([torch.zeros_like(pos[:1]), pos], dim=0)
+        pos = self.pos_queries[0, :L_]
+        pos = torch.cat([torch.zeros_like(pos[:1]), pos[: L_ - 1]], dim=0)
         content = self._embed(tgt_ids) + pos[None]
         if query is None:
             query = self.pos_queries[:, :L_].expand(N, L_, -1)
@@ -246,14 +292,113 @@ class Parseq(nn.Module):
         query = self.pos_queries[:, :T].expand(N, T, -1)
         return self.decode(memory, tgt_in, query=query, query_mask=mask).float()
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def nar_decode(self, memory: torch.Tensor) -> torch.Tensor:
+        """Non-autoregressive decode (JAX `parseq_nar_decode`): BOS alone as
+        the content, all T position queries in one pass -> logits [N, T, C]
+        in the compute dtype."""
+        N = memory.shape[0]
+        T = self.cfg.max_label_length + 1
+        bos = torch.full((N, 1), self.cfg.num_tokens - 2, dtype=torch.long,
+                         device=memory.device)
+        query = self.pos_queries[:, :T].expand(N, T, -1)
+        return self.decode(memory, bos, query=query)
+
+    def beam_decode(self, memory: torch.Tensor, beam_size: int = 4,
+                    length_norm: float = 0.6) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Beam search (JAX `parseq_beam_decode`) -> (ids [N, T], the best
+        beam's raw sum of token log-probabilities [N] fp32). The best beam
+        is chosen by its score over ((5 + len) / 6) ** length_norm, len up
+        to and including the first EOS (T when there is none). All T steps
+        run, and no step reads the host."""
+        cfg = self.cfg
+        layer = self.dec[0]
+        N, S, D = memory.shape
+        H = cfg.dec_heads
+        hd = D // H
+        T = cfg.max_label_length + 1
+        C = cfg.charset_size + 1
+        B = beam_size
+        NB = N * B
+        dev = memory.device
+        # Each crop's memory B times (an expand: repeat_interleave reads its size back).
+        mem_k, mem_v = layer.cross_attn.kv(memory[:, None].expand(N, B, S, D).reshape(NB, S, D))
+        pos_q = self.pos_queries[0]  # [T, D]
+        pos_table = torch.cat([torch.zeros_like(pos_q[:1]), pos_q[: T - 1]], dim=0)
+        kv_dtype = layer.self_attn.k.weight.dtype
+        tokens = torch.full((NB, T + 1), cfg.num_tokens - 2, dtype=torch.long, device=dev)
+        k_cache = torch.zeros(NB, H, T, hd, dtype=kv_dtype, device=dev)
+        v_cache = torch.zeros(NB, H, T, hd, dtype=kv_dtype, device=dev)
+        scores = torch.zeros(NB, dtype=torch.float32, device=dev)
+        done = torch.zeros(NB, dtype=torch.bool, device=dev)
+        # A finished beam proposes only EOS, at no cost (a masked fill: an
+        # element assignment would copy the scalar from the host).
+        frozen = torch.zeros(C, device=dev).masked_fill(torch.arange(C, device=dev) > 0,
+                                                        float("-inf"))
+        later = (torch.arange(NB, device=dev) % B != 0)[:, None]
+        base = (torch.arange(N, device=dev) * B)[:, None]
+        steps = torch.arange(T, device=dev)
+        for i in range(T):
+            e = self._embed(tokens[:, i]) + pos_table[i]
+            cn = layer.norm_c(e[:, None])  # [NB, 1, D]
+            k_cache[:, :, i] = layer.self_attn.k(cn).reshape(NB, H, hd).to(kv_dtype)
+            v_cache[:, :, i] = layer.self_attn.v(cn).reshape(NB, H, hd).to(kv_dtype)
+            q = pos_q[i].expand(NB, 1, D)
+            mask = (steps <= i)[None, None, None, :]
+            x = q + layer.self_attn.attend(layer.norm_q(q), k_cache, v_cache, mask)
+            x = x + layer.cross_attn.attend(layer.norm1(x), mem_k, mem_v)
+            x = layer.ff(x)
+            logits = self.head(self.dec_norm(x))[:, 0]
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            logp = torch.where(done[:, None], frozen, logp)
+            if i == 0:  # every beam of a sequence starts equal: beam 0 proposes
+                logp = logp.masked_fill(later, float("-inf"))
+            cand = (scores[:, None] + logp).reshape(N, B * C)
+            # Top B by a stable descending sort: equal scores keep index
+            # order, as jax.lax.top_k returns them. A -inf candidate never
+            # ranks above a finite one, and each sequence has at least B
+            # finite ones (B * C at step 0 from beam 0; one or more a beam
+            # after, a finished beam's EOS included).
+            top_s, top_i = torch.sort(cand, dim=-1, descending=True, stable=True)
+            top_s, top_i = top_s[:, :B], top_i[:, :B]
+            parent = (base + torch.div(top_i, C, rounding_mode="floor")).reshape(-1)
+            tok = (top_i % C).reshape(-1)
+            tokens = tokens[parent]
+            k_cache = k_cache[parent]
+            v_cache = v_cache[parent]
+            done = done[parent] | (tok == 0)
+            tokens[:, i + 1] = tok
+            scores = top_s.reshape(-1)
+        ids = tokens[:, 1:].reshape(N, B, T)
+        eos = ids == 0
+        lengths = torch.where(eos.any(-1), torch.argmax(eos.to(torch.int32), -1) + 1,
+                              torch.full_like(ids[..., 0], T)).float()
+        norm = torch.pow((5.0 + lengths) * _INV_6, length_norm)
+        scores = scores.reshape(N, B)
+        best = torch.argmax(scores / norm, dim=1)
+        rows = torch.arange(N, device=dev)
+        return ids[rows, best], scores[rows, best]
+
+    def forward(self, images: torch.Tensor, ar: bool = True) -> torch.Tensor:
         """Crops [N, 32, 128, 3] in [0, 1] -> logits [N, T, C] fp32: greedy
-        AR decode, then `refine_iters` cloze passes."""
+        AR decode (`ar=False`: the NAR decode), then `refine_iters` cloze
+        passes."""
         memory = self.encode(images)
-        logits = self.greedy_decode(memory)
+        logits = self.greedy_decode(memory) if ar else self.nar_decode(memory)
         for _ in range(self.cfg.refine_iters):
             logits = self.refine(memory, logits)
-        return logits
+        return logits.float()
+
+    def recognize(self, images: torch.Tensor, mode: str = "greedy",
+                  beam_size: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+        """JAX `OcrEngine._recognize_body`: crops -> (ids [N, T], conf [N]).
+        Greedy and NAR: the product of the per-position max probability up
+        to and including the first EOS (`confidence`). Beam: exp of the
+        best beam's raw log-probability (a sequence probability too), with
+        no cloze pass."""
+        if mode == "beam":
+            ids, logp = self.beam_decode(self.encode(images), beam_size)
+            return ids, torch.exp(logp)
+        return confidence(self(images, ar=mode != "nar"))
 
 
 def refine_mask(T: int, device=None) -> torch.Tensor:

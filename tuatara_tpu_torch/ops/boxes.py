@@ -108,7 +108,10 @@ def extract_boxes(textmap: torch.Tensor, linkmap: torch.Tensor,
     slots: boxes [K, 4] fp32 (x0, y0, x1, y1 inclusive heatmap pixels,
     dilated), corners [K, 4, 2] fp32 (the rotated rectangle in "rotated"
     mode, the box's corners in "axis" mode), valid [K] bool, count
-    (scalar), num_components (scalar). Invalid slots hold zeros."""
+    (scalar), num_components (scalar). Invalid slots keep what their
+    component (or its absence) gives, as in JAX: the recognition slab
+    crops them as its padding rows, and under dynamic int8 scales those
+    rows take part in the abs-max."""
     H, W = textmap.shape
     K = cfg.max_boxes
     comb, keep, hot, tn = (m.contiguous() for m in binarize(textmap, linkmap, content_mask, cfg))
@@ -164,9 +167,7 @@ def extract_boxes(textmap: torch.Tensor, linkmap: torch.Tensor,
             exact, exact_ok = min_area_rect_from_profiles(
                 *row_profiles(slots, K), grow_lt, grow_rb, cw, ch)
             corners = torch.where(exact_ok[:, None, None], exact, corners)
-        corners = torch.where(valid[:, None, None], corners, torch.zeros_like(corners))
-    boxes = torch.where(valid[:, None], boxes, torch.zeros_like(boxes))
-    if cfg.box_mode != "rotated":
+    else:
         corners = _aabb_corners(boxes)
     return {
         "boxes": boxes,

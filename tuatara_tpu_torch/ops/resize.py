@@ -7,16 +7,24 @@ truncated to int, and the content is padded to a multiple of 32; the canvas
 then rounds up to `canvas_bucket`. The resample is bilinear with half-pixel
 centres and, when it shrinks the page, antialiased (a triangle filter
 widened by the scale), as `jax.image.resize` does.
+
+Pixels go to [0, 1] as `x * INV_255`: XLA compiles JAX's `x / 255.0` into
+a product with the rounded reciprocal, which differs from the quotient by
+an ulp at some values (the JAX engine's canvases and crops are compiled,
+so this is what it feeds CRAFT and PARSEQ).
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tuatara_tpu_torch.config import OcrConfig
+
+INV_255 = float(np.float32(1.0 / 255.0))  # XLA's `x / 255.0`: x * fp32(1/255)
 
 
 def resize_geometry(h: int, w: int, cfg: OcrConfig) -> Tuple[int, int, float]:
@@ -68,7 +76,7 @@ def detect_canvas(image: torch.Tensor, cfg: OcrConfig
     th, tw, _ = resize_geometry(h, w, cfg)
     x = resample(image, th, tw)
     x = F.pad(x.float(), (0, 0, 0, canvas_w - tw, 0, canvas_h - th))
-    return (x / 255.0)[None], ratio, (ch, cw)
+    return (x * INV_255)[None], ratio, (ch, cw)
 
 
 def canvas_prep(image: torch.Tensor, cfg: OcrConfig) -> torch.Tensor:

@@ -6,7 +6,8 @@ Port of `tuatara_tpu/ops/warp.py` (`crop_rects`, `_sample_coords`,
 (tuatara.cpp:409-418) and resizes it to 128x32 (tuatara.cpp:438-448); here
 both are one sample per output pixel, cv::resize INTER_LINEAR's half-pixel
 convention, src = x0 + (j + 0.5) * w_box / out_w - 0.5, clamped to the crop
-window (the window itself clamped to the image), then /255.
+window (the window itself clamped to the image), then /255 (as XLA compiles
+it, a product with fp32(1/255): `ops.resize.INV_255`).
 
 Bilinear weights are computed as max(0, 1 - |src - tap|) for the two taps,
 the form the JAX package's column product uses.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from tuatara_tpu_torch.ops.minarearect import fma
+from tuatara_tpu_torch.ops.resize import INV_255
 
 
 def crop_rects(scaled_boxes: torch.Tensor, img_h: int, img_w: int) -> torch.Tensor:
@@ -72,7 +74,7 @@ def extract_crops_batched(images: torch.Tensor, page: torch.Tensor, rects: torch
     ga = torch.gather(rows, 2, ia[:, None, :, None].expand(k, oh, out_w, C))
     gb = torch.gather(rows, 2, ib[:, None, :, None].expand(k, oh, out_w, C))
     out = ga * wa[:, None, :, None] + gb * wb[:, None, :, None]
-    return out / 255.0
+    return out * INV_255
 
 
 def _lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -126,4 +128,4 @@ def extract_crops_perspective_batched(images: torch.Tensor, page: torch.Tensor,
 
     top = _lerp(at(y0, x0), at(y0, x1), wx)
     bot = _lerp(at(y1, x0), at(y1, x1), wx)
-    return _lerp(top, bot, wy) / 255.0
+    return _lerp(top, bot, wy) * INV_255

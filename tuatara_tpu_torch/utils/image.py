@@ -1,4 +1,4 @@
-"""PNG decoding with the standard library and numpy.
+"""PNG reading and writing with the standard library and numpy.
 
 The engine's input contract is an [H, W, 3] uint8 RGB array (or [H, W]
 grayscale). This reader covers the PNGs the repo ships: 8-bit samples,
@@ -6,12 +6,20 @@ non-interlaced, colour types gray (0), RGB (2), gray+alpha (4) and RGBA (6),
 scanline filters 0-4. It converts like PIL's `convert("RGB")`: gray is
 tripled and alpha is dropped, so the port reads the same pixels as the JAX
 package's `load_image` without needing PIL.
+
+`save_image` writes 8-bit gray, RGB or RGBA PNGs (filter 0). `annotate`
+renders results as three side-by-side panels, as the JAX package's does:
+the page with green boxes, the boxes on white, and the reading order. With
+no font renderer (no PIL), a word's text is drawn as a dark bar inside its
+box, one bar a character, and the third panel lists the words as such bars
+in reading order.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import Dict, List
 
 import numpy as np
 
@@ -105,3 +113,84 @@ def load_image(path: str, keep_gray: bool = False) -> np.ndarray:
         g = img[:, :, 0]
         return g.copy() if keep_gray else np.repeat(g[:, :, None], 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """[H, W] / [H, W, 1|3|4] uint8 -> PNG bytes (8-bit, filter 0)."""
+    a = np.asarray(image, np.uint8)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, c = a.shape
+    kind = {1: 0, 3: 2, 4: 6}[c]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, w * c)], axis=1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    return (_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, kind, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def save_image(path: str, image: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(image))
+
+
+def reading_order(results: List[Dict]) -> List[Dict]:
+    """Results sorted by (y, x) of the bbox's top-left corner."""
+    return sorted(results, key=lambda r: (r["bbox"][1], r["bbox"][0]))
+
+
+def _rect(panel: np.ndarray, box, color, width: int) -> None:
+    h, w = panel.shape[:2]
+    x0, y0, x1, y1 = (int(v) for v in box)
+    x0, x1 = max(min(x0, x1), 0), min(max(x0, x1), w - 1)
+    y0, y1 = max(min(y0, y1), 0), min(max(y0, y1), h - 1)
+    if x0 > x1 or y0 > y1:
+        return
+    panel[y0:y0 + width, x0:x1 + 1] = color
+    panel[max(y1 - width + 1, y0):y1 + 1, x0:x1 + 1] = color
+    panel[y0:y1 + 1, x0:x0 + width] = color
+    panel[y0:y1 + 1, max(x1 - width + 1, x0):x1 + 1] = color
+
+
+def _text_bars(panel: np.ndarray, x: int, y: int, text: str, char_w: int, char_h: int,
+               x_end: int) -> None:
+    """One dark bar a non-space character, left to right from (x, y)."""
+    h = panel.shape[0]
+    for i, ch in enumerate(text):
+        cx = x + i * char_w
+        if cx + char_w - 1 > x_end:
+            break
+        if not ch.isspace():
+            panel[max(y, 0):min(y + char_h, h), cx:cx + char_w - 1] = 40
+
+
+def annotate(image: np.ndarray, results: List[Dict]) -> np.ndarray:
+    """[H, W, 3] uint8 page + results -> [H, 3W, 3] uint8 render: the page
+    with green boxes, each box on white holding its text as character
+    bars, and the words in reading order as bars down the third panel."""
+    page = np.asarray(image, np.uint8)
+    if page.ndim == 2:
+        page = page[..., None]
+    if page.shape[-1] == 1:
+        page = np.repeat(page, 3, axis=-1)
+    h, w = page.shape[:2]
+    boxes, text = page.copy(), np.full_like(page, 255)
+    listing = np.full_like(page, 255)
+    ordered = reading_order(results)
+    for r in ordered:
+        _rect(boxes, r["bbox"], (0, 200, 0), 2)
+        _rect(text, r["bbox"], (220, 220, 220), 1)
+        x0, y0, x1, y1 = (int(v) for v in r["bbox"])
+        n = max(len(r["text"]), 1)
+        _text_bars(text, x0 + 1, y0 + 2, r["text"], max((x1 - x0 - 2) // n, 2),
+                   max(y1 - y0 - 4, 1), x1 - 1)
+    y = 4
+    for r in ordered:
+        if y > h - 12:
+            break
+        _text_bars(listing, 4, y, r["text"], 6, 8, w - 4)
+        y += 12
+    return np.concatenate([boxes, text, listing], axis=1)

@@ -94,13 +94,17 @@ def load_configs(weights_dir: str):
     return craft, parseq, meta.get("charset")
 
 
-def save_calibration(path: str, craft) -> int:
+def save_calibration(path: str, craft, parseq=None) -> int:
     """Write the calibrated scales of a quantized `Craft` (its QConvs' sx)
-    to `path` -> the number written. Nothing calibrated: no file is
-    written (an empty one beside the weights would be loaded by every
-    quantized engine)."""
-    flat = {f"craft/{name}/sx": np.asarray(q.sx.cpu().numpy(), np.float32)
-            for name, q in craft.qconvs() if q.sx is not None}
+    and, when its encoder is int8, of `parseq` (its QLinears' sx) to
+    `path`, under `craft/<path>/sx` and `parseq/<path>/sx` -> the number
+    written. Nothing calibrated: no file is written (an empty one beside
+    the weights would be loaded by every quantized engine)."""
+    layers = [(f"craft/{name}", q) for name, q in craft.qconvs()]
+    if parseq is not None:
+        layers += [(f"parseq/{name}", q) for name, q in parseq.qlinears()]
+    flat = {f"{name}/sx": np.asarray(q.sx.cpu().numpy(), np.float32)
+            for name, q in layers if q.sx is not None}
     if not flat:
         return 0
     np.savez(path, **flat)
@@ -118,12 +122,12 @@ def load_calibration(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, np.nda
 
 
 def apply_static_scales(model, scales: Dict[str, np.ndarray]) -> int:
-    """Set each QConv's sx by its '/'-joined path -> the number set. A path
-    that lands on no quantized layer raises KeyError: the file was saved
-    under another architecture or quantization."""
+    """Set each QConv's or QLinear's sx by its '/'-joined path -> the
+    number set. A path that lands on no quantized layer raises KeyError:
+    the file was saved under another architecture or quantization."""
     import torch
 
-    from tuatara_tpu_torch.models.layers import QConv
+    from tuatara_tpu_torch.models.layers import QConv, QLinear
 
     for key, val in scales.items():
         parts = key.split("/")
@@ -134,7 +138,7 @@ def apply_static_scales(model, scales: Dict[str, np.ndarray]) -> int:
         except AttributeError as e:
             raise KeyError(f"calibration path {key!r} not found in the quantized model "
                            f"({e})") from None
-        if not isinstance(q, QConv):
+        if not isinstance(q, (QConv, QLinear)):
             raise KeyError(f"calibration path {key!r} is not a quantized layer")
         q.sx = torch.tensor(np.float32(val), device=q.wq.device)
     return len(scales)
