@@ -226,6 +226,31 @@ line without a CUDA device or outside the repo.
              and the two gray pages read as [H, W] (a 1-channel canvas
              broadcast to conv1_1): K8 must run on each and every page must
              give boxes with text. The gate is restored after.
+7. training: at full width (CraftConfig(), ParseqConfig()) from
+             `evals/production_weights`, two joint `train_step`s on the
+             batch of tests/fixtures/torch_train_fullwidth.npz (one 128x128
+             page, 4 crops) with JAX's permutations, at fp32 (TF32 off) and
+             bf16, held to that JAX record (metrics, each leaf's and each
+             model's update norm, the first BatchNorm's running
+             statistics; bounds at FP32_* and BF16_*); resume: a child
+             process with deterministic algorithms
+             (CUBLAS_WORKSPACE_CONFIG=:4096:8) saves after step 1, loads
+             into a fresh state and takes step 2, equal bit for bit to two
+             straight steps; the step-0 checkpoint (the production weights
+             through the trainable modules, saved under build/train/) is
+             bit-equal to them and gives their words on the four pages
+             under the default config and latency(); the trained state's
+             checkpoint under latency() on one page, counts zeroed just
+             before and read just after, launches K1-K3, K6 and K7;
+             `fit_recognizer` from scratch on 32 words of the committed
+             uint8 pool tests/fixtures/torch_train_words.npz (augmented on
+             the card, k_perms 6, grad_clip 1.0, weight_decay 0.01, a
+             warmup schedule) ends below 0.2x its first loss and reads >=
+             0.5 of the words; `fit_detector` from scratch on 8 pages of
+             256x256 ends below its first loss; ms a step, samples/s and
+             peak memory of fit_recognizer's step (256 crops, k_perms 6),
+             fit_detector's (8 pages) and the joint step (both), bf16,
+             each beside the card's name and power limit.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -2382,6 +2407,455 @@ def large_page():
     return np.concatenate([np.concatenate([img, img], 1)] * 2, 0)
 
 
+# ---------------------------------------------------------------------------
+# 7. training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_RECORD = os.path.join(ROOT, "tests", "fixtures", "torch_train_fullwidth.npz")
+TRAIN_WORDS = os.path.join(ROOT, "tests", "fixtures", "torch_train_words.npz")
+TRAIN_DIR = os.path.join(ROOT, "build", "train")
+# Leaves whose gradient is zero in exact arithmetic (a conv bias before a
+# batch-statistics BatchNorm, an attention's key bias): rounding noise in
+# both packages, so Adam's first step moves them either way; left out of
+# the update comparison (tests/test_torch_train_step.py).
+ZERO_GRAD = r"craft/(vgg/conv\d_\d/conv|up/upconv\d/conv\d|fc/fc\d)/b$|attn/k/b$"
+TRAIN_METRICS = ("loss", "loss_craft", "loss_parseq", "craft_pos", "craft_n_pos", "parseq_ce")
+# Bounds of the full-width parity (the record holds update norms, not the
+# updates). fp32: the metrics of step 1 within 1e-5; step 2 starts from the
+# port's own step 1, whose near-zero gradient elements took Adam's
+# eps-dominated steps of other sizes than JAX's (test_torch_train_step.py),
+# and moves by up to 2.8e-5 (H100 80GB HBM3, 700 W). Each model's update norm within
+# 1e-3 at both steps (measured 2.6e-4); each leaf's within 1e-2 (measured
+# 1.4e-3 at step 1, 5.4e-3 at step 2, BatchNorm leaves of 64-512
+# elements, where a few eps-dominated elements weigh).
+FP32_METRIC_RTOL = (1e-5, 1e-4)  # step 1, step 2
+FP32_MODEL_UPDATE_RTOL = (1e-3, 1e-3)
+FP32_UPDATE_RTOL = 1e-2
+# bf16: the metrics within 2e-2 (measured 9.6e-3), each leaf's first
+# update norm within 2e-2 (measured 9.1e-3), each model's update norm within
+# 1e-2 at step 1 and 3e-2 at step 2 (measured 1.5e-2, CRAFT: the second
+# update mixes two bf16 gradients whose small elements differ in sign).
+BF16_METRIC_RTOL = (2e-2, 2e-2)
+BF16_UPDATE_RTOL = 2e-2  # step 1, each leaf
+BF16_MODEL_UPDATE_RTOL = (1e-2, 3e-2)  # each model's leaves together, step 1, step 2
+OVERFIT_WORDS, OVERFIT_STEPS, OVERFIT_EVERY = 32, 400, 100
+TIMED_STEPS = 10
+
+
+def train_batch(rec, device):
+    import numpy as np
+    import torch
+
+    crops = np.float32(rec["crops_u8"]) / np.float32(255.0)
+    return {"pages": torch.from_numpy(rec["pages"]).to(device),
+            "heat": torch.from_numpy(rec["heat"]).to(device),
+            "crops": torch.from_numpy(crops).to(device),
+            "labels": torch.from_numpy(rec["labels"]).to(device),
+            "lengths": torch.from_numpy(rec["lengths"]).to(device)}
+
+
+def production_state(tx=None):
+    from tuatara_tpu_torch.train.trainer import init_train_state
+    from tuatara_tpu_torch.utils import weights as W
+
+    craft_cfg, parseq_cfg, _ = W.load_configs(WEIGHTS)
+    return init_train_state(craft_cfg=craft_cfg, parseq_cfg=parseq_cfg, tx=tx,
+                            params=W.load_weights_dir(WEIGHTS))
+
+
+def leaf_tensors(state):
+    """{JAX path: tensor} of both models, running statistics included."""
+    from tuatara_tpu_torch.weights import module_leaves
+
+    return {f"{m}/{p}": t for m, model in (("craft", state.craft), ("parseq", state.parseq))
+            for p, t, _ in module_leaves(model)}
+
+
+def check_train_parity(rec, dtype, tag):
+    """Two joint steps from the production weights on the record's batch
+    with JAX's permutations, held to JAX's record at `tag`. -> (the state
+    after them, the values out of bounds)."""
+    import re
+
+    import torch
+
+    from tuatara_tpu_torch.train.trainer import train_step
+
+    state, tx = production_state()
+    batch = train_batch(rec, "cuda")
+    perms = torch.from_numpy(rec["perms"]).long().cuda()
+    zero = re.compile(ZERO_GRAD)
+    worst = []  # (metrics, leaf update norm, model update norm) a step
+    bad = []
+    for i in (1, 2):
+        worst_m, worst_u, worst_model = 0.0, (0.0, ""), 0.0
+        before = {k: t.detach().clone() for k, t in leaf_tensors(state).items()}
+        state, m = train_step(state, batch, tx, perms=perms, compute_dtype=dtype)
+        for k in TRAIN_METRICS:
+            want = float(rec[f"{tag}/m{i}/{k}"])
+            rel = abs(float(m[k]) / want - 1)
+            worst_m = max(worst_m, rel)
+            if rel > (FP32_METRIC_RTOL if tag == "fp32" else BF16_METRIC_RTOL)[i - 1]:
+                bad.append(f"step {i} {k} {float(m[k])!r} vs JAX {want!r}")
+        with torch.no_grad():
+            after = leaf_tensors(state)
+            norms = {k: float((after[k].double() - before[k].double()).norm()) for k in after}
+        totals = {}
+        for k, n in norms.items():
+            if zero.search(k):
+                continue
+            want = float(rec[f"{tag}/dnorm{i}/{k}"])
+            model = k.split("/")[0]
+            got_sq, want_sq = totals.get(model, (0.0, 0.0))
+            totals[model] = (got_sq + n * n, want_sq + want * want)
+            # bf16's second step is held per model (below); the running
+            # means after the second step absorb the conv biases' first
+            # steps, which are left out (ZERO_GRAD).
+            if (tag == "bf16" and i == 2) or (i == 2 and k.endswith("/mean")) or want == 0:
+                continue
+            rel = abs(n - want) / want
+            if rel > worst_u[0]:
+                worst_u = (rel, k)
+            if rel > (FP32_UPDATE_RTOL if tag == "fp32" else BF16_UPDATE_RTOL):
+                bad.append(f"step {i} update of {k}: norm {n:.6e} vs JAX {want:.6e}")
+        for model, (g, w) in totals.items():
+            rel = abs((g / w) ** 0.5 - 1)
+            worst_model = max(worst_model, rel)
+            if rel > (FP32_MODEL_UPDATE_RTOL if tag == "fp32" else BF16_MODEL_UPDATE_RTOL)[i - 1]:
+                bad.append(f"step {i} update norm of {model}: {g ** 0.5:.6e} vs JAX "
+                           f"{w ** 0.5:.6e}")
+        bn = state.craft.vgg["conv1_1"]["bn"]
+        for name in ("mean", "var") if i == 1 else ("var",):
+            want = torch.from_numpy(rec[f"{tag}/bn{i}/{name}"]).cuda()
+            err = float((getattr(bn, name) - want).norm() / want.norm())
+            if err > (FP32_METRIC_RTOL if tag == "fp32" else BF16_METRIC_RTOL)[i - 1]:
+                bad.append(f"step {i} vgg/conv1_1/bn/{name}: relative L2 error {err:.3e}")
+        worst.append(f"step {i}: metrics {worst_m:.3e}, leaf update norms {worst_u[0]:.3e} "
+                     f"({worst_u[1] or 'not held per leaf'}), model update norms "
+                     f"{worst_model:.3e}")
+    print(f"train parity {tag} (worst relative gaps to JAX's record): {'; '.join(worst)}; "
+          f"loss {float(m['loss'])!r} (JAX {float(rec[f'{tag}/m2/loss'])!r})", flush=True)
+    for b in bad:
+        print(f"train parity {tag}: OUT OF BOUNDS: {b}", flush=True)
+    return state, bad
+
+
+def resume_child(ckpt_dir) -> int:
+    """Child process of phase 7's resume check (deterministic algorithms):
+    two straight bf16 steps against save after step 1 -> load into a fresh
+    state -> step 2; every leaf, moment and metric must be equal."""
+    import numpy as np
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    sys.path.insert(0, ROOT)
+    from tuatara_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from tuatara_tpu_torch.train.trainer import init_train_state, train_step
+
+    with np.load(TRAIN_RECORD) as z:
+        rec = {k: z[k] for k in z.files}
+    batch = train_batch(rec, "cuda")
+    perms = torch.from_numpy(rec["perms"]).long().cuda()
+    a, tx = production_state()
+    a, _ = train_step(a, batch, tx, perms=perms)
+    save_checkpoint(ckpt_dir, a, craft_config=a.craft.cfg, parseq_config=a.parseq.cfg)
+    a, ma = train_step(a, batch, tx, perms=perms)
+    template, _ = init_train_state(torch.Generator().manual_seed(7), a.craft.cfg,
+                                   a.parseq.cfg, tx=tx)
+    b = load_checkpoint(ckpt_dir, template)
+    b, mb = train_step(b, batch, tx, perms=perms)
+    ta, tb = leaf_tensors(a), leaf_tensors(b)
+    diff = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    diff += [f"mu/{k}" for k in a.opt_state.mu if not torch.equal(a.opt_state.mu[k],
+                                                                  b.opt_state.mu[k])]
+    diff += [f"nu/{k}" for k in a.opt_state.nu if not torch.equal(a.opt_state.nu[k],
+                                                                  b.opt_state.nu[k])]
+    diff += [k for k in ma if not torch.equal(ma[k], mb[k])]
+    print(f"resume: {len(ta)} leaves, {2 * len(a.opt_state.mu)} moments, {len(ma)} metrics "
+          f"compared; {len(diff)} differ {diff[:5]}", flush=True)
+    return 1 if diff else 0
+
+
+def check_resume():
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-resume",
+                          os.path.join(TRAIN_DIR, "resume")], env=env, capture_output=True,
+                         text=True, timeout=600)
+    sys.stdout.write(out.stdout)
+    if out.returncode != 0:
+        sys.stdout.write(out.stderr[-4000:])
+        fail(f"resume on the card: the child exited {out.returncode}")
+    print(f"resume: save after step 1, load, step 2 == two straight steps, bit for bit "
+          f"(deterministic algorithms, {time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def pool_words():
+    import numpy as np
+
+    with np.load(TRAIN_WORDS) as z:
+        return {k: z[k] for k in z.files}
+
+
+def check_overfit():
+    """fit_recognizer at full width from scratch on a fixed batch of the
+    committed uint8 pool, augmented on the card (data_iter), k_perms 6,
+    grad_clip 1.0, weight_decay 0.01, a warmup schedule."""
+    import numpy as np
+
+    from tuatara_tpu_torch.tokenizer import Tokenizer
+    from tuatara_tpu_torch.train.run import evaluate_recognizer, fit_recognizer
+    from tuatara_tpu_torch.utils import weights as W
+
+    _, parseq_cfg, _ = W.load_configs(WEIGHTS)
+    pool = pool_words()
+    tok = Tokenizer()
+    n = OVERFIT_WORDS
+    fixed = {"crops": pool["crops_u8"][:n], "labels": pool["labels"][:n],
+             "lengths": pool["lengths"][:n]}
+    texts = [tok.ids_to_text(ids[1:]) for ids in fixed["labels"]]
+
+    def batches():
+        while True:
+            yield fixed
+
+    progress = []
+
+    def probe(step, model, opt_state):
+        acc, _ = evaluate_recognizer(model, {"crops": fixed["crops"], "texts": texts}, tok)
+        progress.append((step, acc))
+
+    t0 = time.perf_counter()
+    model, losses = fit_recognizer(
+        steps=OVERFIT_STEPS, batch_size=n, lr=lambda c: 1e-3 * min(1.0, (c + 1) / 100),
+        cfg=parseq_cfg, tokenizer=tok, k_perms=6, seed=0, log_every=OVERFIT_EVERY,
+        grad_clip=1.0, weight_decay=0.01, ckpt_every=OVERFIT_EVERY, ckpt_fn=probe,
+        data_iter=batches())
+    acc, got = evaluate_recognizer(model, {"crops": fixed["crops"], "texts": texts}, tok)
+    seconds = time.perf_counter() - t0
+    first_ok = next((s for (s, a), l in zip(progress, losses[1:])
+                     if a >= 0.5 and l < 0.2 * losses[0]), None)
+    print(f"overfit: fit_recognizer at full width from scratch, {n} words, {OVERFIT_STEPS} "
+          f"steps in {seconds:.1f} s: losses {[round(v, 4) for v in losses]}, accuracy by step "
+          f"{progress}; gate first met at step {first_ok}; last {acc:.3f}; e.g. "
+          f"{list(zip(texts[:6], got[:6]))}", flush=True)
+    if not losses[-1] < 0.2 * losses[0]:
+        fail(f"overfit: last loss {losses[-1]:.4f} not below 0.2 x the first {losses[0]:.4f}")
+    if acc < 0.5:
+        fail(f"overfit: accuracy {acc:.3f} < 0.5 on the batch")
+    return model
+
+
+def check_detector_learns():
+    from tuatara_tpu_torch.train.run import fit_detector
+    from tuatara_tpu_torch.utils import weights as W
+
+    craft_cfg, _, _ = W.load_configs(WEIGHTS)
+    t0 = time.perf_counter()
+    _, losses = fit_detector(steps=40, batch_size=8, cfg=craft_cfg, page_size=256,
+                             words_per_page=8, log_every=5)
+    print(f"detector: fit_detector at full width from scratch, 8 pages of 256x256, 40 steps in "
+          f"{time.perf_counter() - t0:.1f} s: losses {[round(v, 4) for v in losses]}", flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"detector: loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+
+
+def timed(make_step, n=TIMED_STEPS):
+    """A training step's rates: `make_step()` builds the model, optimizer
+    and batch and returns the step. -> (ms a step over n steps after 3 warm
+    ones; device busy ms a step and kernels a step from a torch.profiler
+    trace of 3 more, and their idle share; peak memory in GiB above what was allocated before
+    `make_step`, so the phases' resident engines are not counted). Also
+    the idle share of the traced steps' wall."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from profile_torch_port import busy_us
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_step()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    path = os.path.join(TRAIN_DIR, "step_trace.json")
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / 3
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = sum(e.get("cat") == "kernel" for e in events) / 3
+    busy = busy_us(events) / 3e3
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "?")[:48]
+            by_name[name] = by_name.get(name, 0.0) + e.get("dur", 0.0) / 3e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return ms, busy, max(0.0, 1 - busy / traced_ms), kernels, peak, top
+
+
+def train_rates(card):
+    """ms a step, samples/s, device busy and peak memory of the three steps
+    at full width, bf16, each in a fresh state."""
+    import numpy as np
+    import torch
+
+    from tuatara_tpu_torch.models.craft import init_craft
+    from tuatara_tpu_torch.models.parseq import init_parseq
+    from tuatara_tpu_torch.train.run import detector_step, recognizer_step, to_device
+    from tuatara_tpu_torch.train.trainer import AdamW, init_train_state, trainable_params, train_step
+    from tuatara_tpu_torch.utils import weights as W
+    from tuatara_tpu_torch.utils.data import detection_batch
+
+    craft_cfg, parseq_cfg, _ = W.load_configs(WEIGHTS)
+    dev = torch.device("cuda")
+    pool = pool_words()
+    det = detection_batch(8, np.random.default_rng(0), size=256, words_per_page=8)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def crops_batch():
+        return (to_device(pool["crops_u8"], dev), to_device(pool["labels"], dev),
+                to_device(pool["lengths"], dev))
+
+    def recognizer():
+        parseq = init_parseq(parseq_cfg, torch.Generator().manual_seed(0)).to(dev)
+        tx = AdamW(lr=1e-4, weight_decay=0.01, clip_norm=1.0)
+        params = trainable_params(parseq=parseq)
+        st = tx.init(params)
+        crops, labels, lengths = crops_batch()
+        return lambda: recognizer_step(parseq, tx, params, st, crops, labels, lengths, gen, 6)
+
+    def detector():
+        craft = init_craft(craft_cfg, torch.Generator().manual_seed(0)).to(dev)
+        tx = AdamW(lr=2e-3)
+        params = trainable_params(craft=craft)
+        st = tx.init(params)
+        pages, heat = to_device(det["pages"], dev), to_device(det["heat"], dev)
+        return lambda: detector_step(craft, tx, params, st, pages, heat)
+
+    def joint():
+        state, tx = init_train_state(craft_cfg=craft_cfg, parseq_cfg=parseq_cfg)
+        crops, labels, lengths = crops_batch()
+        batch = {"pages": to_device(det["pages"], dev), "heat": to_device(det["heat"], dev),
+                 "crops": (crops.float() / 255.0)[..., None].expand(-1, -1, -1, 3).contiguous(),
+                 "labels": labels, "lengths": lengths}
+        return lambda: train_step(state, batch, tx, generator=gen)
+
+    out = {}
+    for name, make, n in (("fit_recognizer", recognizer, 256), ("fit_detector", detector, 8),
+                          ("train_step", joint, 8 + 256)):
+        ms, busy, idle, kernels, peak, top = timed(make)
+        out[name] = {"ms": ms, "samples_per_s": n * 1e3 / ms, "device_busy_ms": busy,
+                     "idle_share": idle, "kernels": kernels, "peak_gib": peak}
+        print(f"train rate {name}: {ms:.2f} ms a step, {n * 1e3 / ms:.1f} samples/s ({n} a "
+              f"step), device busy {busy:.2f} ms a step and idle share {idle:.3f} (traced), "
+              f"{kernels:.0f} kernels a step, peak memory {peak:.2f} GiB, bf16; card {card}; "
+              f"device ms a step by kernel: "
+              + "; ".join(f"{k} {v:.2f}" for k, v in top), flush=True)
+    return out
+
+
+def words_equal(got, want):
+    return ([(w["text"], w["bbox"]) for w in got] == [(w["text"], w["bbox"]) for w in want]
+            and all(abs(a["confidence"] - b["confidence"]) <= 1e-6 for a, b in zip(got, want)))
+
+
+def check_checkpoint_serving(pages, results, lat_results, trained, post):
+    """The step-0 checkpoint of the production weights: arrays bit-equal,
+    the same words under the default config and latency(); the trained
+    checkpoint under latency() on one page launches K1-K3, K6 and K7."""
+    import numpy as np
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.train.checkpoint import save_checkpoint
+    from tuatara_tpu_torch.utils import weights as W
+
+    craft_cfg, parseq_cfg, charset = W.load_configs(WEIGHTS)
+    step0 = os.path.join(TRAIN_DIR, "step0")
+    state, _ = production_state()
+    save_checkpoint(step0, state, craft_config=craft_cfg, parseq_config=parseq_cfg,
+                    charset=charset)
+    del state
+    for name in (W.CRAFT_FILE, W.PARSEQ_FILE):
+        with np.load(os.path.join(WEIGHTS, name)) as want, np.load(os.path.join(step0, name)) as got:
+            if sorted(got.files) != sorted(want.files):
+                fail(f"step-0 checkpoint {name}: other keys")
+            for k in want.files:
+                if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
+                    fail(f"step-0 checkpoint {name}: {k} differs")
+    for label, config, ref in (("default", tuatara_tpu_torch.OcrConfig(), results),
+                               ("latency", tuatara_tpu_torch.OcrConfig.latency(), lat_results)):
+        eng = tuatara_tpu_torch.OcrEngine(config, weights_dir=step0)
+        for page, img in pages.items():
+            if not words_equal(eng.run(img), ref[page]):
+                fail(f"step-0 checkpoint under {label}: {page} differs from the production "
+                     f"weights' words")
+        eng.close()
+    print(f"checkpoint: step-0 arrays bit-equal to {os.path.relpath(WEIGHTS, ROOT)}; the same "
+          f"words on {len(pages)} pages under the default config and latency()", flush=True)
+
+    ckpt = os.path.join(TRAIN_DIR, "trained")
+    save_checkpoint(ckpt, trained, craft_config=craft_cfg, parseq_config=parseq_cfg,
+                    charset=charset)
+    eng = tuatara_tpu_torch.OcrEngine(tuatara_tpu_torch.OcrConfig.latency(), weights_dir=ckpt)
+    page = "resume_example"
+    eng.run(pages[page])  # warm: builds nothing new, counts start below
+    reset_launches()
+    got = eng.run(pages[page])
+    launches = dict(LAUNCHES)
+    eng.close()
+    for name in post + ("vit_blocks", "greedy_decode"):
+        if launches.get(name, 0) < 1:
+            fail(f"trained checkpoint under latency(): kernel {name} was not launched")
+    if not any(w["text"] for w in got):
+        fail("trained checkpoint under latency(): no boxes with text")
+    print(f"checkpoint: the trained state (phase 7's 2 bf16 steps on a bar page) served under "
+          f"latency() on {page}: {len(got)} boxes ({len(lat_results[page])} with the "
+          f"production weights), launches {json.dumps(launches)}; "
+          + " ".join(w["text"] for w in got[:10]), flush=True)
+
+
+def check_training(pages, results, lat_results, post, card):
+    """Phase 7 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    with np.load(TRAIN_RECORD) as z:
+        rec = {k: z[k] for k in z.files}
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    _, bad32 = check_train_parity(rec, torch.float32, "fp32")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    trained, bad16 = check_train_parity(rec, torch.bfloat16, "bf16")
+    check_resume()
+    check_checkpoint_serving(pages, results, lat_results, trained, post)
+    del trained
+    check_overfit()
+    check_detector_learns()
+    rates = train_rates(card)
+    if bad32 or bad16:  # after the other checks, so one run shows them all
+        fail(f"train parity: {len(bad32)} fp32 and {len(bad16)} bf16 values out of bounds")
+    print(f"training: phase 7 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rates
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1000, exit=True)
     t_start = time.perf_counter()
@@ -2531,8 +3005,13 @@ def main() -> int:
     stage1_launches = check_fused_stage1(engine, pages, results)
     kernels += check_stage1(engine, pages, stage1_launches)
 
+    # 7. training at full width: parity with JAX's record, resume, the
+    # checkpoint served, learning, step rates
+    training = check_training(pages, results, lat_results, post, card)
+
     print(json.dumps({"int8_conv": int8_summary}), flush=True)
     print(json.dumps({"int8_linear": int8_linear_summary}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
@@ -2543,4 +3022,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-resume":  # phase 7's child
+        sys.exit(resume_child(sys.argv[2]))
     sys.exit(main())

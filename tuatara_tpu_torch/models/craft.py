@@ -31,6 +31,20 @@ folded tree: the 2x upsamples (`_upsample2x`), each int8 decoder level's
 `ya + acc * s` as one fused multiply-add, and the head's float 1x1 convs
 (`_conv1x1_xla`, for the committed weight sets' shapes).
 
+Training (`TrainableCraft`, JAX `init_craft_params` and
+`craft_forward_train`): the same network with its BatchNorms unfolded,
+each a `layers.BatchNorm` (trained scale and shift, running statistics as
+buffers) that normalises with batch statistics and updates its buffers, or
+with the running statistics when `train_bn` is off. The forward follows
+JAX's training graph: products in the compute dtype with fp32 parameters,
+BatchNorm outputs (and so the skips) in fp32, the decoder's trunk side
+upsampled before its 1x1 conv at fp32 and after it otherwise, the head
+unpacked. Its 2x upsamples are sums of shifted copies
+(`upsample2x_train`), whose backward is deterministic on the card, where
+`F.interpolate`'s is not. `fold()` gives the serving `Craft` through the
+loader's own fold. None of the serving transforms (K8's packed weights,
+the head's XLA rounding, int8) touches it.
+
 `FUSED_STAGE1` gates kernel K8 (`kernels/stage1.py`), which runs conv1_2,
 its ReLU and pool1 as one pass, as the JAX package's gate of the same name
 does (`tuatara_tpu/models/craft.py:279-298`). K8 reads conv1_2's weights
@@ -41,7 +55,7 @@ module by `.to`), so no call packs them again.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +63,7 @@ from torch import nn
 
 from tuatara_tpu_torch.config import CraftConfig
 from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool, pack_conv_pool_weights
-from tuatara_tpu_torch.models.layers import Conv, QConv, dequant
+from tuatara_tpu_torch.models.layers import BatchNorm, Conv, QConv, dequant, init_conv
 from tuatara_tpu_torch.ops.minarearect import fma
 
 _STAGE_COUNTS = (2, 2, 3, 3, 2)
@@ -140,6 +154,24 @@ def _conv1x1_xla(conv: Conv, x: torch.Tensor) -> torch.Tensor:
 
 def _qconv(conv: Conv) -> QConv:
     return QConv.from_weight(conv.weight, conv.bias, conv.dilation)
+
+
+def _input_nchw(cfg: CraftConfig, x: torch.Tensor, cin: int) -> torch.Tensor:
+    """[B, H, W, C] in [0, 1] -> NCHW conv1_1 input: the model contract's
+    mean/std normalisation when the config has one (a gray canvas
+    broadcast to its channels first), then a 1-channel canvas broadcast to
+    conv1_1's input channels."""
+    h = x.permute(0, 3, 1, 2)
+    if cfg.input_mean:
+        if h.shape[1] == 1 and len(cfg.input_mean) > 1:
+            h = h.expand(-1, len(cfg.input_mean), -1, -1)
+        mean = torch.tensor(cfg.input_mean, dtype=torch.float32, device=h.device)
+        std = torch.tensor(cfg.input_std or (1.0,) * len(cfg.input_mean),
+                           dtype=torch.float32, device=h.device)
+        h = (h.float() - mean[:, None, None]) / std[:, None, None]
+    if h.shape[1] == 1 and cin != 1:
+        h = h.expand(-1, cin, -1, -1)
+    return h
 
 
 class Craft(nn.Module):
@@ -271,18 +303,7 @@ class Craft(nn.Module):
         """x: [B, H, W, C] float in [0, 1], C = 3 or 1 (gray is broadcast to
         conv1_1's input channels). Returns (scores [B, H/2, W/2, 2] fp32 —
         region, affinity — and feature [B, H/2, W/2, 32] fp32)."""
-        cfg = self.cfg
-        h = x.permute(0, 3, 1, 2)
-        if cfg.input_mean:
-            if h.shape[1] == 1 and len(cfg.input_mean) > 1:
-                h = h.expand(-1, len(cfg.input_mean), -1, -1)
-            mean = torch.tensor(cfg.input_mean, dtype=torch.float32, device=h.device)
-            std = torch.tensor(cfg.input_std or (1.0,) * len(cfg.input_mean),
-                               dtype=torch.float32, device=h.device)
-            h = (h.float() - mean[:, None, None]) / std[:, None, None]
-        cin = self.vgg["conv1_1"]["conv"].weight.shape[1]
-        if h.shape[1] == 1 and cin != 1:
-            h = h.expand(-1, cin, -1, -1)
+        h = _input_nchw(self.cfg, x, self.vgg["conv1_1"]["conv"].weight.shape[1])
         skips: Dict[str, torch.Tensor] = {}
         start = 0
         if self._fused_stage1_ok(x):
@@ -327,3 +348,139 @@ class Craft(nn.Module):
             y = hd["conv5"](F.relu(hd["conv4"](y)))
         return (y.float().permute(0, 2, 3, 1).contiguous(),
                 feat.float().permute(0, 2, 3, 1).contiguous())
+
+
+def upsample2x_train(x: torch.Tensor) -> torch.Tensor:
+    """NCHW 2x bilinear upsample (half-pixel), taps added in fp32 and the
+    result cast back to x's dtype: shifted copies, products and sums only,
+    so its backward is deterministic on the card. Within fp32 rounding of
+    `jax.image.resize`."""
+    y = _upsample2x_axis(x.float(), 2, fused=False)
+    return _upsample2x_axis(y, 3, fused=False).to(x.dtype)
+
+
+def _conv_dt(conv: Conv, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    return F.conv2d(h.to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                    padding=conv.padding, dilation=conv.dilation)
+
+
+class TrainableCraft(nn.Module):
+    """CRAFT with unfolded BatchNorms, for training. Parameter paths follow
+    the JAX tree (`vgg/conv1_1/bn/scale` is `vgg.conv1_1.bn.weight`)."""
+
+    def __init__(self, cfg: CraftConfig = CraftConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = vgg_plan(cfg)
+        eps = cfg.bn_eps
+        self.vgg = nn.ModuleDict({
+            name: nn.ModuleDict({"conv": Conv(cin, cout, 3), "bn": BatchNorm(cout, eps)})
+            for name, cin, cout, _, _ in self.plan
+        })
+        s = cfg.stage_channels
+        self.fc = nn.ModuleDict({
+            "fc6": Conv(s[4], cfg.fc_channels, 3, dilation=6),
+            "fc7": Conv(cfg.fc_channels, cfg.fc_channels, 1),
+        })
+        in_chs = [cfg.fc_channels + s[4], cfg.up_channels[0][1] + s[3],
+                  cfg.up_channels[1][1] + s[2], cfg.up_channels[2][1] + s[1]]
+        self.up = nn.ModuleDict({
+            f"upconv{i}": nn.ModuleDict({"conv1": Conv(cin, mid, 1), "bn1": BatchNorm(mid, eps),
+                                         "conv2": Conv(mid, out, 3), "bn2": BatchNorm(out, eps)})
+            for i, ((mid, out), cin) in enumerate(zip(cfg.up_channels, in_chs), 1)
+        })
+        hc = cfg.head_channels
+        self.head = nn.ModuleDict({
+            "conv1": Conv(cfg.up_channels[-1][1], hc[0], 3),
+            "conv2": Conv(hc[0], hc[1], 3),
+            "conv3": Conv(hc[1], hc[2], 3),
+            "conv4": Conv(hc[2], hc[3], 1),
+            "conv5": Conv(hc[3], cfg.num_classes, 1),
+        })
+
+    def convs(self):
+        """The convolutions in the order JAX's `init_craft_params` draws
+        them: the trunk, fc6, fc7, each decoder level's conv1 and conv2,
+        the head."""
+        out = [self.vgg[name]["conv"] for name, *_ in self.plan]
+        out += [self.fc["fc6"], self.fc["fc7"]]
+        for blk in self.up.values():
+            out += [blk["conv1"], blk["conv2"]]
+        return out + [self.head[f"conv{i}"] for i in range(1, 6)]
+
+    def _level(self, block: str, y: torch.Tensor, skip: torch.Tensor, dt: torch.dtype,
+               train_bn: bool, momentum: float) -> torch.Tensor:
+        """JAX `double_conv` over `conv1_split`: the 1x1 conv as two convs
+        summed, one a side of the concat; the trunk side upsampled before
+        its conv at fp32, after it at other dtypes."""
+        blk = self.up[block]
+        up = y.shape[-2:] != skip.shape[-2:]
+        if up and dt == torch.float32:
+            y, up = upsample2x_train(y), False
+        c1 = blk["conv1"]
+        ca = y.shape[1]
+        ya = F.conv2d(y.to(dt), c1.weight[:, :ca].to(dt), c1.bias.to(dt))
+        if up:
+            ya = upsample2x_train(ya)
+        yb = F.conv2d(skip.to(dt), c1.weight[:, ca:].to(dt))
+        y = F.relu(blk["bn1"](ya + yb, train_bn, momentum))
+        return F.relu(blk["bn2"](_conv_dt(blk["conv2"], y, dt), train_bn, momentum))
+
+    def forward(self, x: torch.Tensor, train_bn: bool = True,
+                compute_dtype: torch.dtype = torch.bfloat16, momentum: float = 0.1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: [B, H, W, C] in [0, 1] with H and W multiples of 32 -> (scores
+        [B, H/2, W/2, 2] fp32, feature [B, H/2, W/2, 32] fp32). With
+        `train_bn` the BatchNorms use batch statistics and update their
+        running statistics in place (JAX `craft_forward_train`); without,
+        they use the running statistics (JAX `craft_forward` on the
+        unfolded tree)."""
+        dt = compute_dtype
+        if x.shape[1] % 32 or x.shape[2] % 32:
+            raise ValueError(f"training pages must be multiples of 32 a side, got {tuple(x.shape)}")
+        h = _input_nchw(self.cfg, x, self.vgg["conv1_1"]["conv"].weight.shape[1])
+        skips: Dict[str, torch.Tensor] = {}
+        for name, _, _, pool_before, skip in self.plan:
+            if pool_before:
+                h = F.max_pool2d(h, 2, 2)
+            blk = self.vgg[name]
+            h = blk["bn"](_conv_dt(blk["conv"], h, dt), train_bn, momentum)
+            if skip is not None:
+                skips[skip] = h  # pre-ReLU, fp32
+            h = F.relu(h)
+        h = F.max_pool2d(h, 3, 1, padding=1)
+        h = _conv_dt(self.fc["fc7"], _conv_dt(self.fc["fc6"], h, dt), dt)
+        y = self._level("upconv1", h, skips["f5"], dt, train_bn, momentum)
+        y = self._level("upconv2", y, skips["f4"], dt, train_bn, momentum)
+        y = self._level("upconv3", y, skips["f3"], dt, train_bn, momentum)
+        feat = self._level("upconv4", y, skips["f2"], dt, train_bn, momentum)
+        hd = self.head
+        y = F.relu(_conv_dt(hd["conv1"], feat, dt))
+        y = F.relu(_conv_dt(hd["conv2"], y, dt))
+        y = F.relu(_conv_dt(hd["conv3"], y, dt))
+        y = _conv_dt(hd["conv5"], F.relu(_conv_dt(hd["conv4"], y, dt)), dt)
+        return (y.float().permute(0, 2, 3, 1).contiguous(),
+                feat.float().permute(0, 2, 3, 1).contiguous())
+
+    @torch.no_grad()
+    def fold(self) -> Craft:
+        """The serving `Craft` on this model's device: the weights go
+        through JAX's tree and the loader's BatchNorm fold
+        (`weights.craft_state_dict`), as a saved checkpoint would."""
+        from tuatara_tpu_torch.weights import craft_state_dict, module_tree
+
+        served = Craft(self.cfg)
+        served.load_state_dict(craft_state_dict(module_tree(self), self.cfg.bn_eps))
+        return served.to(self.vgg["conv1_1"]["conv"].weight.device)
+
+
+def init_craft(cfg: CraftConfig = CraftConfig(),
+               generator: Optional[torch.Generator] = None) -> TrainableCraft:
+    """A random `TrainableCraft` on the CPU (JAX `init_craft_params`):
+    he-normal convs with zero biases, drawn from `generator` in JAX's
+    order, and identity BatchNorms."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    model = TrainableCraft(cfg)
+    for conv in model.convs():
+        init_conv(conv, gen)
+    return model

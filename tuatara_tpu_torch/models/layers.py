@@ -14,10 +14,19 @@ and activations per tensor, symmetric, int8 x int8 -> int32 sums (exact,
 so equal to JAX's), then `y.float() * (sw / xs) + b` and a cast to the
 compute dtype, in JAX's order. An activation's scale is dynamic (its
 abs-max) until `make_static_quant` freezes a calibrated one.
+
+Training (`train/`): the initialisers draw from an explicit
+`torch.Generator` with JAX's distributions (`he_normal_conv`,
+`trunc_normal`, `xavier_uniform`); `BatchNorm` holds CRAFT's unfolded
+BatchNorm and normalises with batch statistics when asked (JAX
+`batchnorm_train`); `cast_products` runs the products of a module's Conv
+and Linear layers in a compute dtype while its parameters stay fp32, as
+JAX casts input and weight at each product.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -29,8 +38,19 @@ from torch import nn
 from tuatara_tpu_torch.kernels.int8 import int8_conv, int8_linear, weight_matrix
 
 
+def _cast(layer: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Conv's or Linear's (weight, bias) in the layer's `compute_dtype`
+    (None: as stored)."""
+    w, b = layer.weight, layer.bias
+    if layer.compute_dtype is not None:
+        w, b = w.to(layer.compute_dtype), b.to(layer.compute_dtype)
+    return w, b
+
+
 class Conv(nn.Module):
     """2-D convolution over NCHW with an OIHW weight, "SAME" padding."""
+
+    compute_dtype: Optional[torch.dtype] = None  # set by `cast_products`
 
     def __init__(self, cin: int, cout: int, k: int, dilation: int = 1):
         super().__init__()
@@ -40,12 +60,14 @@ class Conv(nn.Module):
         self.padding = dilation * (k - 1) // 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.weight.dtype), self.weight, self.bias,
-                        padding=self.padding, dilation=self.dilation)
+        w, b = _cast(self)
+        return F.conv2d(x.to(w.dtype), w, b, padding=self.padding, dilation=self.dilation)
 
 
 class Linear(nn.Module):
     """y = x @ W^T + b, W stored [out, in]."""
+
+    compute_dtype: Optional[torch.dtype] = None  # set by `cast_products`
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -53,7 +75,8 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        w, b = _cast(self)
+        return F.linear(x.to(w.dtype), w, b)
 
 
 class PaddedLinear(Linear):
@@ -70,8 +93,9 @@ class PaddedLinear(Linear):
         pad = -n % 8
         if pad == 0:
             return super().forward(x)
-        w = F.pad(self.weight, (0, 0, 0, pad))
-        return F.linear(x.to(w.dtype), w, F.pad(self.bias, (0, pad)))[..., :n]
+        w, b = _cast(self)
+        w = F.pad(w, (0, 0, 0, pad))
+        return F.linear(x.to(w.dtype), w, F.pad(b, (0, pad)))[..., :n]
 
 
 class LayerNorm(nn.Module):
@@ -86,6 +110,25 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias,
                             self.eps)
+
+
+@contextlib.contextmanager
+def cast_products(module: nn.Module, dtype: torch.dtype):
+    """For the calls it encloses, every Conv and Linear of `module` casts
+    its input, weight and bias to `dtype` at each call (JAX's
+    `x.astype(compute_dtype)` and `w.astype(compute_dtype)` in `conv2d` /
+    `linear`); the fp32 parameters stay as they are, so gradients reach
+    them in fp32. LayerNorm, BatchNorm and softmax stay fp32. The layers'
+    own setting is restored on exit."""
+    layers = [m for m in module.modules() if isinstance(m, (Conv, Linear))]
+    old = [m.compute_dtype for m in layers]
+    for m in layers:
+        m.compute_dtype = dtype
+    try:
+        yield module
+    finally:
+        for m, d in zip(layers, old):
+            m.compute_dtype = d
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -400,3 +443,70 @@ class VitBlock(nn.Module):
         h = self.norm1(x)
         x = x + self.attn(h, h)
         return x + self.mlp(self.norm2(x))
+
+
+# ---------------------------------------------------------------------------
+# Training: initialisers (JAX's distributions, drawn from a torch.Generator)
+# and CRAFT's unfolded BatchNorm
+# ---------------------------------------------------------------------------
+
+def he_normal_conv(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int) -> torch.Tensor:
+    """OIHW weight ~ N(0, 2 / (kh * kw * cin)) (JAX `he_normal_conv`)."""
+    std = math.sqrt(2.0 / (kh * kw * cin))
+    return torch.randn((cout, cin, kh, kw), generator=gen) * std
+
+
+def trunc_normal(gen: torch.Generator, shape, std: float = 0.02) -> torch.Tensor:
+    """The standard normal truncated to [-2, 2], times `std` (JAX
+    `trunc_normal`), by the inverse CDF of a uniform draw."""
+    def cdf(v):
+        return 0.5 * (1.0 + math.erf(v / math.sqrt(2.0)))
+
+    lo, hi = 2.0 * cdf(-2.0) - 1.0, 2.0 * cdf(2.0) - 1.0
+    u = torch.rand(shape, generator=gen) * (hi - lo) + lo
+    return torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0) * std
+
+
+def xavier_uniform(gen: torch.Generator, shape) -> torch.Tensor:
+    """U(-l, l), l = sqrt(6 / (fan_in + fan_out)) over a 2-D shape (JAX
+    `xavier_uniform`; the sum is the same for [in, out] and [out, in])."""
+    limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
+
+
+@torch.no_grad()
+def init_conv(conv: Conv, gen: torch.Generator) -> None:
+    """He-normal weight, zero bias (JAX `init_conv`), in place."""
+    cout, cin, kh, kw = conv.weight.shape
+    conv.weight.copy_(he_normal_conv(gen, kh, kw, cin, cout))
+    conv.bias.zero_()
+
+
+@torch.no_grad()
+def init_linear(lin: Linear, gen: torch.Generator, init=trunc_normal) -> None:
+    """`init` weight ([out, in]), zero bias (JAX `init_linear`), in place."""
+    lin.weight.copy_(init(gen, tuple(lin.weight.shape)))
+    lin.bias.zero_()
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over NCHW with fp32 output whatever the input dtype: the
+    scale `weight` and shift `bias` are trained; the running `mean` and
+    `var` are buffers (JAX holds the four as leaves {scale, bias, mean,
+    var}). `forward(x, train=True)` is JAX `batchnorm_train`: normalise
+    with the batch mean and the biased batch variance, and update the
+    buffers in place with `momentum`, the running variance from the
+    unbiased estimate (`F.batch_norm(training=True)`'s contract);
+    `train=False` is JAX `batchnorm` on the running statistics."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, train: bool, momentum: float = 0.1) -> torch.Tensor:
+        return F.batch_norm(x.float(), self.mean, self.var, self.weight, self.bias,
+                            training=train, momentum=momentum, eps=self.eps)

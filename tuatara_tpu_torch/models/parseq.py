@@ -39,6 +39,12 @@ the patch embed and every block's q/k/v/o and fc1/fc2 become `QLinear`s;
 the decoder stays float); a quantized encoder never takes K6, as JAX's
 gate keeps the int8 encoder on XLA.
 
+Training (`train/`) differentiates `encode` and `decode(memory, tgt_ids,
+query=..., query_mask=...)` as they are, with fp32 parameters and the
+products cast by `layers.cast_products`; no kernel bundle is built.
+`init_parseq` draws JAX `init_parseq_params`'s distributions from a
+`torch.Generator`.
+
 Vocabulary: [EOS=0, charset..., BOS, PAD]; the head emits charset_size + 1
 classes (EOS + charset).
 """
@@ -55,7 +61,8 @@ from tuatara_tpu_torch.config import ParseqConfig
 from tuatara_tpu_torch.kernels import decode as K7
 from tuatara_tpu_torch.kernels import vit as K6
 from tuatara_tpu_torch.models.layers import (
-    MHA, LayerNorm, Linear, PaddedLinear, QLinear, VitBlock, attention_core, gelu, merge_heads,
+    MHA, LayerNorm, Linear, PaddedLinear, QLinear, VitBlock, attention_core, gelu, init_linear,
+    merge_heads, trunc_normal, xavier_uniform,
 )
 
 _INV_6 = float(torch.tensor(1.0 / 6.0, dtype=torch.float32))  # XLA's `x / 6.0`
@@ -399,6 +406,37 @@ class Parseq(nn.Module):
             ids, logp = self.beam_decode(self.encode(images), beam_size)
             return ids, torch.exp(logp)
         return confidence(self(images, ar=mode != "nar"))
+
+
+@torch.no_grad()
+def init_parseq(cfg: ParseqConfig = ParseqConfig(),
+                generator: Optional[torch.Generator] = None) -> Parseq:
+    """A random `Parseq` on the CPU (JAX `init_parseq_params`): truncated
+    normal (std 0.02) patch embed, position embeddings, token embeddings,
+    position queries, MLPs and head; xavier-uniform attention projections;
+    zero biases; unit LayerNorms. Drawn from `generator` in JAX's order."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    model = Parseq(cfg)
+
+    def mha(m: MHA) -> None:
+        for lin in (m.q, m.k, m.v, m.o):
+            init_linear(lin, gen, xavier_uniform)
+
+    init_linear(model.patch_embed, gen)
+    model.pos_embed.copy_(trunc_normal(gen, tuple(model.pos_embed.shape)))
+    for blk in model.enc:
+        mha(blk.attn)
+        init_linear(blk.mlp.fc1, gen)
+        init_linear(blk.mlp.fc2, gen)
+    model.text_embed.copy_(trunc_normal(gen, tuple(model.text_embed.shape)))
+    model.pos_queries.copy_(trunc_normal(gen, tuple(model.pos_queries.shape)))
+    for layer in model.dec:
+        mha(layer.self_attn)
+        mha(layer.cross_attn)
+        init_linear(layer.linear1, gen)
+        init_linear(layer.linear2, gen)
+    init_linear(model.head, gen)
+    return model
 
 
 def refine_mask(T: int, device=None) -> torch.Tensor:

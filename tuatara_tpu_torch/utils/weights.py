@@ -7,6 +7,10 @@ architecture configs and the charset. The trees come back as nested dicts
 and lists of numpy arrays in the JAX package's layout; `tuatara_tpu_torch.
 weights` maps them onto the port's modules.
 
+The writers (`flatten_tree`, `save_params`, `save_weights_dir`) write the
+same files from such trees, so a directory either package writes loads in
+the other.
+
 `calibration.npz` holds int8 serving's calibrated activation scales under
 the JAX package's keys (`craft/vgg/conv1_2/conv/sx`,
 `craft/up/upconv1/conv1a/sx`, `parseq/...`), so a file saved by either
@@ -15,6 +19,7 @@ package loads in the other.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any, Dict, Tuple
@@ -27,6 +32,21 @@ CRAFT_FILE = "craft.npz"
 PARSEQ_FILE = "parseq.npz"
 CONFIG_FILE = "config.json"
 CALIB_FILE = "calibration.npz"
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts and lists -> {'/'-joined path: array}; list entries by
+    index (JAX `flatten_tree`)."""
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
 
 
 def unflatten_tree(flat: Dict[str, np.ndarray]) -> Any:
@@ -54,6 +74,10 @@ def load_params(path: str) -> Any:
         return unflatten_tree({k: z[k] for k in z.files})
 
 
+def save_params(path: str, params: Any) -> None:
+    np.savez(path, **flatten_tree(params))
+
+
 def weights_available(weights_dir: str) -> bool:
     return (
         bool(weights_dir)
@@ -72,6 +96,30 @@ def load_weights_dir(weights_dir: str):
         load_params(os.path.join(weights_dir, CRAFT_FILE)),
         load_params(os.path.join(weights_dir, PARSEQ_FILE)),
     )
+
+
+def save_weights_dir(weights_dir: str, craft_params: Any, parseq_params: Any,
+                     craft_config: Any = None, parseq_config: Any = None,
+                     charset: "str | None" = None) -> None:
+    """Write `craft.npz` and `parseq.npz` from the two trees and, when any
+    is given, `config.json` with the architecture configs and the charset
+    the recognizer was trained with, as JAX `save_weights_dir` writes
+    them: an engine of either package then builds the matching models and
+    decode table from the directory alone."""
+    os.makedirs(weights_dir, exist_ok=True)
+    save_params(os.path.join(weights_dir, CRAFT_FILE), craft_params)
+    save_params(os.path.join(weights_dir, PARSEQ_FILE), parseq_params)
+    if craft_config is None and parseq_config is None and charset is None:
+        return
+    meta: Dict[str, Any] = {}
+    if craft_config is not None:
+        meta["craft"] = dataclasses.asdict(craft_config)
+    if parseq_config is not None:
+        meta["parseq"] = dataclasses.asdict(parseq_config)
+    if charset is not None:
+        meta["charset"] = charset
+    with open(os.path.join(weights_dir, CONFIG_FILE), "w") as f:
+        json.dump(meta, f, indent=1)
 
 
 def _listify(v):

@@ -6,14 +6,24 @@ CRAFT's BatchNorms as separate {scale, bias, mean, var} entries. These
 functions take such trees (numpy arrays) and return state dicts for
 `models.craft.Craft` / `models.parseq.Parseq`. Conversion happens at load
 time; no converted copy is written anywhere.
+
+For training the carry-over runs both ways and folds nothing:
+`module_leaves` lists a trainable module's leaves under their JAX paths
+with their layouts, `load_tree` copies a JAX tree into the module (CRAFT's
+BatchNorms as scale/bias parameters and mean/var buffers), and
+`module_tree` / `module_flat` give the module back as JAX's tree, in
+JAX's layouts (the recognizer head unpadded), which `utils.weights`
+writes as either package's weights directory. `from_jax` / `to_jax` move
+one array between the layouts, e.g. Adam's moments.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def fold_batchnorms(tree: Dict[str, Any], eps: float) -> Dict[str, Any]:
@@ -44,17 +54,10 @@ def fold_batchnorms(tree: Dict[str, Any], eps: float) -> Dict[str, Any]:
 def _leaf(name: str, value: np.ndarray):
     """JAX leaf name + array -> (torch parameter name, tensor)."""
     a = np.asarray(value, np.float32)
-    if name == "w":
-        if a.ndim == 4:  # conv HWIO -> OIHW
-            a = a.transpose(3, 2, 0, 1)
-        elif a.ndim == 2:  # linear [in, out] -> [out, in]
-            a = a.T
-        return "weight", torch.from_numpy(np.ascontiguousarray(a))
-    if name == "b":
-        return "bias", torch.from_numpy(a.copy())
-    if name == "scale":  # LayerNorm gain
-        return "weight", torch.from_numpy(a.copy())
-    return name, torch.from_numpy(a.copy())
+    if name == "w":  # conv HWIO -> OIHW, linear [in, out] -> [out, in]
+        return "weight", from_jax(a, {4: "conv", 2: "linear"}.get(a.ndim, ""))
+    # b -> bias, a LayerNorm's gain scale -> weight
+    return {"b": "bias", "scale": "weight"}.get(name, name), from_jax(a, "")
 
 
 def _state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -77,3 +80,86 @@ def craft_state_dict(tree: Dict[str, Any], eps: float = 1e-5) -> Dict[str, torch
 def parseq_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """PARSEQ tree -> `Parseq` state dict."""
     return _state_dict(tree)
+
+
+# ---------------------------------------------------------------------------
+# Trainable modules <-> JAX trees, both ways, no fold
+# ---------------------------------------------------------------------------
+
+def module_leaves(model: nn.Module) -> List[Tuple[str, torch.Tensor, str]]:
+    """[(JAX path, tensor, layout)] of every leaf JAX's tree holds for
+    `model`: Conv and Linear {w, b}, LayerNorm {scale, bias}, BatchNorm
+    {scale, bias, mean, var}, and free parameters (`pos_embed`, ...) by
+    name. Layout "conv" (OIHW here, HWIO in JAX), "linear" ([out, in]
+    here, [in, out] in JAX) or "" (the same)."""
+    from tuatara_tpu_torch.models.layers import BatchNorm, Conv, LayerNorm, Linear
+
+    out: List[Tuple[str, torch.Tensor, str]] = []
+    for name, m in model.named_modules():
+        pre = name.replace(".", "/") + "/" if name else ""
+        if isinstance(m, (Conv, Linear)):
+            out += [(pre + "w", m.weight, "conv" if isinstance(m, Conv) else "linear"),
+                    (pre + "b", m.bias, "")]
+        elif isinstance(m, LayerNorm):
+            out += [(pre + "scale", m.weight, ""), (pre + "bias", m.bias, "")]
+        elif isinstance(m, BatchNorm):
+            out += [(pre + "scale", m.weight, ""), (pre + "bias", m.bias, ""),
+                    (pre + "mean", m.mean, ""), (pre + "var", m.var, "")]
+        else:
+            out += [(pre + n, p, "") for n, p in m.named_parameters(recurse=False)]
+    return out
+
+
+def to_jax(t: torch.Tensor, layout: str) -> np.ndarray:
+    """A port tensor -> a new fp32 numpy array in JAX's layout."""
+    a = t.detach().float().cpu().numpy()
+    if layout == "conv":
+        a = a.transpose(2, 3, 1, 0)
+    elif layout == "linear":
+        a = a.T
+    return np.array(a, order="C")  # a copy: a CPU tensor's numpy() shares its memory
+
+
+def from_jax(a: np.ndarray, layout: str) -> torch.Tensor:
+    """A JAX-layout array -> a new fp32 CPU tensor in the port's layout."""
+    a = np.asarray(a, np.float32)
+    if layout == "conv":
+        a = a.transpose(3, 2, 0, 1)
+    elif layout == "linear":
+        a = a.T
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def module_flat(model: nn.Module) -> Dict[str, np.ndarray]:
+    """{JAX path: array in JAX's layout} of a trainable module."""
+    return {path: to_jax(t, layout) for path, t, layout in module_leaves(model)}
+
+
+def module_tree(model: nn.Module) -> Any:
+    """A trainable module as JAX's nested tree of numpy arrays."""
+    from tuatara_tpu_torch.utils.weights import unflatten_tree
+
+    return unflatten_tree(module_flat(model))
+
+
+@torch.no_grad()
+def load_tree(model: nn.Module, tree: Any) -> nn.Module:
+    """Copy a JAX tree (nested, or already flat by path) into a trainable
+    module in place, folding nothing. Every leaf of the module must be in
+    the tree with its shape, and the tree must hold nothing else."""
+    from tuatara_tpu_torch.utils.weights import flatten_tree
+
+    flat = flatten_tree(tree)  # a flat {path: array} comes back as it is
+    leaves = module_leaves(model)
+    missing = [p for p, _, _ in leaves if p not in flat]
+    extra = sorted(set(flat) - {p for p, _, _ in leaves})
+    if missing or extra:
+        raise KeyError(f"tree does not match {type(model).__name__}: missing {missing[:5]}, "
+                       f"unexpected {extra[:5]}")
+    for path, t, layout in leaves:
+        src = from_jax(flat[path], layout)
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"{path}: shape {tuple(src.shape)} in the tree, "
+                             f"{tuple(t.shape)} in the model")
+        t.copy_(src)
+    return model
