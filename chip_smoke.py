@@ -251,6 +251,44 @@ line without a CUDA device or outside the repo.
              peak memory of fit_recognizer's step (256 crops, k_perms 6),
              fit_detector's (8 pages) and the joint step (both), bf16,
              each beside the card's name and power limit.
+8. conversion, mesh, profiling, native:
+             8a: the production weights mapped back to the upstream names
+             (tests/torch_surrogates.py), the replicas traced on the host
+             and saved under the reference's file names in build/convert/,
+             converted on the card with the normalization probe: verdict
+             identity for both, and every npz leaf bit-equal to
+             evals/production_weights; replicas that normalize inside
+             (CRAFT behind ImageNet's statistics in the engine's variant,
+             with the ReLU before the fc stage of ROADMAP Queue 3 item 16;
+             PARSEQ behind 2x-1) must give imagenet and pm1, baked into
+             config.json, and upstream's CRAFT behind ImageNet's
+             statistics "unknown"; the converted directory under
+             latency() on the four pages, counts zeroed just before and
+             read just after: the production weights' words and bboxes,
+             K1-K3 on every page, K6 and K7. 8b: two ranks share the card
+             over gloo (`--mesh-child serve`): `OcrEngine(latency(),
+             mesh=make_mesh())` and production() calibrated on phase 3d's
+             two pages run the dense batch at 16 and 15 pages (padding),
+             each rank's results equal to the single engines', its scales
+             equal, and each rank launching K1-K3 on its pages, K6, K7
+             (and every int8 conv); NCCL at world size 1 in this process:
+             an all_reduce on the card and the mesh engine equal to the
+             plain one. 8c: two ranks over gloo (`--mesh-child train`), at
+             fp32 with TF32 off and deterministic algorithms: two joint
+             steps at full width at dp=2 (the record's page and its
+             mirror, one a rank) and at tp=2 (the record's batch) within
+             MESH_TRAIN_RTOL of the single step's metrics; the tp shard of
+             enc/0/attn/q/w and its moment half of 384 rows; a sharded
+             checkpoint saved at dp=2 after one step, loaded onto dp=2,
+             tp=2 and one device, its leaves and moments and the next step
+             bit-equal to the same state built directly; ms a step beside
+             the single step (ranks sharing the card: a correctness drive,
+             not a scaling number). 8d: a `utils/profiling.trace` of one
+             latency() page holds the four stage names and K6's and K7's
+             kernels. 8e: the card's heatmaps of the four pages through
+             `native.extract_boxes` on the host beside K1-K3's boxes,
+             equal counts. Prints the phase's seconds and a {"phase8":
+             ...} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -2856,6 +2894,489 @@ def check_training(pages, results, lat_results, post, card):
     return rates
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: conversion, mesh, profiling, native
+# ---------------------------------------------------------------------------
+
+CONVERT_DIR = os.path.join(ROOT, "build", "convert")
+MESH_DIR = os.path.join(ROOT, "build", "mesh")
+MESH_WORLD = 2  # ranks sharing the one card over gloo
+MESH_TIMEOUT = 600
+# The sharded joint step's metrics against the single step at fp32, the
+# bound of tests/test_torch_parallel_train.py (JAX's own mesh test holds
+# its sharded loss to rtol 2e-4).
+MESH_TRAIN_RTOL = 2e-4
+MESH_TIMED_STEPS = 5
+STAGES = ("tuatara_detect", "tuatara_recognize", "tuatara_fetch", "tuatara_decode")
+
+
+def check_conversion(pages, lat_results, post):
+    """8a: the production weights through upstream-named replicas, traced,
+    converted on the card with the probe; leaves bit-equal; served under
+    latency() with the default path's kernels. -> convert seconds."""
+    import shutil
+
+    import numpy as np
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.utils import convert as C
+    from tuatara_tpu_torch.utils import weights as W
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_surrogates import Normalized, save_traced, upstream_replicas
+
+    shutil.rmtree(CONVERT_DIR, ignore_errors=True)
+    craft_cfg, parseq_cfg, _ = W.load_configs(WEIGHTS)
+    t0 = time.perf_counter()
+    craft, parseq = upstream_replicas(*W.load_weights_dir(WEIGHTS), craft_cfg, parseq_cfg)
+    ref = os.path.join(CONVERT_DIR, "reference")
+    save_traced(ref, craft, parseq)
+    t_trace = time.perf_counter() - t0
+    out = os.path.join(CONVERT_DIR, "converted")
+    t0 = time.perf_counter()
+    verdicts = C.convert_torchscript_weights(ref, out, craft_cfg, parseq_cfg)
+    t_convert = time.perf_counter() - t0
+    if verdicts != {"craft": "identity", "parseq": "identity"}:
+        fail(f"conversion: probe verdicts {verdicts}, want identity for both")
+    n_leaves = 0
+    for name in (W.CRAFT_FILE, W.PARSEQ_FILE):
+        with np.load(os.path.join(WEIGHTS, name)) as want, np.load(os.path.join(out, name)) as got:
+            if sorted(got.files) != sorted(want.files):
+                fail(f"conversion {name}: other keys")
+            for k in want.files:
+                if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
+                    fail(f"conversion {name}: {k} differs from the production weights")
+            n_leaves += len(want.files)
+    # Normalizing replicas: CRAFT behind ImageNet's statistics in the
+    # engine's variant (a ReLU before the fc stage, ROADMAP Queue 3 item
+    # 16), PARSEQ behind 2x-1: both found and baked. Upstream's CRAFT
+    # behind ImageNet's statistics: "unknown" (the engine cannot reproduce
+    # it within the probe's tolerance).
+    trees = W.load_weights_dir(WEIGHTS)
+    engine_craft = upstream_replicas(*trees, craft_cfg, parseq_cfg, relu_before_fc=True)[0]
+    ref_n = os.path.join(CONVERT_DIR, "reference_normalized")
+    save_traced(ref_n, Normalized(engine_craft, C.IMAGENET_MEAN, C.IMAGENET_STD).eval(),
+                Normalized(parseq, (0.5,) * 3, (0.5,) * 3).eval())
+    v_n = C.convert_torchscript_weights(ref_n, os.path.join(CONVERT_DIR, "normalized"),
+                                        craft_cfg, parseq_cfg)
+    if v_n != {"craft": "imagenet", "parseq": "pm1"}:
+        fail(f"conversion: normalized replicas gave {v_n}, want imagenet and pm1")
+    baked = W.load_configs(os.path.join(CONVERT_DIR, "normalized"))
+    if tuple(baked[0].input_mean) != C.IMAGENET_MEAN or tuple(baked[1].input_std) != (0.5,) * 3:
+        fail("conversion: the detected transforms were not baked into config.json")
+    upstream = Normalized(craft, C.IMAGENET_MEAN, C.IMAGENET_STD).eval()
+    v_up = C.probe_input_normalization(upstream, trees[0], "craft", craft_cfg)
+    if v_up != "unknown":
+        fail(f"conversion: upstream CRAFT behind ImageNet's statistics gave {v_up!r}, want "
+             f"'unknown' (the engine's CRAFT pools after a ReLU)")
+    print(f"conversion: full width traced in {t_trace:.1f} s (CPU), converted with the probe "
+          f"on the card in {t_convert:.1f} s; verdicts {verdicts}, {v_n} (normalizing "
+          f"replicas, baked), {v_up} (upstream CRAFT normalizing); {n_leaves} leaves "
+          f"bit-equal to {os.path.relpath(WEIGHTS, ROOT)}", flush=True)
+
+    eng = tuatara_tpu_torch.OcrEngine(tuatara_tpu_torch.OcrConfig.latency(), weights_dir=out)
+    reset_launches()
+    got = {n: eng.run(img) for n, img in pages.items()}
+    launches = dict(LAUNCHES)
+    eng.close()
+    need = {**dict.fromkeys(post, len(pages)), "vit_blocks": 1, "greedy_decode": 1}
+    for name, least in need.items():
+        if launches.get(name, 0) < least:
+            fail(f"converted weights under latency(): kernel {name} launched "
+                 f"{launches.get(name, 0)} times (at least {least})")
+    for page in pages:
+        if not words_equal(got[page], lat_results[page]):
+            fail(f"converted weights under latency(): {page} differs from the production "
+                 f"weights' words")
+    print(f"conversion: served under latency(): the production weights' words and bboxes on "
+          f"{len(pages)} pages ({sum(len(v) for v in got.values())} words); launches "
+          f"{json.dumps(launches)}", flush=True)
+    shutil.rmtree(CONVERT_DIR, ignore_errors=True)
+    return t_convert
+
+
+def spawn_ranks(kind, world=MESH_WORLD, env=None):
+    """Run `chip_smoke.py --mesh-child kind rank world dir` for every rank
+    (gloo over a file rendezvous, all on the card) -> their JSON results."""
+    import shutil
+
+    workdir = os.path.join(MESH_DIR, kind)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-child", kind,
+                               str(r), str(world), workdir], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        sys.stdout.write("".join(f"  [{kind} rank {r}] {line}\n" for line in o.splitlines()[-12:]))
+        if p.returncode != 0:
+            fail(f"mesh {kind}: rank {r} exited {p.returncode}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def mesh_serve_child(rank, world, workdir):
+    """8b's rank: latency() and calibrated production() on a dp mesh over
+    the ranks, the dense batch at 16 and 15 pages; launch counts of each
+    call."""
+    import torch.distributed as dist
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.parallel import init_distributed, make_mesh
+    from tuatara_tpu_torch.utils.image import load_image
+
+    init_distributed(rank, world, f"file://{workdir}/rendezvous", backend="gloo")
+    mesh = make_mesh(device="cuda:0")
+    pages = {n: load_image(os.path.join(ROOT, "images", f"{n}.png")) for n in PAGES[:2]}
+    dense = dense_batches()[0]
+    cfg = tuatara_tpu_torch.OcrConfig
+    lat = tuatara_tpu_torch.OcrEngine(cfg.latency(), weights_dir=WEIGHTS, mesh=mesh)
+    prod = tuatara_tpu_torch.OcrEngine(cfg.production(), weights_dir=WEIGHTS, mesh=mesh)
+    n_cal = prod.calibrate([img[None] for img in pages.values()])
+    out = {"calibrated": n_cal, "scales": [float(q.sx) for _, q in prod.craft.qconvs()],
+           "n_int8": len(prod.craft.qconvs())}
+    for name, eng in (("latency", lat), ("production_calibrated", prod)):
+        for b in (16, 15):
+            eng.run_pages(dense[:b])  # the bucket speculated, as in serving
+            reset_launches()
+            t0 = time.perf_counter()
+            res = eng.run_pages(dense[:b])
+            out[f"{name}/{b}"] = {"results": res, "launches": dict(LAUNCHES),
+                                  "ms": (time.perf_counter() - t0) * 1e3}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"rank {rank}: done", flush=True)
+    return 0
+
+
+def check_mesh_serving(lat, calibrated, post):
+    """8b: both dp ranks equal to the single engines, with K1-K3, K6 and K7
+    (and every int8 conv) launched on each; NCCL at world size 1."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.parallel import init_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("serve")
+    dense = dense_batches()[0]
+    want_scales = [float(q.sx) for _, q in calibrated.craft.qconvs()]
+    n_q = len(want_scales)
+    for r, res in enumerate(ranks):
+        if res["scales"] != want_scales:
+            fail(f"mesh serving: rank {r}'s calibrated scales differ from the single engine's")
+    for name, single in (("latency", lat), ("production_calibrated", calibrated)):
+        for b in (16, 15):
+            want = single.run_pages(dense[:b])
+            if not sum(len(p) for p in want):
+                fail("mesh serving: the single engine found no words")
+            need = {**dict.fromkeys(post, -(-b // MESH_WORLD)), "vit_blocks": 1,
+                    "greedy_decode": 1}
+            if name != "latency":
+                need["int8_conv"] = n_q
+            for r, res in enumerate(ranks):
+                got = res[f"{name}/{b}"]
+                if len(got["results"]) != b or not all(
+                        words_equal(g, w) for g, w in zip(got["results"], want)):
+                    fail(f"mesh serving {name} b={b}: rank {r}'s results differ from the "
+                         f"single engine's")
+                for k, least in need.items():
+                    if got["launches"].get(k, 0) < least:
+                        fail(f"mesh serving {name} b={b}: rank {r} launched {k} "
+                             f"{got['launches'].get(k, 0)} times (at least {least})")
+            print(f"mesh serving {name}, dense batch of {b} (dp={MESH_WORLD}, "
+                  f"{-(-b // MESH_WORLD)} pages a rank): both ranks equal the single engine "
+                  f"({sum(len(p) for p in want)} words); rank 0 launches "
+                  f"{json.dumps(ranks[0][f'{name}/{b}']['launches'])}; warm ms a call "
+                  f"{[round(res[f'{name}/{b}']['ms'], 1) for res in ranks]}", flush=True)
+
+    # NCCL at world size 1: a collective on the card, and the mesh engine
+    # equal to the plain one.
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    init_distributed(0, 1, f"tcp://localhost:{port}", backend="nccl")
+    try:
+        x = torch.arange(4.0, device="cuda")
+        dist.all_reduce(x)
+        if not torch.equal(x, torch.arange(4.0, device="cuda")):
+            fail("NCCL all_reduce at world size 1 changed its input")
+        mesh = make_mesh()
+        eng = tuatara_tpu_torch.OcrEngine(tuatara_tpu_torch.OcrConfig.latency(),
+                                          weights_dir=WEIGHTS, mesh=mesh)
+        got, want = eng.run_pages(dense[:15]), lat.run_pages(dense[:15])
+        if not all(words_equal(g, w) for g, w in zip(got, want)) or len(got) != 15:
+            fail("NCCL mesh engine (world size 1) differs from the plain engine")
+        eng.close()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh serving: {backend} at world size 1: all_reduce on the card, mesh engine == "
+          f"plain on 15 pages; 8b {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mesh_train_child(rank, world, workdir):
+    """8c's rank: the joint step at full width, fp32, TF32 off,
+    deterministic algorithms, at dp=2 (the record's page and its mirror)
+    and tp=2 (the record's batch), against the single step (rank 0); a
+    sharded save at dp=2 loaded onto dp=2, tp=2 and one device; ms a step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tuatara_tpu_torch.parallel import init_distributed, make_mesh
+    from tuatara_tpu_torch.train.checkpoint import (load_checkpoint_sharded,
+                                                    save_checkpoint_sharded)
+    from tuatara_tpu_torch.train.trainer import (full_flat, init_train_state, moments_from_jax,
+                                                 param_layouts, shard_batch, shard_train_state,
+                                                 train_step)
+    from tuatara_tpu_torch.utils import weights as W
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(rank, world, f"file://{workdir}/rendezvous", backend="gloo")
+    mesh_dp = make_mesh(device="cuda:0")
+    mesh_tp = make_mesh(axes=("dp", "tp"), shape=(1, world), device="cuda:0")
+    with np.load(TRAIN_RECORD) as z:
+        rec = {k: z[k] for k in z.files}
+    batch_tp = train_batch(rec, "cuda")
+    batch_dp = {k: v for k, v in batch_tp.items()}
+    batch_dp["pages"] = torch.cat([batch_tp["pages"], batch_tp["pages"].flip(2)])
+    batch_dp["heat"] = torch.cat([batch_tp["heat"], batch_tp["heat"].flip(2)])
+    perms = torch.from_numpy(rec["perms"]).long().cuda()
+    f32 = torch.float32
+
+    def step(state, tx, batch):
+        b = batch if state.mesh is None else shard_batch(state.mesh, batch)
+        _, m = train_step(state, b, tx, perms=perms, compute_dtype=f32)
+        return {k: float(v) for k, v in m.items()}
+
+    def state_on(mesh, trees=None, moments=None):
+        if trees is None:
+            st, tx = production_state()
+        else:
+            st, tx = init_train_state(craft_cfg=trees[2], parseq_cfg=trees[3],
+                                      params=trees[:2])
+            st.opt_state = moments_from_jax(moments, st.params(),
+                                            param_layouts(craft=st.craft, parseq=st.parseq))
+            st.step = 1
+        if mesh is not None:
+            shard_train_state(mesh, st, tx)
+        return st, tx
+
+    out = {}
+    for name, mesh, batch in (("dp", mesh_dp, batch_dp), ("tp", mesh_tp, batch_tp)):
+        st, tx = state_on(mesh)
+        out[name] = [step(st, tx, batch) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED_STEPS):
+            step(st, tx, batch)
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / MESH_TIMED_STEPS
+        if name == "tp":
+            q = st.parseq.enc[0].attn.q.weight
+            out["tp_shard"] = [list(q.shape), list(st.opt_state.mu["parseq/enc/0/attn/q/w"].shape)]
+        del st
+    if rank == 0:  # the single step on the same batches, alone on the card
+        for name, batch in (("dp", batch_dp), ("tp", batch_tp)):
+            st, tx = state_on(None)
+            out[f"single_{name}"] = [step(st, tx, batch) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_TIMED_STEPS):
+                step(st, tx, batch)
+            torch.cuda.synchronize()
+            out[f"single_{name}_ms"] = (time.perf_counter() - t0) * 1e3 / MESH_TIMED_STEPS
+            del st
+    dist.barrier()
+
+    # A sharded checkpoint saved at dp=2 after one step.
+    ckpt = os.path.join(workdir, "ckpt")
+    a, tx = state_on(mesh_dp)
+    step(a, tx, batch_dp)
+    flat1 = full_flat(a)
+    save_checkpoint_sharded(ckpt, a)
+    step(a, tx, batch_dp)
+    straight2 = full_flat(a)
+    del a
+
+    def split(flat):
+        """A full flat state -> (CRAFT tree, PARSEQ tree, their configs), moments."""
+        def tree(prefix):
+            return W.unflatten_tree({k[len(prefix):]: v for k, v in flat.items()
+                                     if k.startswith(prefix)})
+
+        craft_cfg, parseq_cfg, _ = W.load_configs(WEIGHTS)
+        return ((tree("craft/"), tree("parseq/"), craft_cfg, parseq_cfg),
+                {k: v for k, v in flat.items() if k.startswith(("mu/", "nu/")) or k == "count"})
+
+    trees, moments = split(flat1)
+    ck = {}
+    for name, mesh, batch in (("dp", mesh_dp, batch_dp), ("tp", mesh_tp, batch_tp),
+                              ("single", None, batch_tp)):
+        b, tx = state_on(mesh)
+        load_checkpoint_sharded(ckpt, b)
+        loaded = full_flat(b)
+        diff_loaded = [k for k in flat1 if not np.array_equal(loaded[k], flat1[k])]
+        step(b, tx, batch)
+        resumed = full_flat(b)
+        del b
+        d, tx = state_on(mesh, trees, moments)
+        step(d, tx, batch)
+        direct = full_flat(d)
+        del d
+        diff = [k for k in direct if not np.array_equal(resumed[k], direct[k])]
+        if name == "dp":
+            diff += [f"straight:{k}" for k in straight2
+                     if not np.array_equal(resumed[k], straight2[k])]
+        ck[name] = {"leaves": len(flat1), "loaded_differ": diff_loaded[:5],
+                    "n_loaded_differ": len(diff_loaded), "resumed_differ": diff[:5],
+                    "n_resumed_differ": len(diff)}
+    out["ckpt"] = ck
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"rank {rank}: done", flush=True)
+    return 0
+
+
+def check_mesh_training(card):
+    """8c: the sharded joint step against the single step; the sharded
+    checkpoint across layouts; ms a step."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    ranks = spawn_ranks("train", env=env)
+    single = ranks[0]
+    with np.load(TRAIN_RECORD) as z:
+        jax_m = {i: {k: float(z[f"fp32/m{i}/{k}"]) for k in TRAIN_METRICS} for i in (1, 2)}
+    for name in ("dp", "tp"):
+        worst, worst_jax = 0.0, 0.0
+        for r, res in enumerate(ranks):
+            for i in range(2):
+                for k in TRAIN_METRICS:
+                    got, want = res[name][i][k], single[f"single_{name}"][i][k]
+                    rel = abs(got - want) / max(abs(want), 1e-30)
+                    worst = max(worst, rel)
+                    if rel > MESH_TRAIN_RTOL or (k == "craft_n_pos" and got != want):
+                        fail(f"mesh training {name}: rank {r} step {i + 1} {k} {got!r} vs the "
+                             f"single step's {want!r}")
+                    if name == "tp":
+                        worst_jax = max(worst_jax, abs(got / jax_m[i + 1][k] - 1))
+        print(f"mesh training {name}=2 (fp32, TF32 off, full width): both ranks' metrics of "
+              f"2 steps within {worst:.2e} of the single step (bound {MESH_TRAIN_RTOL})"
+              + (f", within {worst_jax:.2e} of JAX's record" if name == "tp" else
+                 " (the record's page and its mirror, one a rank)")
+              + f"; ms a step {[round(r_[f'{name}_ms'], 1) for r_ in ranks]} on ranks "
+              f"sharing the card, single step {single[f'single_{name}_ms']:.1f} ms; "
+              f"card {card}", flush=True)
+    for r, res in enumerate(ranks):
+        q, mu = res["tp_shard"]
+        if q != [192, 384] or mu != [192, 384]:
+            fail(f"mesh training tp: rank {r} holds q {q} and its moment {mu} (want half of "
+                 f"384 output rows)")
+        for target, c in res["ckpt"].items():
+            if c["n_loaded_differ"] or c["n_resumed_differ"]:
+                fail(f"sharded checkpoint onto {target}: rank {r}: {c}")
+    print(f"mesh training: sharded checkpoint saved at dp=2 after one step, loaded onto dp=2, "
+          f"tp=2 and one device: {ranks[0]['ckpt']['dp']['leaves']} leaves and moments "
+          f"bit-equal, and the next step bit-equal to the direct one (dp=2: to the straight "
+          f"run); 8c {time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: ranks[0][k] for k in ("dp_ms", "tp_ms", "single_dp_ms", "single_tp_ms")}
+
+
+def check_profiling(lat, pages):
+    """8d: a profiling.trace of one latency() page holds the four stage
+    names and K6's and K7's kernels."""
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.utils import profiling
+
+    log = os.path.join(MESH_DIR, "trace")
+    reset_launches()
+    with profiling.trace(log):
+        lat.run(pages["resume_example"])
+    with open(os.path.join(log, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    missing = [s for s in STAGES if s not in names]
+    k6 = sum("gemm_kernel" in k or "attention" in k for k in kernels
+             if "(anonymous namespace)::" in k)
+    k7 = sum("decode_kernel" in k for k in kernels)
+    if missing or not k6 or not k7:
+        fail(f"profiling trace: stages missing {missing}, K6 kernels {k6}, K7 kernels {k7}")
+    print(f"profiling: trace of one latency() page: {len(events)} events, the four stages, "
+          f"{len(kernels)} kernels (K6 {k6}, K7 {k7}; launches {dict(LAUNCHES)})", flush=True)
+
+
+def check_native(lat, pages):
+    """8e: the card's heatmaps of the four pages through the native host
+    library, beside K1-K3's boxes: equal counts."""
+    from tuatara_tpu_torch import native
+    from tuatara_tpu_torch.api import content_mask
+    from tuatara_tpu_torch.ops.boxes import extract_boxes
+
+    cfg = lat.config
+    rows = []
+    for name, img in pages.items():
+        det = lat.detect(lat._to_device(img[None]))
+        scores = det["scores"][0]
+        content = content_mask(img.shape[0], img.shape[1], cfg, scores.device)
+        h, w = int(content.any(1).sum()), int(content.any(0).sum())
+        port = extract_boxes(scores[:, :, 0], scores[:, :, 1], content, cfg)
+        want = sorted(tuple(int(v) for v in b) for b in port["boxes"][port["valid"]].tolist())
+        hm = scores[:h, :w].float().cpu().numpy()
+        t0 = time.perf_counter()
+        boxes, _, _ = native.extract_boxes(hm[..., 0], hm[..., 1], cfg.text_threshold,
+                                           cfg.link_threshold, cfg.low_text,
+                                           cfg.min_component_area, cfg.niter_mode,
+                                           max_boxes=cfg.max_boxes)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = sorted(tuple(int(v) for v in b) for b in boxes)
+        same = len(set(got) & set(want))
+        rows.append(f"{name} {len(got)}/{len(want)} ({same} equal, {ms:.1f} ms host)")
+        if len(got) != len(want) or int(det["count"][0]) != len(want):
+            fail(f"native boxes on {name}: {len(got)} host boxes, {len(want)} from K1-K3")
+    print("native: host boxes / K1-K3 boxes on the card's heatmaps: " + "; ".join(rows),
+          flush=True)
+
+
+def check_phase8(pages, lat, lat_results, calibrated, post, card):
+    """Phase 8 (see the module docstring). -> its summary."""
+    t_phase = time.perf_counter()
+    t_convert = check_conversion(pages, lat_results, post)
+    check_mesh_serving(lat, calibrated, post)
+    rates = check_mesh_training(card)
+    check_profiling(lat, pages)
+    check_native(lat, pages)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 8: {secs:.1f} s", flush=True)
+    return {"convert_s": t_convert, "train_ms": rates, "seconds": secs}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1000, exit=True)
     t_start = time.perf_counter()
@@ -3009,9 +3530,13 @@ def main() -> int:
     # checkpoint served, learning, step rates
     training = check_training(pages, results, lat_results, post, card)
 
+    # 8. conversion, mesh, profiling, native
+    phase8 = check_phase8(pages, lat, lat_results, calibrated, post, card)
+
     print(json.dumps({"int8_conv": int8_summary}), flush=True)
     print(json.dumps({"int8_linear": int8_linear_summary}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"phase8": phase8}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
@@ -3024,4 +3549,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--train-resume":  # phase 7's child
         sys.exit(resume_child(sys.argv[2]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--mesh-child":  # phase 8's ranks
+        sys.path.insert(0, ROOT)
+        child = {"serve": mesh_serve_child, "train": mesh_train_child}[sys.argv[2]]
+        sys.exit(child(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -13,7 +13,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(glob.glob(os.path.join(ROOT, "tuatara_tpu_torch", "**", "*.py"),
-                         recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
+                         recursive=True)) + [os.path.join(ROOT, "chip_smoke.py"),
+                                             os.path.join(ROOT, "tests", "torch_surrogates.py")]
 FORBIDDEN = ("jax", "jaxlib", "optax", "tuatara_tpu", "PIL", "cv2")
 RENDERING = os.path.join(ROOT, "tuatara_tpu_torch", "utils", "data.py")
 
@@ -55,7 +56,11 @@ def test_port_has_modules():
                  "tuatara_tpu_torch/utils/image.py", "tuatara_tpu_torch/utils/weights.py",
                  "tuatara_tpu_torch/train/__init__.py", "tuatara_tpu_torch/train/losses.py",
                  "tuatara_tpu_torch/train/trainer.py", "tuatara_tpu_torch/train/checkpoint.py",
-                 "tuatara_tpu_torch/train/run.py"):
+                 "tuatara_tpu_torch/train/run.py", "tuatara_tpu_torch/utils/convert.py",
+                 "tuatara_tpu_torch/convert.py", "tuatara_tpu_torch/utils/profiling.py",
+                 "tuatara_tpu_torch/native.py", "tuatara_tpu_torch/parallel/__init__.py",
+                 "tuatara_tpu_torch/parallel/mesh.py", "tuatara_tpu_torch/parallel/sharding.py",
+                 "tuatara_tpu_torch/parallel/tensor.py", "tests/torch_surrogates.py"):
         assert want in names
 
 
@@ -83,6 +88,33 @@ def test_training_imports_without_jax_optax_or_pil():
             "from tuatara_tpu_torch.utils.data import detection_batch\n"
             "import numpy as np\n"
             "assert detection_batch(1, np.random.default_rng(0), 64)['pages'].shape == (1, 64, 64, 3)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_slice_12_modules_import_without_jax():
+    """The converter, its command line, profiling, the native binding, the
+    mesh modules, the engine, training and chip_smoke.py's surrogate
+    replicas import in a fresh interpreter that cannot load jax, optax,
+    PIL, cv2 or the JAX package."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'optax', 'PIL', 'cv2',\n"
+            "                                  'tuatara_tpu'):\n"
+            "            raise ImportError(name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import tuatara_tpu_torch.utils.convert, tuatara_tpu_torch.convert\n"
+            "import tuatara_tpu_torch.utils.profiling, tuatara_tpu_torch.native\n"
+            "import tuatara_tpu_torch.parallel, tuatara_tpu_torch.parallel.tensor\n"
+            "import tuatara_tpu_torch.api, tuatara_tpu_torch.train.trainer\n"
+            "import tuatara_tpu_torch.train.checkpoint, tuatara_tpu_torch.train.losses\n"
+            "import torch_surrogates\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr

@@ -56,8 +56,32 @@ that split (uploads on a side stream from a producer thread, `depth`
 dispatches in flight), `run_mixed` groups pages of mixed sizes, and
 `engine.stats` accumulates the serving counters.
 
+With `mesh=` (a `parallel.make_mesh` mesh with a 'dp' axis, JAX's
+`OcrEngine(mesh=)`) the engine is SPMD over the mesh's ranks: every rank
+calls `run_pages` / `run_stream` / `calibrate` with the same whole batch and
+returns the whole result list, as JAX's single controller sees it. The
+batch pads to a dp multiple with copies of its last page, whose results are
+dropped.
+Each rank detects its contiguous shard of pages (the labeler runs to that
+shard's own convergence, as under JAX's shard_map); under int8 CRAFT with
+dynamic scales each layer's activation abs-max is taken over the whole
+batch (an all-reduce MAX over dp), as in JAX's partitioned conv trunk. The
+small detection outputs are all-gathered, every rank builds the same slab
+order and bucket (so speculation picks one bucket everywhere), crops its
+contiguous rows of the slab from the whole batch it holds, recognizes them,
+and the ids and confidences are all-gathered. Recognition is per shard, as
+JAX's shard_map of `_recognize_body`: a dynamic int8 encoder's scales span
+a rank's rows, not the slab (its calibration spans the slab). Without a
+mesh none of this runs.
+
+The stages are marked for `torch.profiler` traces under JAX's names
+(`tuatara_detect`, `tuatara_recognize`, `tuatara_fetch`,
+`tuatara_decode`; `utils/profiling.py`); the marks read nothing back from
+the device.
+
 Models load once per engine and stay on the device. The engine runs on the
-card unless the caller passes `device="cpu"`.
+card unless the caller passes `device="cpu"` (under a mesh: the mesh's
+device).
 """
 
 from __future__ import annotations
@@ -72,6 +96,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.profiler import record_function
 
 from tuatara_tpu_torch.config import DEFAULT_CONFIG, CraftConfig, OcrConfig, ParseqConfig
 from tuatara_tpu_torch.kernels.int8 import check_shapes as check_int8_shapes
@@ -120,8 +146,14 @@ class OcrEngine:
     def __init__(self, config: OcrConfig = DEFAULT_CONFIG,
                  craft_config: Optional[CraftConfig] = None,
                  parseq_config: Optional[ParseqConfig] = None,
-                 weights_dir: Optional[str] = None, device: Optional[str] = None):
-        self.device = resolve_device(device)
+                 weights_dir: Optional[str] = None, device: Optional[str] = None,
+                 mesh=None):
+        if mesh is not None and "dp" not in mesh.axis_names:
+            raise ValueError(f"the engine shards pages over a 'dp' axis; the mesh has "
+                             f"{mesh.axis_names}")
+        self.mesh = mesh
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else str(mesh.device))
         self.config = config
         if config.decode_mode not in ("greedy", "beam", "nar"):
             raise ValueError(f"unknown decode_mode {config.decode_mode!r} "
@@ -305,13 +337,75 @@ class OcrEngine:
                 return b
         return self.config.max_boxes
 
+    # ---- the dp mesh ----
+
+    @property
+    def dp_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size("dp")
+
+    def _dp_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every dp rank's `t` [n, ...] concatenated in rank order."""
+        from tuatara_tpu_torch.parallel.mesh import all_gather_cat
+
+        return all_gather_cat(t, self.mesh.group("dp"))
+
+    def _dp_max(self, stats: Dict[Any, float], layers) -> Dict[Any, float]:
+        """Calibration stats {layer: abs-max} -> their max over the dp ranks
+        (every rank saw the same layers)."""
+        group = None if self.mesh is None else self.mesh.group("dp")
+        if group is None or not stats:
+            return stats
+        keys = [q for q in layers if q in stats]
+        vals = torch.tensor([stats[q] for q in keys], dtype=torch.float64, device=self.device)
+        dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=group)
+        return dict(zip(keys, vals.tolist()))
+
+    def _pad_pages(self, images, b: int):
+        """Pad a page batch to a multiple of the dp size with copies of its
+        last page: a copy raises no batch abs-max, so a dynamic int8 scale
+        over the padded batch is the one over the pages sent."""
+        extra = -b % self.dp_size
+        if extra == 0:
+            return images, b
+        if isinstance(images, torch.Tensor):
+            return torch.cat([images, images[-1:].expand(extra, *images.shape[1:])]), b + extra
+        return np.concatenate([images, np.repeat(images[-1:], extra, axis=0)]), b + extra
+
     @torch.inference_mode()
-    def detect(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def detect(self, images: torch.Tensor, b_real: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
         """Device pages [B, H, W, C] uint8 -> per-slot bbox [B, K, 4], crop
         rects [B, K, 4] (rotated corners [B, K, 4, 2] where `_rotated`),
         valid [B, K] (valid first, raster order kept), count [B], and the
-        heatmaps [B, h, w, 2]."""
+        heatmaps [B, h, w, 2].
+
+        Under a mesh B is a multiple of the dp size (the whole batch on
+        every rank), of which the first `b_real` (None: all) are pages and
+        the rest padding (`_pad_pages`' copies of the last page): each rank
+        detects its contiguous pages, and the outputs but the heatmaps
+        (this rank's pages only) are gathered. Padding pages come back with
+        no valid box, and being copies they leave every dynamic int8 scale
+        as it is, so every page's result is the single engine's (JAX pads
+        with blank pages, which can raise the abs-max: ROADMAP Queue 3)."""
         self._check_open()
+        if self.mesh is None:
+            return self._detect_pages(images)
+        b, dp, r = images.shape[0], self.dp_size, self.mesh.rank("dp")
+        if b % dp:
+            raise ValueError(f"batch {b} does not divide over dp = {dp}")
+        n = b // dp
+        b_real = b if b_real is None else b_real
+        det = self._detect_pages(images[r * n:(r + 1) * n])
+        out = {k: self._dp_gather(det[k]) for k in ("bbox", "rects", "valid", "count")}
+        if b_real < b:
+            out["valid"][b_real:] = False
+            out["count"][b_real:] = 0
+        out["scores"] = det["scores"]
+        return out
+
+    def _detect_pages(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """`detect` on this rank's pages (a mesh's dynamic int8 scales span
+        the pages of every rank)."""
         cfg = self.config
         b, h, w, c = images.shape
         if self._tiled(h, w):
@@ -322,7 +416,11 @@ class OcrEngine:
         if self.craft.quantized:
             # int8 sums are exact: a calibrated page's heatmap is the same
             # in any batch (dynamic scales span the batch, as in JAX).
-            scores, _ = self.craft(canvases)
+            if self.mesh is None:
+                scores, _ = self.craft(canvases)
+            else:
+                with L.amax_group(self.mesh.group("dp")):
+                    scores, _ = self.craft(canvases)
         else:
             # cuDNN picks a float convolution's kernel by the batch size,
             # so a page's heatmap would depend on the pages beside it
@@ -405,7 +503,8 @@ class OcrEngine:
         """The crops of the live boxes, padded to `bucket` rows (JAX
         `_crop_fn`) -> (crops [bucket, rec_h, rec_w, 3] in [0, 1], inv: the
         slab row of each live crop in (page, slot) raster order, or None
-        when the slab is in that order already)."""
+        when the slab is in that order already). Under a dp mesh, the crops
+        of this rank's ceil(bucket / dp) rows only."""
         cfg = self.config
         b, k = valid.shape
         flat_valid = valid.reshape(-1)
@@ -431,6 +530,13 @@ class OcrEngine:
         else:
             order = raster
             inv = None
+        if self.dp_size > 1:
+            # This rank's contiguous rows of the slab (JAX's P("dp") layout);
+            # the last rank's rows past the bucket repeat its last row.
+            n = -(-bucket // self.dp_size)
+            rows = torch.arange(self.mesh.rank("dp") * n, (self.mesh.rank("dp") + 1) * n,
+                                device=order.device)
+            order = order[rows.clamp(max=bucket - 1)]
         if rotated:
             crops = extract_crops_perspective_batched(
                 images, order // k, rects.reshape(b * k, 4, 2)[order], cfg.rec_height,
@@ -455,6 +561,8 @@ class OcrEngine:
         crops, inv = self._crop_slab(images, rects, valid, bucket)
         ids, conf = self.parseq.recognize(crops, self.config.decode_mode,
                                           self.config.beam_size)
+        if self.dp_size > 1:
+            ids, conf = self._dp_gather(ids)[:bucket], self._dp_gather(conf)[:bucket]
         if inv is not None:
             ids, conf = ids[inv], conf[inv]
         return ids, conf
@@ -468,27 +576,40 @@ class OcrEngine:
         current scales), cropped at the largest bucket its boxes could
         fill, and encoded. Each quantized layer's input abs-max over the
         pages gives sx = 127 / (amax * margin); inputs beyond it saturate.
-        Re-calibration replaces the scales. -> layers set."""
+        Re-calibration replaces the scales. -> layers set.
+
+        Under a dp mesh each batch pads to a dp multiple (`_pad_pages`), each
+        rank runs its pages and its slab rows with dynamic scales over the
+        whole batch and slab, as JAX's calibration forwards do, and the
+        abs-maxes are reduced over dp. The padding copies raise no
+        abs-max, and the slab's bucket is taken from the pages sent, so the
+        scales are the single engine's."""
         self._check_open()
         cfg = self.config
         if not cfg.quantized_serving:
             raise ValueError("calibrate() requires OcrConfig(quantized_serving=True)")
         batches = pages if isinstance(pages, (list, tuple)) else [pages]
         craft_stats, rec_stats = [], []
+        qconvs = [q for _, q in self.craft.qconvs()]
+        qlinears = [q for _, q in self.parseq.qlinears()]
+        group = None if self.mesh is None else self.mesh.group("dp")
         for batch in batches:
-            images, b, _, _, _ = self._batch_geometry(batch)
+            images, b_real, _, _, _ = self._batch_geometry(batch)
+            images, b = self._pad_pages(images, b_real)
             images_d = self._to_device(images)
-            canvases = torch.stack([canvas_prep(images_d[i], cfg) for i in range(b)])
-            with L.calibration() as seen:
+            n, r = b // self.dp_size, 0 if self.mesh is None else self.mesh.rank("dp")
+            canvases = torch.stack([canvas_prep(images_d[i], cfg)
+                                    for i in range(r * n, (r + 1) * n)])
+            with L.calibration() as seen, L.amax_group(group):
                 self.craft(canvases)
-            craft_stats.append(dict(seen))
+            craft_stats.append(self._dp_max(dict(seen), qconvs))
             if self.parseq.quantized:
-                det = self.detect(images_d)
-                bucket = self._bucket(min(max(cfg.rec_buckets), b * cfg.max_boxes))
+                det = self.detect(images_d, b_real)
+                bucket = self._bucket(min(max(cfg.rec_buckets), b_real * cfg.max_boxes))
                 crops, _ = self._crop_slab(images_d, det["rects"], det["valid"], bucket)
-                with L.calibration() as seen:
+                with L.calibration() as seen, L.amax_group(group):
                     self.parseq.encode(crops)
-                rec_stats.append(dict(seen))
+                rec_stats.append(self._dp_max(dict(seen), qlinears))
         return (L.make_static_quant(L.merge_calib_stats(craft_stats), margin)
                 + L.make_static_quant(L.merge_calib_stats(rec_stats), margin))
 
@@ -526,12 +647,21 @@ class OcrEngine:
         self._check_dtype(images)
         if 0 in images.shape:
             raise ValueError("empty image")
+        b_real = b
+        if self.mesh is not None:
+            images, b = self._pad_pages(images, b)
         images_d = self._to_device(images)
         t0 = time.perf_counter()
-        det = self.detect(images_d)
-        geometry = (b, h, w, c)
+        with record_function("tuatara_detect"):
+            det = self.detect(images_d, b_real)
+        # Keyed by the pages the caller sent: a mesh's padding changes no
+        # slab, and a padded group does not share a smaller one's bucket.
+        geometry = (b_real, h, w, c)
         spec = self._spec.get(geometry)
-        rec = None if spec is None else self._run_recognition(det, spec, images_d)
+        rec = None
+        if spec is not None:
+            with record_function("tuatara_recognize"):
+                rec = self._run_recognition(det, spec, images_d)
         return {"det": det, "rec": rec, "spec": spec, "images_d": images_d,
                 "geometry": geometry, "t0": t0}
 
@@ -557,14 +687,15 @@ class OcrEngine:
         correctly sized recognition pass runs when there was no speculative
         slab or it held fewer rows than the batch's live boxes."""
         det, rec, spec, geometry = st["det"], st["rec"], st["spec"], st["geometry"]
-        b = geometry[0]
+        b = geometry[0]  # the pages sent, before a mesh's padding
         K = self.config.max_boxes
-        if rec is None:
-            counts, bboxes = self._fetch([det["count"], det["bbox"]])
-        else:
-            counts, bboxes, ids, conf = self._fetch([det["count"], det["bbox"], *rec])
+        with record_function("tuatara_fetch"):
+            if rec is None:
+                counts, bboxes = self._fetch([det["count"], det["bbox"]])
+            else:
+                counts, bboxes, ids, conf = self._fetch([det["count"], det["bbox"], *rec])
         t1 = time.perf_counter()
-        spans = [int(n) for n in counts]
+        spans = [int(n) for n in counts[:b]]  # a mesh's padding pages dropped
         total = sum(spans)
         results: List[List[Dict]] = [[] for _ in range(b)]
         if total == 0:
@@ -582,19 +713,22 @@ class OcrEngine:
         bucket = min(max(bucket, self.config.rec_buckets[0]), b * K)
         fallback = spec is None or spec < total
         if fallback:
-            ids, conf = self._fetch(list(self._run_recognition(det, bucket, st["images_d"])))
+            with record_function("tuatara_recognize"):
+                ids, conf = self._fetch(list(self._run_recognition(det, bucket,
+                                                                   st["images_d"])))
         self._spec[geometry] = bucket
         t2 = time.perf_counter()
-        texts = self.tokenizer.decode_ids(ids[:total])
-        off = 0
-        for i in range(b):
-            for j in range(spans[i]):
-                results[i].append({
-                    "text": texts[off + j],
-                    "bbox": [float(v) for v in bboxes[i, j]],
-                    "confidence": float(conf[off + j]),
-                })
-            off += spans[i]
+        with record_function("tuatara_decode"):
+            texts = self.tokenizer.decode_ids(ids[:total])
+            off = 0
+            for i in range(b):
+                for j in range(spans[i]):
+                    results[i].append({
+                        "text": texts[off + j],
+                        "bbox": [float(v) for v in bboxes[i, j]],
+                        "confidence": float(conf[off + j]),
+                    })
+                off += spans[i]
         # With a speculative slab, detect_s spans dispatch to the combined
         # fetch (detection and recognition both), and recognize_s only a
         # fallback pass.

@@ -32,6 +32,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -167,11 +168,20 @@ def _abs_max(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(-lo, hi).float()
 
 
+def _global_amax(amax: torch.Tensor) -> torch.Tensor:
+    """A local abs-max -> its max over the ranks of an open `amax_group`
+    (the data-parallel shards of one batch), else as it is."""
+    if _AMAX_GROUP is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=_AMAX_GROUP)
+    return amax
+
+
 def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-tensor symmetric int8 (JAX `quantize_act`): x [B, C, H,
     W] -> (xq [B, H, W, C] int8, xs fp32 scalar), xs = 127 / max(amax,
-    1e-12) over the whole tensor, batch included."""
-    amax = torch.clamp(_abs_max(x), min=1e-12)
+    1e-12) over the whole tensor, batch included (under `amax_group`, the
+    whole batch of every rank)."""
+    amax = torch.clamp(_global_amax(_abs_max(x)), min=1e-12)
     # A true division: `127.0 / tensor` is a reciprocal times 127 in torch,
     # one more rounding than JAX's quotient.
     xs = torch.full_like(amax, 127.0) / amax
@@ -311,7 +321,7 @@ class QLinear(nn.Module):
             if _CALIB is not None:
                 _CALIB[self] = max(_CALIB.get(self, float(amax)), float(amax))
         if self.sx is None:
-            amax = torch.clamp(amax, min=1e-12)
+            amax = torch.clamp(_global_amax(amax), min=1e-12)
             xs = torch.full_like(amax, 127.0) / amax  # a true division, as in JAX
         else:
             xs = self.sx
@@ -321,6 +331,25 @@ class QLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xq, xs = self.quantize_input(x)
         return dequant(int8_linear(xq, self.wmat), self.sw / xs, self.bias, self.out_dtype)
+
+
+# Under a data-parallel mesh each rank quantizes its shard of a batch with
+# the scale of the whole batch, as JAX's partitioned program does: while an
+# `amax_group(group)` context is open, a dynamic scale's abs-max is the max
+# over the group's ranks.
+_AMAX_GROUP: Optional["dist.ProcessGroup"] = None
+
+
+@contextlib.contextmanager
+def amax_group(group):
+    """Dynamic activation scales over the ranks of `group` (None: this
+    rank's tensor alone) for the forwards it encloses."""
+    global _AMAX_GROUP
+    prev, _AMAX_GROUP = _AMAX_GROUP, group
+    try:
+        yield
+    finally:
+        _AMAX_GROUP = prev
 
 
 # Calibration: while a `calibration()` context is open, every QConv and
@@ -499,6 +528,8 @@ class BatchNorm(nn.Module):
     unbiased estimate (`F.batch_norm(training=True)`'s contract);
     `train=False` is JAX `batchnorm` on the running statistics."""
 
+    sync_group = None  # set by `train.trainer.shard_train_state` under dp
+
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(c))
@@ -508,5 +539,28 @@ class BatchNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor, train: bool, momentum: float = 0.1) -> torch.Tensor:
+        if train and self.sync_group is not None:
+            return self._forward_synced(x.float(), momentum)
         return F.batch_norm(x.float(), self.mean, self.var, self.weight, self.bias,
                             training=train, momentum=momentum, eps=self.eps)
+
+    def _forward_synced(self, x: torch.Tensor, momentum: float) -> torch.Tensor:
+        """Batch statistics over the global batch of `sync_group`'s ranks,
+        by JAX `batchnorm_train`'s formula: the mean, then the biased
+        variance as the mean squared deviation (two passes), each a sum
+        all-reduced with its gradient (`torch.distributed.nn`). The running
+        statistics take the same update on every rank."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        n_local = torch.tensor([x.numel() // c], dtype=torch.float32, device=x.device)
+        dist.all_reduce(n_local, group=self.sync_group)
+        n = float(n_local)
+        mean = all_reduce(x.sum(dim=(0, 2, 3)), group=self.sync_group) / n
+        d = x - mean[None, :, None, None]
+        var = all_reduce((d * d).sum(dim=(0, 2, 3)), group=self.sync_group) / n
+        inv = torch.rsqrt(var + self.eps)
+        with torch.no_grad():
+            self.mean.mul_(1 - momentum).add_(momentum * mean)
+            self.var.mul_(1 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
+        return d * (inv * self.weight)[None, :, None, None] + self.bias[None, :, None, None]

@@ -229,9 +229,11 @@ class Parseq(nn.Module):
         q = layer.ff(q)
         return self.head(self.dec_norm(q))
 
-    def greedy_decode(self, memory: torch.Tensor) -> torch.Tensor:
+    def greedy_decode(self, memory: torch.Tensor, early_exit: bool = True) -> torch.Tensor:
         """KV-cached greedy AR decode with batch early exit -> logits
-        [N, T, C] fp32 (T = max_label_length + 1)."""
+        [N, T, C] fp32 (T = max_label_length + 1). `early_exit=False` runs
+        all T steps (the steps after every crop's EOS then hold real
+        logits, not the EOS-certain fill), as a traced module does."""
         cfg = self.cfg
         layer = self.dec[0]
         N, S, D = memory.shape
@@ -282,7 +284,7 @@ class Parseq(nn.Module):
             logits[:, i] = logits_i
             tok = torch.argmax(logits_i, dim=-1)
             seen_eos |= tok == 0
-            if bool(seen_eos.all()):
+            if early_exit and bool(seen_eos.all()):
                 break
         return logits
 
@@ -385,12 +387,14 @@ class Parseq(nn.Module):
         rows = torch.arange(N, device=dev)
         return ids[rows, best], scores[rows, best]
 
-    def forward(self, images: torch.Tensor, ar: bool = True) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, ar: bool = True,
+                early_exit: bool = True) -> torch.Tensor:
         """Crops [N, 32, 128, 3] in [0, 1] -> logits [N, T, C] fp32: greedy
-        AR decode (`ar=False`: the NAR decode), then `refine_iters` cloze
-        passes."""
+        AR decode (`ar=False`: the NAR decode; `early_exit=False`: every
+        step of the greedy decode, JAX's `parseq_forward(...,
+        early_exit=False)`), then `refine_iters` cloze passes."""
         memory = self.encode(images)
-        logits = self.greedy_decode(memory) if ar else self.nar_decode(memory)
+        logits = self.greedy_decode(memory, early_exit) if ar else self.nar_decode(memory)
         for _ in range(self.cfg.refine_iters):
             logits = self.refine(memory, logits)
         return logits.float()

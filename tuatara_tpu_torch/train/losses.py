@@ -16,6 +16,14 @@
   are independent rows of the decoder, so this is the K decodes of JAX's
   vmap in one call).
 
+Under a data-parallel mesh (`group`, the dp process group) each rank
+holds a shard of the batch and returns its share of the global loss, so
+that the shares' gradients, summed over dp, are the global loss's: OHEM
+counts the positives over the whole batch, takes the threshold from every
+rank's negative errors and divides by the global count; the PLM loss
+divides by the global count of supervised positions. The metrics are the
+global ones.
+
 Both run the models in a compute dtype (bf16 by default, as JAX's losses
 do) over fp32 parameters. The mined threshold, the masks and the label
 gathers carry no gradient; the token log-probabilities are read through a
@@ -27,6 +35,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tuatara_tpu_torch.models.craft import TrainableCraft
@@ -38,36 +47,55 @@ from tuatara_tpu_torch.models.parseq import Parseq
 # CRAFT
 # ---------------------------------------------------------------------------
 
-def ohem_keep(err: torch.Tensor, pos: torch.Tensor, neg_ratio: float) -> torch.Tensor:
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    """t summed over the ranks of `group`, or t; without its gradient."""
+    if group is None:
+        return t.detach()
+    t = t.detach().clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _cat(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's t [n] concatenated in rank order (no gradient), or t."""
+    from tuatara_tpu_torch.parallel.mesh import all_gather_cat
+
+    return all_gather_cat(t, group)
+
+
+def ohem_keep(err: torch.Tensor, pos: torch.Tensor, neg_ratio: float,
+              group=None) -> torch.Tensor:
     """The negatives OHEM keeps over one map: not positive, finite, and an
-    error at least the n_neg-th largest negative error (ties kept)."""
+    error at least the n_neg-th largest negative error (ties kept); under
+    `group`, of the whole batch's."""
     err = err.detach()
-    neg_vals = torch.where(pos, float("-inf"), err).reshape(-1)
+    neg_vals = _cat(torch.where(pos, float("-inf"), err).reshape(-1), group)
     k = neg_vals.numel()
-    n_pos = pos.sum().clamp(min=1)
+    n_pos = _sum(pos.sum(), group).clamp(min=1)
     n_neg = torch.clamp((neg_ratio * n_pos).to(torch.int32), max=k)
     sorted_negs = torch.sort(neg_vals, descending=True).values
     thresh = sorted_negs[torch.clamp(n_neg - 1, 0, k - 1).long()]
     return ~pos & (err >= thresh) & torch.isfinite(err)
 
 
-def channel_ohem(err: torch.Tensor, tgt: torch.Tensor, neg_ratio: float
+def channel_ohem(err: torch.Tensor, tgt: torch.Tensor, neg_ratio: float, group=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (the map's OHEM loss, the mean positive error, the positive count
-    (at least 1))."""
+    """-> (the map's OHEM loss (this rank's share under `group`), the mean
+    positive error, the positive count (at least 1))."""
     pos = tgt > 0.1
     pos_loss = torch.where(pos, err, 0.0)
-    n_pos = pos.sum().clamp(min=1)
-    keep = ohem_keep(err, pos, neg_ratio)
+    n_pos = _sum(pos.sum(), group).clamp(min=1)
+    keep = ohem_keep(err, pos, neg_ratio, group)
     neg_loss = torch.where(keep, err, 0.0)
-    denom = n_pos + keep.sum().clamp(min=1)
-    return (pos_loss.sum() + neg_loss.sum()) / denom, pos_loss.sum() / n_pos, n_pos
+    denom = n_pos + _sum(keep.sum(), group).clamp(min=1)
+    return ((pos_loss.sum() + neg_loss.sum()) / denom,
+            _sum(pos_loss.sum(), group) / n_pos, n_pos)
 
 
 def craft_loss(model: TrainableCraft, images: torch.Tensor, target_heatmaps: torch.Tensor,
                confidence: Optional[torch.Tensor] = None, neg_ratio: float = 3.0,
-               train_bn: bool = True, compute_dtype: torch.dtype = torch.bfloat16
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               train_bn: bool = True, compute_dtype: torch.dtype = torch.bfloat16,
+               group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """OHEM-balanced squared error on (region, affinity). images [B, H, W,
     3] in [0, 1]; target_heatmaps [B, H/2, W/2, 2]; confidence [B, H/2,
     W/2], an optional per-pixel weight. With `train_bn` the BatchNorms use
@@ -77,8 +105,9 @@ def craft_loss(model: TrainableCraft, images: torch.Tensor, target_heatmaps: tor
     err = (pred - target_heatmaps) ** 2
     if confidence is not None:
         err = err * confidence[..., None]
-    l_region, pos_region, n_pos = channel_ohem(err[..., 0], target_heatmaps[..., 0], neg_ratio)
-    l_affinity, _, _ = channel_ohem(err[..., 1], target_heatmaps[..., 1], neg_ratio)
+    l_region, pos_region, n_pos = channel_ohem(err[..., 0], target_heatmaps[..., 0], neg_ratio,
+                                               group)
+    l_affinity, _, _ = channel_ohem(err[..., 1], target_heatmaps[..., 1], neg_ratio, group)
     return l_region + l_affinity, {"craft_pos": pos_region.detach(), "craft_n_pos": n_pos}
 
 
@@ -121,7 +150,7 @@ def perm_attention_masks(perm: torch.Tensor, max_len: int) -> torch.Tensor:
 def parseq_plm_loss(model: Parseq, images: torch.Tensor, labels: torch.Tensor,
                     label_lengths: torch.Tensor, generator: Optional[torch.Generator] = None,
                     k_perms: int = 6, perms: Optional[torch.Tensor] = None,
-                    compute_dtype: torch.dtype = torch.bfloat16
+                    compute_dtype: torch.dtype = torch.bfloat16, group=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Permutation-LM cross-entropy. images [N, 32, 128, 3] in [0, 1];
     labels [N, max_len + 2] = [BOS, chars..., EOS, PAD...]; label_lengths
@@ -160,5 +189,5 @@ def parseq_plm_loss(model: Parseq, images: torch.Tensor, labels: torch.Tensor,
     tok_lp = (logp * onehot[:, None]).sum(-1)  # [N, K, T]
     keep_eos = torch.arange(K, device=labels.device) < 2
     m = loss_mask[:, None, :] & (keep_eos[None, :, None] | ~is_eos[:, None, :])
-    loss = -(tok_lp * m).sum() / m.sum().clamp(min=1)
-    return loss, {"parseq_ce": loss.detach()}
+    loss = -(tok_lp * m).sum() / _sum(m.sum(), group).clamp(min=1)
+    return loss, {"parseq_ce": _sum(loss, group)}
