@@ -289,6 +289,32 @@ line without a CUDA device or outside the repo.
              `native.extract_boxes` on the host beside K1-K3's boxes,
              equal counts. Prints the phase's seconds and a {"phase8":
              ...} line.
+9.  no weights and the native surface: 9a, `OcrEngine(cfg, seed=0)` with
+             no weights_dir for OcrConfig(), latency(), production() and
+             the extended charset (ParseqConfig(charset_size=95)) on the
+             four pages, page by page with counts zeroed just before and
+             read just after: K1-K3 on every page, K6 and K7 on every page
+             with a box under the fused presets (and one such page at
+             least), every int8 conv on every page under production(); the
+             state dict bit-equal to the same engine drawn for the CPU, and
+             every page's results equal to an engine loaded from the draws
+             saved under build/random_weights. 9b, the C ABI
+             (csrc/capi/, built with g++; the build's seconds printed):
+             ctypes in this process on the four pages and a gray page with
+             the production weights equal to image_to_data (text, bbox and
+             confidence as float32), K1-K3 launched by each call; the port's
+             C example, a process with no Python host, printing the
+             in-process call's lines; the same binary under
+             CUDA_VISIBLE_DEVICES="" exiting nonzero with "no CUDA device".
+             9d, beside it: `python -m tuatara_tpu_torch.examples.resume`
+             and `.table` (its ./weights a link to the production weights)
+             with at least MIN_WORD_SHARE of the engine's words; then
+             `.serve` on funsd_0001129658 at --batch 16 --batches 2 alone
+             (its pages/s printed, not gated). 9c, the compiled binding
+             `_pytuatara_torch` through `tuatara_tpu_torch.pytuatara`
+             equal to the engine's {text, bbox} on the four pages, and its
+             validation contract. Prints the phase's seconds and a
+             {"phase9": ...} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -3377,6 +3403,283 @@ def check_phase8(pages, lat, lat_results, calibrated, post, card):
     return {"convert_s": t_convert, "train_ms": rates, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: engines with no weights, the C ABI, the compiled binding, the
+# example programs
+# ---------------------------------------------------------------------------
+
+RANDOM_DIR = os.path.join(ROOT, "build", "random_weights")
+RANDOM_SEED = 0
+EXAMPLE_TIMEOUT = 300
+
+
+def random_configs():
+    """Phase 9a's engines: {name: (OcrConfig, ParseqConfig or None)}."""
+    from tuatara_tpu_torch.config import OcrConfig, ParseqConfig
+    from tuatara_tpu_torch.tokenizer import EXTENDED_CHARSET
+
+    return {"default": (OcrConfig(), None), "latency": (OcrConfig.latency(), None),
+            "production": (OcrConfig.production(), None),
+            "extended_charset": (OcrConfig(charset=EXTENDED_CHARSET),
+                                 ParseqConfig(charset_size=95))}
+
+
+def check_random_engines(pages, post):
+    """9a: `OcrEngine(cfg, seed=RANDOM_SEED)` with no weights for each of
+    `random_configs`: its state dict bit-equal to the same engine's drawn
+    for the CPU; page by page, counts zeroed just before and read just
+    after, K1-K3 on every page, K6 and K7 on every page with a box under
+    the fused presets (and at least one such page), every int8 conv on
+    every page under production(); each page's results equal to an engine
+    loaded from the same draws saved with `save_weights_dir`. -> {name:
+    boxes a page}."""
+    import shutil
+
+    import torch
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.api import random_trees
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.utils.weights import save_weights_dir
+
+    summary = {}
+    for name, (cfg, parseq_cfg) in random_configs().items():
+        t0 = time.perf_counter()
+        eng = tuatara_tpu_torch.OcrEngine(cfg, parseq_config=parseq_cfg, seed=RANDOM_SEED)
+        t_draw = time.perf_counter() - t0
+        cpu = tuatara_tpu_torch.OcrEngine(cfg, parseq_config=parseq_cfg, seed=RANDOM_SEED,
+                                          device="cpu")
+        for part in ("craft", "parseq"):
+            got, want = getattr(eng, part).state_dict(), getattr(cpu, part).state_dict()
+            if got.keys() != want.keys() or not all(torch.equal(got[k].cpu(), want[k])
+                                                    for k in want):
+                fail(f"random {name}: the {part} weights differ from the CPU's draw")
+        del cpu
+        wdir = os.path.join(RANDOM_DIR, name)
+        save_weights_dir(wdir, *random_trees(eng.craft_config, eng.parseq_config, RANDOM_SEED),
+                         eng.craft_config, eng.parseq_config, charset=cfg.charset)
+        loaded = tuatara_tpu_torch.OcrEngine(cfg, weights_dir=wdir)
+        shutil.rmtree(wdir)  # loaded: 171 MB less on the disk
+        fused = cfg.encoder_impl == "pallas"
+        n_q = len(eng.craft.qconvs()) if eng.craft.quantized else 0
+        boxes, total = {}, {}
+        for page, img in pages.items():
+            reset_launches()
+            words = eng.run(img)
+            launches = dict(LAUNCHES)
+            for kernel, n in launches.items():
+                total[kernel] = total.get(kernel, 0) + n
+            required = {**dict.fromkeys(post, 1), "int8_conv": n_q}
+            if fused and words:
+                required.update(vit_blocks=1, greedy_decode=1)
+            for kernel, least in required.items():
+                if launches.get(kernel, 0) < least:
+                    fail(f"random {name} {page}: kernel {kernel} launched "
+                         f"{launches.get(kernel, 0)} times (at least {least})")
+            if loaded.run(img) != words:
+                fail(f"random {name} {page}: differs from the engine loaded from its weights")
+            boxes[page] = len(words)
+        if fused and not any(boxes.values()):
+            fail(f"random {name}: no page gave a box, so K6 and K7 were not held")
+        summary[name] = boxes
+        print(f"random {name} (seed {RANDOM_SEED}): boxes a page {json.dumps(boxes)}; "
+              f"launches on the {len(pages)} pages {json.dumps(total)}; weights equal to the "
+              f"CPU's draw; results equal to the saved weights' engine; engine "
+              f"{t_draw:.1f} s, all {time.perf_counter() - t0:.1f} s", flush=True)
+    return summary
+
+
+def expect_raises(exc, text, fn, *args):
+    try:
+        fn(*args)
+    except exc as e:
+        if text not in str(e):
+            fail(f"binding: {exc.__name__} without {text!r}: {e}")
+        return
+    except Exception as e:  # noqa: BLE001 - any other type breaks the contract
+        fail(f"binding: expected {exc.__name__}, got {type(e).__name__}: {e}")
+    fail(f"binding: expected {exc.__name__} ({text!r}), nothing raised")
+
+
+def check_binding(pages):
+    """9c: `tuatara_tpu_torch.pytuatara.image_to_data` (the compiled
+    `_pytuatara_torch`) equal to the engine's {text, bbox} on the pages;
+    the compiled module raises the reference binding's contract."""
+    import numpy as np
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch import capi, pytuatara
+
+    for name, img in pages.items():
+        got = pytuatara.image_to_data(img, WEIGHTS, "outputs")
+        want = [{"text": w["text"], "bbox": w["bbox"]}
+                for w in tuatara_tpu_torch.image_to_data(img, WEIGHTS)]
+        if got != want:
+            fail(f"binding {name}: {len(got)} items differ from the engine's {len(want)}")
+    fn, img = capi.load_pyext().image_to_data, np.zeros((4, 4, 3), np.uint8)
+    expect_raises(ValueError, "weights_dir", fn, img, "", "o")
+    expect_raises(ValueError, "outputs_dir", fn, img, "w", "")
+    expect_raises(ValueError, "3 dimensions", fn, np.zeros((4, 4), np.uint8), "w", "o")
+    expect_raises(TypeError, "uint8", fn, np.zeros((4, 4, 3), np.float32), "w", "o")
+    expect_raises(FileNotFoundError, "does not exist", fn, img, "/nonexistent_weights_dir", "o")
+    expect_raises(TypeError, "", fn, [[1, 2], [3, 4]], "w", "o")
+    print(f"binding: _pytuatara_torch equal to the engine on {len(pages)} pages; the validation "
+          f"contract holds", flush=True)
+
+
+def example_page():
+    """The page `capi_example.c` builds: white, 96 x 120 x 3, two dark bars."""
+    import numpy as np
+
+    page = np.full((96, 120, 3), 255, np.uint8)
+    page[20:30, 10:60] = 10
+    page[50:58, 30:90] = 10
+    return page
+
+
+def example_lines(words):
+    """The lines `capi_example.c` prints for these records (values cast to
+    float32 as the C ABI stores them)."""
+    import numpy as np
+
+    lines = [f"{len(words)} items"]
+    for w in words:
+        x0, y0, x1, y1 = (float(np.float32(v)) for v in w["bbox"])
+        lines.append("  text=%-12s bbox=[%.0f %.0f %.0f %.0f] conf=%.3g"
+                     % (w["text"], x0, y0, x1, y1, float(np.float32(w["confidence"]))))
+    return lines
+
+
+def example_command(name, *args):
+    return [sys.executable, "-m", f"tuatara_tpu_torch.examples.{name}", *args]
+
+
+def printed_records(out):
+    """The records an example prints, one dict a line, before its count."""
+    import ast
+
+    return [ast.literal_eval(line) for line in out.strip().splitlines()[:-1]]
+
+
+def check_capi_and_examples(pages, post):
+    """9b and 9d: the C ABI in process (ctypes) on the pages equal to
+    `image_to_data` (text, bbox and confidence after the same float32 cast,
+    K1-K3 launched by each call) and on a gray page equal to the engine; the
+    port's C example, a process with no Python host, printing the
+    in-process call's lines; the same binary without a card exiting nonzero
+    with "no CUDA device"; the examples resume and table on the production
+    weights with at least MIN_WORD_SHARE of the engine's words, then serve
+    on the dense page, alone. -> {build_s, serve line}."""
+    import shutil
+
+    import numpy as np
+
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch import capi
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    example = capi.build_example()
+    capi.build_pyext()
+    build_s = time.perf_counter() - t0
+    print(f"capi build (library, example, binding): {build_s:.1f} s", flush=True)
+
+    def stored(words):
+        return [{"text": w["text"], "bbox": [float(np.float32(v)) for v in w["bbox"]],
+                 "confidence": float(np.float32(w["confidence"]))} for w in words]
+
+    engine = tuatara_tpu_torch.api.get_engine(weights_dir=WEIGHTS)
+    gray = pages["funsd_0001129658"][..., 0].copy()
+    total = {}
+    for name, img in [*pages.items(), ("gray funsd_0001129658", gray)]:
+        reset_launches()
+        got = capi.image_to_data(img, WEIGHTS)
+        launches = dict(LAUNCHES)
+        for kernel, n in launches.items():
+            total[kernel] = total.get(kernel, 0) + n
+        want = engine.run(img)
+        if got != stored(want):
+            fail(f"capi {name}: {len(got)} items differ from image_to_data's {len(want)}")
+        for kernel in post:
+            if launches.get(kernel, 0) < 1:
+                fail(f"capi {name}: kernel {kernel} was not launched")
+    print(f"capi: ctypes in process equal to image_to_data on {len(pages)} pages and a gray "
+          f"page, K1-K3 launched on each; launches {json.dumps(total)}", flush=True)
+
+    # Processes of their own, side by side: the C example with and without
+    # a card, and the resume and table examples.
+    table_dir = os.path.join(ROOT, "build", "table_example")
+    shutil.rmtree(table_dir, ignore_errors=True)
+    os.makedirs(table_dir)
+    os.symlink(WEIGHTS, os.path.join(table_dir, "weights"))
+    jobs = {
+        "capi_example": ([example, WEIGHTS], capi.embedded_env(), ROOT),
+        "capi_example_no_card": ([example, WEIGHTS],
+                                 {**capi.embedded_env(), "CUDA_VISIBLE_DEVICES": ""}, ROOT),
+        "resume": (example_command("resume", os.path.join(ROOT, "images", "resume_example.png"),
+                                   WEIGHTS), None, ROOT),
+        "table": (example_command("table", os.path.join(ROOT, "images", "table_english.png")),
+                  capi.embedded_env(), table_dir),
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, env=env, cwd=cwd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, (cmd, env, cwd) in jobs.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            outs[k] = p.communicate(timeout=EXAMPLE_TIMEOUT)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"processes: {', '.join(procs)} side by side in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for k, p in procs.items():
+        if (p.returncode == 0) == (k == "capi_example_no_card"):
+            fail(f"{k}: exit {p.returncode}: {outs[k][1].strip()[-600:]}")
+    want = example_lines(capi.image_to_data(example_page(), WEIGHTS))
+    if outs["capi_example"][0].splitlines() != want:
+        fail(f"capi_example printed {outs['capi_example'][0]!r}, in process {want!r}")
+    print("capi_example (no Python host): exit 0, the in-process call's lines: "
+          + " | ".join(want), flush=True)
+    if "no CUDA device" not in outs["capi_example_no_card"][1]:
+        fail(f"capi_example without a card: {outs['capi_example_no_card'][1].strip()[-300:]}")
+    print(f"capi_example without a card: exit {procs['capi_example_no_card'].returncode}, "
+          f"{outs['capi_example_no_card'][1].strip().splitlines()[-1]}", flush=True)
+    for k, page in (("resume", "resume_example"), ("table", "table_english")):
+        got = printed_records(outs[k][0])
+        ref = engine.run(pages[page])
+        share = word_share(ref, got)
+        print(f"example {k}: exit 0, {len(got)} words, {share:.4f} of the in-process engine's "
+              f"{len(ref)}", flush=True)
+        if share < MIN_WORD_SHARE:
+            fail(f"example {k}: {share:.4f} of the engine's words < {MIN_WORD_SHARE}")
+
+    cmd = example_command("serve", os.path.join(ROOT, "images", "funsd_0001129658.png"),
+                          "--weights", WEIGHTS, "--batch", "16", "--batches", "2")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"example serve: exit {proc.returncode}: {proc.stderr.strip()[-600:]}")
+    rate = next((line for line in proc.stdout.splitlines() if line.startswith("run_stream")), "")
+    print(f"example serve (alone): exit 0 in {time.perf_counter() - t0:.1f} s, {rate}",
+          flush=True)
+    return {"build_s": build_s, "serve": rate}
+
+
+def check_phase9(pages, post):
+    """Phase 9 (see the module docstring). -> its summary."""
+    t_phase = time.perf_counter()
+    boxes = check_random_engines(pages, post)
+    native = check_capi_and_examples(pages, post)
+    check_binding(pages)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 9: {secs:.1f} s", flush=True)
+    return {"random_boxes": boxes, **native, "seconds": secs}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1000, exit=True)
     t_start = time.perf_counter()
@@ -3533,10 +3836,14 @@ def main() -> int:
     # 8. conversion, mesh, profiling, native
     phase8 = check_phase8(pages, lat, lat_results, calibrated, post, card)
 
+    # 9. engines with no weights, the C ABI, the binding, the examples
+    phase9 = check_phase9(pages, post)
+
     print(json.dumps({"int8_conv": int8_summary}), flush=True)
     print(json.dumps({"int8_linear": int8_linear_summary}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"phase8": phase8}), flush=True)
+    print(json.dumps({"phase9": phase9}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

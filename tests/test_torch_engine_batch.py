@@ -95,8 +95,11 @@ def test_construction_checks():
         assert engine.config.decode_mode == mode
     with pytest.raises(ValueError, match="unknown decode_mode"):
         tuatara_tpu_torch.OcrEngine(OcrConfig(decode_mode="sample"), device="cpu")
-    with pytest.raises(ValueError, match="weights_dir is required"):
-        tuatara_tpu_torch.OcrEngine(OcrConfig(), device="cpu")
+    # No weights_dir: random weights from the seed, and the engine serves.
+    page = np.full((96, 120, 3), 255, np.uint8)
+    page[20:30, 10:60] = 10
+    served = tuatara_tpu_torch.OcrEngine(OcrConfig(), seed=1, device="cpu").run(page)
+    assert served and all(set(w) == {"text", "bbox", "confidence"} for w in served)
     with pytest.raises(TypeError, match="uint8"):
         tuatara_tpu_torch.OcrEngine(OcrConfig(max_label_length=7), weights_dir=GOLDEN,
                                     device="cpu").run(np.zeros((64, 64, 3), np.float32))

@@ -8,6 +8,7 @@ package imports it there: the card's machine needs no PIL."""
 import ast
 import glob
 import os
+import re
 
 import pytest
 
@@ -16,6 +17,11 @@ FILES = sorted(glob.glob(os.path.join(ROOT, "tuatara_tpu_torch", "**", "*.py"),
                          recursive=True)) + [os.path.join(ROOT, "chip_smoke.py"),
                                              os.path.join(ROOT, "tests", "torch_surrogates.py")]
 FORBIDDEN = ("jax", "jaxlib", "optax", "tuatara_tpu", "PIL", "cv2")
+C_SOURCES = sorted(glob.glob(os.path.join(ROOT, "tuatara_tpu_torch", "csrc", "capi", "*.c*")))
+# The Python a C source runs: the string literals passed to PyImport_* and PyRun_*.
+C_PYTHON = re.compile(r'(PyImport_\w+|PyRun_\w+)\s*\(\s*((?:"(?:[^"\\]|\\.)*"\s*)+)')
+# jax, the JAX package (not the port), and the JAX package's shim `pytuatara`.
+C_FORBIDDEN = re.compile(r"\bjax|\btuatara_tpu(?!_torch)|(?<![\w.])pytuatara\b")
 RENDERING = os.path.join(ROOT, "tuatara_tpu_torch", "utils", "data.py")
 
 
@@ -42,6 +48,26 @@ def test_no_jax_imports(path):
         assert top not in FORBIDDEN, f"{os.path.relpath(path, ROOT)} imports {mod}"
 
 
+@pytest.mark.parametrize("path", C_SOURCES, ids=lambda p: os.path.relpath(p, ROOT))
+def test_c_sources_import_no_jax(path):
+    """The C ABI and the compiled binding import and run Python by name:
+    none of those names is jax, the JAX package or its shim."""
+    with open(path) as f:
+        source = f.read()
+    calls = C_PYTHON.findall(source)
+    if "Python.h" in source:  # the C ABI and the binding
+        assert calls, f"{os.path.relpath(path, ROOT)}: no PyImport_/PyRun_ call found"
+    for fn, literal in calls:
+        assert not C_FORBIDDEN.search(literal), f"{os.path.relpath(path, ROOT)}: {fn}({literal})"
+
+
+def test_c_source_rule_catches_the_jax_package():
+    """The rule above flags the JAX package's own C sources."""
+    for name in ("tuatara_capi.cpp", "pytuatara_ext.c"):
+        with open(os.path.join(ROOT, "native", name)) as f:
+            assert any(C_FORBIDDEN.search(lit) for _, lit in C_PYTHON.findall(f.read())), name
+
+
 def test_port_has_modules():
     names = {os.path.relpath(p, ROOT) for p in FILES}
     for want in ("tuatara_tpu_torch/api.py", "tuatara_tpu_torch/kernels/cc.py",
@@ -60,7 +86,10 @@ def test_port_has_modules():
                  "tuatara_tpu_torch/convert.py", "tuatara_tpu_torch/utils/profiling.py",
                  "tuatara_tpu_torch/native.py", "tuatara_tpu_torch/parallel/__init__.py",
                  "tuatara_tpu_torch/parallel/mesh.py", "tuatara_tpu_torch/parallel/sharding.py",
-                 "tuatara_tpu_torch/parallel/tensor.py", "tests/torch_surrogates.py"):
+                 "tuatara_tpu_torch/parallel/tensor.py", "tests/torch_surrogates.py",
+                 "tuatara_tpu_torch/capi.py", "tuatara_tpu_torch/pytuatara.py",
+                 "tuatara_tpu_torch/examples/resume.py", "tuatara_tpu_torch/examples/table.py",
+                 "tuatara_tpu_torch/examples/serve.py", "tuatara_tpu_torch/_hostbuild.py"):
         assert want in names
 
 
@@ -114,7 +143,10 @@ def test_slice_12_modules_import_without_jax():
             "import tuatara_tpu_torch.parallel, tuatara_tpu_torch.parallel.tensor\n"
             "import tuatara_tpu_torch.api, tuatara_tpu_torch.train.trainer\n"
             "import tuatara_tpu_torch.train.checkpoint, tuatara_tpu_torch.train.losses\n"
-            "import torch_surrogates\n")
+            "import torch_surrogates\n"
+            "import tuatara_tpu_torch.capi, tuatara_tpu_torch.pytuatara\n"
+            "import tuatara_tpu_torch.examples.resume, tuatara_tpu_torch.examples.table\n"
+            "import tuatara_tpu_torch.examples.serve\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr

@@ -218,8 +218,9 @@ def test_cli_lines_blocks_eval(engine, capsys, tmp_path):
 
 
 def test_cli_flags_and_refusals(capsys):
-    """JAX's flags parse; --calibrate without --quantized and a missing
-    weights directory are refused by the parser."""
+    """JAX's flags parse; --calibrate without --quantized is refused by the
+    parser; a missing weights directory is not (random weights, as in JAX):
+    the command goes on to read the image."""
     args = cli.build_parser().parse_args(
         ["p.png", "w", "o", "--latency", "--quantized", "--decode-mode", "beam", "--beam-size",
          "2", "--encoder-impl", "xla", "--decode-impl", "pallas", "--box-mode", "rotated",
@@ -227,7 +228,9 @@ def test_cli_flags_and_refusals(capsys):
          "--text-threshold", "0.5", "--link-threshold", "0.3", "--low-text", "0.3", "-v"])
     assert (args.decode_mode, args.beam_size, args.encoder_impl, args.device) == \
         ("beam", 2, "xla", None)
-    for argv in (["p.png", "w", "--calibrate"], ["p.png"]):
-        with pytest.raises(SystemExit):
-            cli.main(argv)
+    with pytest.raises(SystemExit):
+        cli.main(["p.png", "w", "--calibrate"])
+    assert cli.build_parser().parse_args(["p.png"]).weights_dir is None
+    with pytest.raises(FileNotFoundError, match="p.png"):
+        cli.main(["p.png", "--device", "cpu"])
     capsys.readouterr()

@@ -79,15 +79,17 @@ The stages are marked for `torch.profiler` traces under JAX's names
 `tuatara_decode`; `utils/profiling.py`); the marks read nothing back from
 the device.
 
-Models load once per engine and stay on the device. The engine runs on the
-card unless the caller passes `device="cpu"` (under a mesh: the mesh's
-device).
+Models load once per engine and stay on the device; with no `weights_dir`
+they are drawn at random from `seed`, as JAX draws them (`random_trees`).
+The engine runs on the card unless the caller passes `device="cpu"` (under
+a mesh: the mesh's device).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import os
 import queue
 import threading
@@ -102,9 +104,9 @@ from torch.profiler import record_function
 from tuatara_tpu_torch.config import DEFAULT_CONFIG, CraftConfig, OcrConfig, ParseqConfig
 from tuatara_tpu_torch.kernels.int8 import check_shapes as check_int8_shapes
 from tuatara_tpu_torch.models import layers as L
-from tuatara_tpu_torch.models.craft import Craft
+from tuatara_tpu_torch.models.craft import Craft, init_craft
 from tuatara_tpu_torch.models.layers import set_compute_dtype
-from tuatara_tpu_torch.models.parseq import Parseq
+from tuatara_tpu_torch.models.parseq import Parseq, init_parseq
 from tuatara_tpu_torch.ops.boxes import extract_boxes, scale_boxes, tesseract_bbox
 from tuatara_tpu_torch.ops.grouping import group_blocks, group_lines
 from tuatara_tpu_torch.ops.minarearect import fma
@@ -114,7 +116,9 @@ from tuatara_tpu_torch.ops.warp import (crop_rects, extract_crops_batched,
                                         extract_crops_perspective_batched)
 from tuatara_tpu_torch.tokenizer import Tokenizer
 from tuatara_tpu_torch.utils import weights as W
-from tuatara_tpu_torch.weights import craft_state_dict, parseq_state_dict
+from tuatara_tpu_torch.weights import craft_state_dict, module_tree, parseq_state_dict
+
+logger = logging.getLogger("tuatara_tpu_torch")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -128,6 +132,17 @@ def resolve_device(device: Optional[str]) -> torch.device:
                 "device='cpu' to run it on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def random_trees(craft_config: CraftConfig, parseq_config: ParseqConfig, seed: int = 0
+                 ) -> Tuple[Any, Any]:
+    """(CRAFT tree, PARSEQ tree) drawn at random from `seed` in JAX's layout
+    (`models.craft.init_craft`, then `models.parseq.init_parseq`, on one CPU
+    generator): what an engine with no weights_dir serves, and what
+    `utils.weights.save_weights_dir` writes as a weights directory."""
+    gen = torch.Generator().manual_seed(seed)
+    craft = module_tree(init_craft(craft_config, gen))
+    return craft, module_tree(init_parseq(parseq_config, gen))
 
 
 def content_mask(h: int, w: int, cfg: OcrConfig, device) -> torch.Tensor:
@@ -146,8 +161,11 @@ class OcrEngine:
     def __init__(self, config: OcrConfig = DEFAULT_CONFIG,
                  craft_config: Optional[CraftConfig] = None,
                  parseq_config: Optional[ParseqConfig] = None,
-                 weights_dir: Optional[str] = None, device: Optional[str] = None,
-                 mesh=None):
+                 weights_dir: Optional[str] = None, seed: int = 0,
+                 device: Optional[str] = None, mesh=None):
+        """With no `weights_dir` the models are drawn at random from `seed`
+        (JAX's `OcrEngine(seed=)`): on a CPU generator, so one seed gives
+        the same weights on every device and mesh rank."""
         if mesh is not None and "dp" not in mesh.axis_names:
             raise ValueError(f"the engine shards pages over a 'dp' axis; the mesh has "
                              f"{mesh.axis_names}")
@@ -211,10 +229,12 @@ class OcrEngine:
                 f"{tuple(self.parseq_config.img_size)}. Set OcrConfig("
                 f"rec_width=...) to the recognizer's trained crop width")
 
-        if not weights_dir:
-            raise ValueError("weights_dir is required: the port has no random "
-                             "initialisation (e.g. evals/production_weights)")
-        craft_tree, parseq_tree = W.load_weights_dir(weights_dir)
+        if weights_dir:
+            craft_tree, parseq_tree = W.load_weights_dir(weights_dir)
+        else:
+            craft_tree, parseq_tree = random_trees(self.craft_config, self.parseq_config, seed)
+            logger.warning("no weights_dir given: engine initialized with RANDOM weights "
+                           "(transcripts will be meaningless; throughput is unaffected)")
         self.craft = Craft(self.craft_config)
         self.craft.load_state_dict(craft_state_dict(craft_tree, self.craft_config.bn_eps))
         self.parseq = Parseq(self.parseq_config)
@@ -235,7 +255,7 @@ class OcrEngine:
             set_compute_dtype(m, self.dtype)
             m.to(self.device)
         self.weights_dir = weights_dir
-        calib = os.path.join(weights_dir, W.CALIB_FILE)
+        calib = os.path.join(weights_dir, W.CALIB_FILE) if weights_dir else ""
         if config.quantized_serving and os.path.isfile(calib):
             craft_sx, parseq_sx = W.load_calibration(calib)
             W.apply_static_scales(self.craft, craft_sx)
@@ -618,6 +638,8 @@ class OcrEngine:
         in the weights directory, which a later quantized engine loads at
         construction). -> the path. Raises if nothing is calibrated."""
         if path is None:
+            if not self.weights_dir:
+                raise ValueError("engine has no weights_dir; pass an explicit path")
             path = os.path.join(self.weights_dir, W.CALIB_FILE)
         if W.save_calibration(path, self.craft, self.parseq) == 0:
             raise ValueError("no calibrated scales to save: run engine.calibrate(pages) "

@@ -6,7 +6,8 @@ the elapsed time on stderr; `--eval` scores the words against ground truth
 on stderr; `--annotate` writes a three-panel render. `--encoder-impl` and
 `--decode-impl` keep JAX's names: "pallas" selects the port's CUDA kernels
 K6 and K7, "xla" the plain PyTorch lowering. The engine runs on the card
-unless `--device cpu` is given.
+unless `--device cpu` is given. With no weights_dir it serves random
+weights (seed 0), as the JAX command line does.
 
     python -m tuatara_tpu_torch images/resume_example.png evals/production_weights
     python -m tuatara_tpu_torch page.png weights --device cpu --lines --eval truth.json
@@ -29,8 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "hand-written CUDA kernels")
     p.add_argument("image", help="input image path (PNG)")
     p.add_argument("weights_dir", nargs="?", default=None,
-                   help="directory with craft.npz/parseq.npz (required: the port has no "
-                        "random initialisation)")
+                   help="directory with craft.npz/parseq.npz (omit: random weights)")
     p.add_argument("outputs_dir", nargs="?", default=None,
                    help="accepted for reference-CLI parity; unused")
     p.add_argument("--annotate", metavar="PNG",
@@ -83,8 +83,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.calibrate and not (args.quantized and args.weights_dir):
         parser.error("--calibrate requires --quantized and a weights_dir")
-    if not args.weights_dir:
-        parser.error("weights_dir is required (e.g. evals/production_weights)")
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(name)s %(levelname)s %(message)s")
 

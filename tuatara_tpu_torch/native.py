@@ -4,52 +4,36 @@
 `native/tuatara_postproc.cpp` is dependency-free C++: union-find 4-connected
 labeling, box extraction with the reference's semantics, and a rotating-
 calipers minAreaRect. It is compiled with `g++ -O3` at first use into
-`build/native/` beside the package (never into `native/`) and loaded with
-ctypes. It is an explicit host API and an independent oracle for the
-card's post-processing; the engine never falls back to it.
+`build/native/` beside the package (never into `native/`), named by a hash
+of the source and flags (`_hostbuild`), and loaded with ctypes. It is an
+explicit host API and an independent oracle for the card's
+post-processing; the engine never falls back to it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
 
+from ._hostbuild import compile_once, target
+
 _LIB: Optional[ctypes.CDLL] = None
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_ROOT, "native", "tuatara_postproc.cpp")
-SO_PATH = os.path.join(_ROOT, "build", "native", "libtuatara_postproc.so")
-
-
-class NativeUnavailable(RuntimeError):
-    pass
-
-
-def _build() -> None:
-    if not os.path.isfile(SOURCE):
-        raise NativeUnavailable(f"native source not found: {SOURCE}")
-    os.makedirs(os.path.dirname(SO_PATH), exist_ok=True)
-    tmp = f"{SO_PATH}.{os.getpid()}.tmp"  # concurrent builds each rename a whole file
-    cmd = ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-o", tmp, SOURCE]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-    except (subprocess.CalledProcessError, FileNotFoundError) as e:
-        raise NativeUnavailable(
-            f"failed to build native library: {getattr(e, 'stderr', str(e))}") from e
-    os.replace(tmp, SO_PATH)
+FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+SO_PATH = target(os.path.join(_ROOT, "build", "native"), "libtuatara_postproc", ".so",
+                 [SOURCE], FLAGS)
 
 
 def load() -> ctypes.CDLL:
-    """Load the native library, building it when it is missing or older
-    than its source."""
+    """Load the native library, building it first when it is missing."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    if not os.path.isfile(SO_PATH) or os.path.getmtime(SO_PATH) < os.path.getmtime(SOURCE):
-        _build()
+    compile_once(SO_PATH, ["g++", *FLAGS, "-o", "{tmp}", SOURCE], "the native library")
     lib = ctypes.CDLL(SO_PATH)
     f32p, i32p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
     lib.tuatara_extract_boxes.restype = ctypes.c_int
@@ -69,7 +53,7 @@ def available() -> bool:
     try:
         load()
         return True
-    except NativeUnavailable:
+    except RuntimeError:
         return False
 
 

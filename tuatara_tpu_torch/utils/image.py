@@ -17,6 +17,7 @@ in reading order.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from typing import Dict, List
@@ -25,6 +26,21 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# The repo's test pages, after $TUATARA_IMAGES when that is set.
+_REPO_IMAGES = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "images")
+
+
+def asset_path(name: str) -> str:
+    """A test page's file name (e.g. "resume_example.png") -> its path, from
+    $TUATARA_IMAGES or the repo's images/ (JAX `utils.image.asset_path`).
+    Raises FileNotFoundError naming the directories searched."""
+    dirs = [d for d in (os.environ.get("TUATARA_IMAGES", ""), _REPO_IMAGES) if d]
+    for d in dirs:
+        path = os.path.join(d, name)
+        if os.path.isfile(path):
+            return path
+    raise FileNotFoundError(f"test image {name!r} not found in any of {dirs}")
 
 
 def _chunks(data: bytes):
