@@ -11,13 +11,16 @@ line without a CUDA device or outside the repo.
              the trained full-width weights in `evals/production_weights`
              on four pages read with the port's PNG reader. Launch counts
              are zeroed just before and read just after: every kernel must
-             have run. Every page must give boxes with text. Prints boxes,
+             have run (K1-K3 and `bias_act`, the bias add and ReLU of
+             CRAFT's float convolutions and the bias add and GELU of
+             PARSEQ's fc1). Every page must give boxes with text. Prints boxes,
              first words and warm pages/sec.
 3b. latency: the same pages through `image_to_data(..., config=
              OcrConfig.latency())`: the /32 canvas, the 16-first slab ladder
              and the fused recognizer kernels K6 (`vit_blocks`) and K7
              (`greedy_decode`). Counts zeroed just before and read just
-             after: K1-K3, K6 and K7 must each have run. Then warm pages/sec
+             after: K1-K3, K6, K7 and `bias_act` must each have run. Then
+             warm pages/sec
              of the default and the latency path, in turns in this call.
 3d. production: the same pages through `image_to_data(..., config=
              OcrConfig.production())`: int8 CRAFT (dynamic activation
@@ -165,7 +168,7 @@ line without a CUDA device or outside the repo.
              slabs the latency path gives them on the four pages and on a
              seeded random [32, 128, 384]: K6's output, and the final
              memory (after the encoder's last LayerNorm), within a relative
-             (Frobenius) error of 7e-3 (bf16 roundings flipped by another
+             (Frobenius) error of 5.5e-3 (bf16 roundings flipped by another
              sum order grow through 12 blocks), and a control that must
              exceed it: the default lowering's eager block chain (erf GELU)
              on the same input; K7's ids equal up to the first EOS on >= 99%
@@ -232,7 +235,12 @@ line without a CUDA device or outside the repo.
              page, 4 crops) with JAX's permutations, at fp32 (TF32 off) and
              bf16, held to that JAX record (metrics, each leaf's and each
              model's update norm, the first BatchNorm's running
-             statistics; bounds at FP32_* and BF16_*); resume: a child
+             statistics; bounds at FP32_* and BF16_*), counts zeroed just
+             before the bf16 steps and read just after: `bias_act` and
+             `gelu_grad` (the recognizer's fc1 bias + GELU and its
+             backward) must have run, and `gelu_grad` on each of those
+             calls equal bit for bit to its plain version, timed beside
+             it (its kernels line entry); resume: a child
              process with deterministic algorithms
              (CUBLAS_WORKSPACE_CONFIG=:4096:8) saves after step 1, loads
              into a fresh state and takes step 2, equal bit for bit to two
@@ -315,6 +323,35 @@ line without a CUDA device or outside the repo.
              equal to the engine's {text, bbox} on the four pages, and its
              validation contract. Prints the phase's seconds and a
              {"phase9": ...} line.
+10. bf16 rounded where JAX rounds (the bias after the product's
+             rounding, the decoder's conv before its upsample, the
+             upsample's two contractions). 10a: `bias_act`
+             (csrc/bias_act.cu) against its plain version bit for bit on
+             every call of the default path's four pages: CRAFT's
+             ReLU-followed convolutions in their layout and the other
+             (channels_last / contiguous), with ReLU, and ReLU with the
+             pre-ReLU output; PARSEQ's fc1 widths with their GELU; seeded
+             fp16 and bf16 tensors, 95 channels and an unaligned view;
+             its backward (`_BiasAct`, what the training graph runs)
+             against autograd through the plain version, bit for bit;
+             timed a call and a page beside its plain version, torch.add
+             then F.relu, and its byte bound, and its host time a call
+             beside torch.add then F.relu (its kernels line entry). Then
+             the default and latency() pages, counts zeroed just before
+             and read just after: `bias_act` once for every float conv
+             call that a ReLU follows (the trunk's, each decoder level's
+             conv2, the head's first four) and every float Linear call
+             with a GELU (fc1), and no other time (a bias add with no
+             activation is torch.add). 10b: every float conv and Linear of one
+             default page, and each float decoder level, against "(the
+             same bf16 product) rounded, + bias, rounded" computed on the
+             card from the layer's inputs: at least BF16_MIN_ROUNDED of
+             the values bit-equal. 10c: the default and latency() engines
+             on the four pages against JAX's bf16 records
+             (tests/fixtures/torch_reference_bf16.json): the share of JAX's
+             records with the same text and bbox, printed and held to
+             BF16_FLOOR. Prints the phase's seconds and a {"phase10": ...}
+             line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -339,7 +376,11 @@ PAGES = ("resume_example", "funsd_0001129658", "funsd_91372360", "table_english"
 GRAY_PAGES = ("funsd_0001129658", "funsd_91372360")  # gray PNG files
 GEOMETRY_PAGES = PAGES + ("rotated_text",)  # phase 3f's pages
 MIN_WORD_SHARE = 0.95
-K6_MAX_REL = 7e-3
+# K6 against its plain version: at most 4.31e-3 on every input (PERF.md
+# §6); the control, the eager block chain with erf GELU, at least 6.57e-3
+# (table_english's slab) since that chain rounds as JAX does (1.2e-2 before, when the tolerance
+# was 7e-3): the tolerance sits between the two.
+K6_MAX_REL = 5.5e-3
 K7_MIN_IDS = 0.99
 K7_MAX_STEP0 = 5e-2
 K7_TILES = ((4, 4), (4, 6), (8, 4), (8, 6), (16, 4), (16, 6))  # (crops, CTAs) per cluster
@@ -369,6 +410,14 @@ INT8_OPS_PER_S = 1979e12  # int8 tensor-core peak, dense (NVIDIA data sheet, SXM
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# Phase 10: JAX's bf16 records (tests/gen_torch_reference.py --config bf16),
+# the share of a layer's values that must equal "(product rounded) + bias,
+# rounded" on the card, and the least share of JAX's 113 bf16 records the
+# card must give under each preset: 92 of 113 under both, what the port
+# gave before it rounded as JAX does (PERF.md §6; it now gives 95 and 92).
+FIXTURE_BF16 = os.path.join(ROOT, "tests", "fixtures", "torch_reference_bf16.json")
+BF16_MIN_ROUNDED = 0.9999
+BF16_FLOOR = {"default": 92 / 113, "latency": 92 / 113}
 
 
 def fail(msg: str) -> None:
@@ -2900,6 +2949,9 @@ def check_training(pages, results, lat_results, post, card):
     import numpy as np
     import torch
 
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.kernels import bias_act as BA
+
     t_phase = time.perf_counter()
     with np.load(TRAIN_RECORD) as z:
         rec = {k: z[k] for k in z.files}
@@ -2907,7 +2959,25 @@ def check_training(pages, results, lat_results, post, card):
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     _, bad32 = check_train_parity(rec, torch.float32, "fp32")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    trained, bad16 = check_train_parity(rec, torch.bfloat16, "bf16")
+    gelu_calls = []
+    saved_grad = BA.gelu_grad
+
+    def record(g, v):
+        gelu_calls.append((g.clone(), v.clone()))
+        return saved_grad(g, v)
+
+    BA.gelu_grad = record
+    reset_launches()
+    try:
+        trained, bad16 = check_train_parity(rec, torch.bfloat16, "bf16")
+    finally:
+        BA.gelu_grad = saved_grad
+    launches = {k: LAUNCHES.get(k, 0) for k in (BA.BA, BA.GG)}
+    print(f"train parity bf16: launches in the two joint steps {json.dumps(launches)}",
+          flush=True)
+    if not all(launches.values()):
+        fail(f"bias_act or gelu_grad did not run in the bf16 training steps: {launches}")
+    gelu_entry = check_gelu_grad(gelu_calls, launches[BA.GG])
     check_resume()
     check_checkpoint_serving(pages, results, lat_results, trained, post)
     del trained
@@ -2917,7 +2987,51 @@ def check_training(pages, results, lat_results, post, card):
     if bad32 or bad16:  # after the other checks, so one run shows them all
         fail(f"train parity: {len(bad32)} fp32 and {len(bad16)} bf16 values out of bounds")
     print(f"training: phase 7 {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return rates
+    return rates, gelu_entry
+
+
+def check_gelu_grad(calls, launches):
+    """Phase 7, the GELU backward kernel (`gelu_grad`, csrc/bias_act.cu) on
+    every call of the bf16 training steps (fc1's output gradient and
+    pre-activation value): bit-equal to its plain version
+    (`gelu_plain_grad`), timed beside it, beside `aten.gelu_backward` (the
+    exact derivative with other roundings, not the same function) and its
+    byte bound (g and v read, the gradient written). -> the kernels line's
+    entry."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import bias_act as BA
+
+    rows = []
+    for g, v in calls:
+        got, want = BA.gelu_grad(g, v), BA.gelu_plain_grad(g, v)
+        if not same_bits(got, want):
+            fail(f"gelu_grad differs from its plain version on {tuple(g.shape)} (max abs err "
+                 f"{float((got.float() - want.float()).abs().max())})")
+        nbytes = 3 * g.numel() * g.element_size()
+        rows.append({"ms": cuda_ms(lambda: BA.gelu_grad(g, v), 20),
+                     "plain_ms": cuda_ms(lambda: BA.gelu_plain_grad(g, v), 20),
+                     "aten_ms": cuda_ms(lambda: torch.ops.aten.gelu_backward(g, v), 20),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    n = len(rows)
+    mean = {k: sum(r[k] for r in rows) / n for k in rows[0]}
+    shapes = sorted({tuple(g.shape) for g, _ in calls})
+    print(f"kernel gelu_grad: {n} calls of the bf16 training steps bit-equal to the plain "
+          f"version, shapes {shapes}: ms={mean['ms']:.4f} plain_ms={mean['plain_ms']:.4f} "
+          f"aten_gelu_backward_ms={mean['aten_ms']:.4f} bound_ms={mean['bound_ms']:.6f} "
+          f"(means a call)", flush=True)
+    return {
+        "name": BA.GG, "route": "cuda", "source": "tuatara_tpu_torch/csrc/bias_act.cu",
+        "replaces": "tuatara_tpu/models/layers.py:444 (the derivative of jax.nn.gelu in the "
+                    "bf16 training step, XLA ops: no TPU kernel)",
+        "launches": launches, "equal": True, "max_abs_err": 0.0, "cases": n,
+        "ms": mean["ms"], "plain_ms": mean["plain_ms"], "bound_ms": mean["bound_ms"],
+        "bound_by": "bytes",
+        # aten.gelu_backward rounds otherwise: not the same function.
+        "library_ms": None, "aten_gelu_backward_ms": mean["aten_ms"],
+        "shapes": [list(x) for x in shapes],
+        "timed_on": "mean a call over the bf16 training steps' calls (phase 7)",
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -3680,6 +3794,406 @@ def check_phase9(pages, post):
     return {"random_boxes": boxes, **native, "seconds": secs}
 
 
+def bias_act_calls(engine, pages):
+    """Every `bias_act` call of the engine on the pages, recorded while it
+    runs: CRAFT's (dim 1) all, with copies of their inputs; PARSEQ's
+    (dim -1) the first of each (width, act, bias or not)."""
+    import torch
+
+    from tuatara_tpu_torch.models import layers
+
+    calls, seen = [], set()
+    saved = layers.bias_act
+
+    def record(p, bias, act, keep_pre=False, dim=1):
+        key = (p.shape[-1], act, bias is None)
+        if dim == 1 or key not in seen:
+            seen.add(key)
+            calls.append((p.clone(), None if bias is None else bias.clone(), act, keep_pre, dim))
+        return saved(p, bias, act, keep_pre, dim)
+
+    layers.bias_act = record
+    try:
+        for img in pages.values():
+            engine.run(img)
+    finally:
+        layers.bias_act = saved
+    torch.cuda.synchronize()
+    return calls
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int16), b.contiguous().view(torch.int16))
+
+
+def check_bias_act_backward(cases):
+    """`bias_act`'s backward on the card (`_BiasAct`: the kernel forward,
+    `bias_act_grads` backward) against autograd through the plain
+    version: the outputs and the gradients of the product and of an fp32
+    bias, bit for bit, with the pre-activation output's gradient where it
+    is kept. -> the number of cases."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import bias_act as BA
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n = 0
+    for p0, act, keep_pre, dim in cases:
+        b0 = torch.randn(p0.shape[dim], device="cuda", generator=gen)
+        grads = [torch.randn(p0.shape, device="cuda", generator=gen).to(p0.dtype)
+                 for _ in range(2 if keep_pre else 1)]
+        got = []
+        for fn in (BA.bias_act, BA.bias_act_plain):
+            p = p0.detach().clone().requires_grad_()
+            b = b0.detach().clone().requires_grad_()
+            out = fn(p, b.to(p.dtype), act, keep_pre, dim)
+            out = list(out) if keep_pre else [out]
+            got.append(out + list(torch.autograd.grad(out, [p, b], grads)))
+        for g, w in zip(*got):
+            if not same_bits(g.detach(), w.detach()):
+                fail(f"bias_act's backward differs from autograd through its plain version on "
+                     f"{tuple(p0.shape)} act={act} keep_pre={keep_pre} (max abs err "
+                     f"{float((g.float() - w.float()).abs().max())})")
+        n += 1
+    return n
+
+
+def check_bias_act(engine, pages, launches):
+    """Phase 10a, the kernel: `bias_act` against its plain version on the
+    card, bit for bit, on every call of the default path's four pages:
+    CRAFT's ReLU-followed convolutions in the layout they came in and in
+    the other one (channels_last / contiguous), each with ReLU and with
+    ReLU and the pre-ReLU output; PARSEQ's fc1 widths with their GELU;
+    seeded fp16 and bf16 tensors in each layout, 95 channels and an
+    unaligned view, GELU with and without a bias; its backward on some of
+    these. Times a call over the first page's CRAFT calls: the kernel
+    (CUDA events, and traced device time), the plain version, the two
+    PyTorch calls it replaces (torch.add, then F.relu) and the byte bound;
+    and the host's time a call beside those two calls'. -> the kernels
+    line's entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from tuatara_tpu_torch.kernels import bias_act as BA
+
+    calls = bias_act_calls(engine, pages)
+    craft_calls = [c for c in calls if c[4] == 1]
+    n_checked = 0
+    # Beyond the path: fp16, a Linear's 95 columns, and a view 2 bytes into
+    # its storage (the kernel's unvectorised loads).
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    backward_cases = []
+    for dtype in (torch.bfloat16, torch.float16):
+        x = (torch.randn(2, 64, 48, 40, device="cuda", generator=gen) * 4).to(dtype)
+        lin = (torch.randn(3, 26, 95, device="cuda", generator=gen) * 4).to(dtype)
+        odd = (torch.randn(1001, device="cuda", generator=gen) * 4).to(dtype)[1:].view(10, 100)
+        for p, dim in ((x, 1), (x.contiguous(memory_format=torch.channels_last), 1),
+                       (lin, -1), (odd, -1)):
+            b = torch.randn(p.shape[dim], device="cuda", generator=gen).to(dtype)
+            for bias in (b, None):
+                calls.append((p, bias, "gelu", True, dim))
+            for act in BA.ACTS:
+                backward_cases += [(p, act, False, dim), (p, act, True, dim)]
+    for p, b, act, keep_pre, dim in calls:
+        layouts = [p]
+        if dim == 1:
+            other = (p.contiguous() if p.is_contiguous(memory_format=torch.channels_last)
+                     and not p.is_contiguous() else
+                     p.contiguous(memory_format=torch.channels_last))
+            layouts.append(other)
+            modes = [(act, False), (act, True)]
+        else:
+            modes = [(act, keep_pre)]
+        for x in layouts:
+            for mode, keep in modes:
+                got = BA.bias_act(x, b, mode, keep, dim)
+                want = BA.bias_act_plain(x, b, mode, keep, dim)
+                got, want = (got, want) if keep else ((got,), (want,))
+                for g, w in zip(got, want):
+                    if g.stride() != x.stride() or not same_bits(g, w):
+                        err = float((g.float() - w.float()).abs().max())
+                        fail(f"bias_act differs from its plain version on {tuple(x.shape)} "
+                             f"strides {x.stride()} act={mode} keep_pre={keep} (max abs err "
+                             f"{err})")
+                n_checked += 1
+    # The backward also at the path's shapes: one CRAFT call, one fc1.
+    backward_cases += [(craft_calls[0][0], "relu", True, 1)]
+    backward_cases += [(c[0], c[2], False, -1) for c in calls if c[4] == -1][:1]
+    n_backward = check_bias_act_backward(backward_cases)
+    torch.cuda.synchronize()
+    first = craft_calls[:len(craft_calls) // len(pages)]
+    rows = []
+    for p, b, act, keep_pre, dim in first:
+        bview = b.reshape(-1, 1, 1)
+        ms = cuda_ms(lambda: BA.bias_act(p, b, act, keep_pre, dim), 20)
+        pms = cuda_ms(lambda: BA.bias_act_plain(p, b, act, keep_pre, dim), 20)
+        lms = cuda_ms(lambda: F.relu(torch.add(p, bview)), 20)
+        nbytes = p.numel() * p.element_size() * (3 if keep_pre else 2) + b.numel() * 2
+        rows.append({"shape": list(p.shape), "act": act, "keep_pre": keep_pre, "ms": ms,
+                     "plain_ms": pms, "add_relu_ms": lms,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        print(f"kernel bias_act {str(list(p.shape)):22s} act={act} keep_pre={keep_pre} "
+              f"channels_last={p.is_contiguous(memory_format=torch.channels_last)} ms={ms:.4f} "
+              f"plain_ms={pms:.4f} add+relu_ms={lms:.4f} bound_ms={rows[-1]['bound_ms']:.6f}",
+              flush=True)
+    # Host time a call at a small map (launch-bound), the wrapper beside
+    # the two calls it replaces.
+    y = torch.randn(1, 128, 24, 24, device="cuda").bfloat16()
+    yb = torch.randn(128, device="cuda").bfloat16()
+    ybv = yb.reshape(-1, 1, 1)
+    host_us = {}
+    for name, fn in (("bias_act", lambda: BA.bias_act(y, yb, "relu")),
+                     ("torch.add+F.relu", lambda: F.relu(torch.add(y, ybv)))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        host_us[name] = (time.perf_counter() - t) / 2000 * 1e6
+        torch.cuda.synchronize()
+    print(f"kernel bias_act: host us a call at [1, 128, 24, 24] + ReLU {json.dumps(host_us)}",
+          flush=True)
+    events = traced_kernels(lambda: [BA.bias_act(*c) for c in first],
+                            os.path.join(ROOT, "build", "bias_act_trace.json"), True)
+    dev_page = sum(e["dur"] for e in events) / 1e3 if len(events) == len(first) else None
+
+    def total(key):
+        return sum(r[key] for r in rows)
+
+    n = len(rows)
+    print(f"kernel bias_act: {n_checked} cases bit-equal to the plain version, {n_backward} "
+          f"backward cases bit-equal to autograd's; CRAFT's {n} calls a page "
+          f"({pages and next(iter(pages))}): ms/page={total('ms'):.4f} device_ms/page={dev_page} "
+          f"plain_ms/page={total('plain_ms'):.4f} add+relu_ms/page={total('add_relu_ms'):.4f} "
+          f"bound_ms/page={total('bound_ms'):.5f}", flush=True)
+    return {
+        "name": BA.BA, "route": "cuda", "source": "tuatara_tpu_torch/csrc/bias_act.cu",
+        "replaces": "tuatara_tpu/models/layers.py:94-95 and :392-393 (conv2d's and linear's "
+                    "bias add with the ReLU or GELU after it, XLA ops: no TPU kernel)",
+        "launches": launches.get(BA.BA, 0), "equal": True, "max_abs_err": 0.0,
+        "cases": n_checked, "backward_cases": n_backward, "ms": total("ms") / n,
+        "plain_ms": total("plain_ms") / n, "bound_ms": total("bound_ms") / n,
+        "bound_by": "bytes",
+        # Every mode adds a bias and applies a ReLU or GELU, which no one
+        # PyTorch call does: the pair it replaces is timed apart.
+        "library_ms": None, "add_relu_ms": total("add_relu_ms") / n,
+        "device_ms_per_page": dev_page, "craft_calls_per_page": n,
+        "ms_per_page": total("ms"), "plain_ms_per_page": total("plain_ms"),
+        "add_relu_ms_per_page": total("add_relu_ms"), "bound_ms_per_page": total("bound_ms"),
+        "host_us_per_call": host_us,
+        "timed_on": "mean a call over the first page's CRAFT calls (default path)",
+    }
+
+
+def check_bias_act_launches(pages):
+    """Phase 10a, the launches: the default and latency() pages, counts
+    zeroed just before and read just after. `bias_act` must run once for
+    each call of a float Conv of CRAFT that a ReLU follows (the trunk's,
+    each decoder level's conv2, the head's first four) and once for each
+    call of a float Linear of PARSEQ with a GELU (fc1), and nowhere else.
+    -> {preset: launches a page, CRAFT's and PARSEQ's}."""
+    import tuatara_tpu_torch
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from tuatara_tpu_torch.kernels.bias_act import BA
+    from tuatara_tpu_torch.models.layers import Conv, Linear
+
+    out = {}
+    for name, config in (("default", tuatara_tpu_torch.OcrConfig()),
+                         ("latency", tuatara_tpu_torch.OcrConfig.latency())):
+        engine = tuatara_tpu_torch.api.get_engine(config, WEIGHTS)
+        seen = {"craft": 0, "at": 0, "relu": 0, "gelu": 0}
+
+        def pre(_m, _a):
+            seen["at"] = LAUNCHES[BA]
+
+        def post(_m, _a, _o):
+            seen["craft"] += LAUNCHES[BA] - seen["at"]
+
+        def layer(_m, _a, kwargs, _o):
+            seen["relu"] += bool(kwargs.get("relu"))
+            seen["gelu"] += kwargs.get("act") == "gelu"
+
+        hooks = [engine.craft.register_forward_pre_hook(pre),
+                 engine.craft.register_forward_hook(post)]
+        hooks += [m.register_forward_hook(layer, with_kwargs=True)
+                  for model in (engine.craft, engine.parseq) for m in model.modules()
+                  if isinstance(m, (Conv, Linear))]
+        try:
+            reset_launches()
+            for img in pages.values():
+                tuatara_tpu_torch.image_to_data(img, WEIGHTS, config=config)
+            got = LAUNCHES[BA]
+        finally:
+            for h in hooks:
+                h.remove()
+        n = len(pages)
+        print(f"bias_act launches, {name}: {got} on {n} pages ({got / n:.1f} a page): CRAFT "
+              f"{seen['craft']} ({seen['relu']} ReLU-followed float conv calls, "
+              f"{seen['relu'] / n:.1f} a page), PARSEQ {got - seen['craft']} ({seen['gelu']} "
+              f"float Linear calls with a GELU, {seen['gelu'] / n:.1f} a page)", flush=True)
+        if seen["craft"] != seen["relu"] or got != seen["relu"] + seen["gelu"] or not got:
+            fail(f"bias_act launched {got} times under {name} ({seen['craft']} in CRAFT), "
+                 f"expected {seen['relu'] + seen['gelu']} (one a ReLU-followed conv call, "
+                 f"{seen['relu']}, one a Linear call with a GELU, {seen['gelu']})")
+        out[name] = {"per_page": got / n, "craft_per_page": seen["craft"] / n,
+                     "parseq_per_page": (got - seen["craft"]) / n}
+    return out
+
+
+def upsample_reference(x, h, w):
+    """JAX's bf16 bilinear resize computed in fp32 on the card: one axis at
+    a time (the cheaper contraction first, H on a tie), each axis summed in
+    fp32 and rounded to x's dtype."""
+    import torch.nn.functional as F
+
+    hi, wi = x.shape[-2:]
+    sizes = [(h, wi), (h, w)] if wi * h * (hi + w) <= hi * w * (wi + h) else [(hi, w), (h, w)]
+    for size in sizes:
+        x = F.interpolate(x.float(), size=size, mode="bilinear",
+                          align_corners=False).to(x.dtype)
+    return x
+
+
+def check_rounding(engine, img):
+    """Phase 10b: every float Conv and Linear of one default page (and each
+    float decoder level, whose 1x1 conv1 runs as two convs summed, the
+    trunk side before its upsample), its output on the card against
+    "(the same bf16 product) rounded, + bias, rounded" (then ReLU or GELU
+    as the layer applies it), computed on the card with PyTorch's own ops
+    from the inputs the layer was given. -> {kind: equal share}, fatal
+    below BF16_MIN_ROUNDED overall."""
+    import torch
+    import torch.nn.functional as F
+
+    from tuatara_tpu_torch.kernels.bias_act import gelu_plain
+    from tuatara_tpu_torch.models.layers import Conv, Linear, PaddedLinear
+
+    records = {"conv": [], "linear": [], "level": []}
+
+    def hook(m, args, kwargs, out):
+        records["conv" if isinstance(m, Conv) else "linear"].append((m, args[0], kwargs, out))
+
+    craft = engine.craft
+    hooks = [m.register_forward_hook(hook, with_kwargs=True)
+             for model in (craft, engine.parseq) for m in model.modules()
+             if isinstance(m, (Conv, Linear))]
+    double_conv = craft._double_conv
+
+    def level(block, y, skip):
+        out = double_conv(block, y, skip)
+        records["level"].append((block, y, skip, out))
+        return out
+
+    craft._double_conv = level
+    try:
+        engine.run(img)
+    finally:
+        del craft._double_conv
+        for h in hooks:
+            h.remove()
+
+    def rounded(p, b):
+        """p + b along p's channels (dim 1 of an NCHW tensor, the last of
+        a Linear's), in fp32, rounded to p's dtype."""
+        b = b.float().reshape(-1, 1, 1) if p.dim() == 4 else b.float()
+        return (p.float() + b).to(p.dtype)
+
+    equal, total, worst = {}, {}, 1.0
+
+    def tally(kind, got, want):
+        nonlocal worst
+        eq = int((got.contiguous().view(torch.int16) == want.contiguous().view(torch.int16)).sum())
+        equal[kind] = equal.get(kind, 0) + eq
+        total[kind] = total.get(kind, 0) + got.numel()
+        worst = min(worst, eq / max(got.numel(), 1))
+
+    with torch.no_grad():
+        for m, x, kw, out in records["conv"]:
+            w = m.weight
+            v = rounded(F.conv2d(x.to(w.dtype), w, None, padding=m.padding,
+                                 dilation=m.dilation), m.bias)
+            if kw.get("keep_pre"):
+                tally("conv", out[0], F.relu(v))
+                tally("conv", out[1], v)
+            else:
+                tally("conv", out, F.relu(v) if kw.get("relu") else v)
+        for m, x, kw, out in records["linear"]:
+            w, n = m.weight, m.weight.shape[0]
+            wp = F.pad(w, (0, 0, 0, -n % 8)) if isinstance(m, PaddedLinear) else w
+            v = rounded(F.linear(x.to(w.dtype), wp)[..., :n], m.bias)
+            tally("linear", out, gelu_plain(v) if kw.get("act") == "gelu" else v)
+        for block, y, skip, out in records["level"]:
+            blk = craft.up[block]
+            c1, c2 = blk["conv1"], blk["conv2"]
+            w, ca = c1.weight, y.shape[1]
+            ya = rounded(F.conv2d(y.to(w.dtype), w[:, :ca]), c1.bias)
+            if ya.shape[-2:] != skip.shape[-2:]:
+                ya = upsample_reference(ya, *skip.shape[-2:])
+            z = F.relu(ya + F.conv2d(skip.to(w.dtype), w[:, ca:]))
+            v = rounded(F.conv2d(z, c2.weight, None, padding=c2.padding), c2.bias)
+            tally("level", out, F.relu(v))
+    shares = {k: equal[k] / total[k] for k in total}
+    overall = sum(equal.values()) / sum(total.values())
+    print(f"rounding on the card (10b): {len(records['conv'])} convs, "
+          f"{len(records['linear'])} Linear calls, {len(records['level'])} decoder levels of "
+          f"one default page: bit-equal shares {json.dumps(shares)}, overall {overall:.6f}, "
+          f"least of a layer {worst:.6f} (gate {BF16_MIN_ROUNDED})", flush=True)
+    if overall < BF16_MIN_ROUNDED:
+        fail(f"bf16 rounding on the card: {overall:.6f} of the values equal "
+             f"(product rounded) + bias, rounded (< {BF16_MIN_ROUNDED})")
+    return {**shares, "overall": overall, "least_layer": worst}
+
+
+def check_bf16_agreement(pages, floor=True):
+    """Phase 10c: the default and latency() engines (bf16) on the four pages
+    against JAX's bf16 records (FIXTURE_BF16): the share of JAX's records
+    with the same text and bbox. Fatal below BF16_FLOOR unless `floor` is
+    off (to read the parent commit's share with this function). -> {preset:
+    share}."""
+    import tuatara_tpu_torch
+
+    with open(FIXTURE_BF16) as f:
+        ref = json.load(f)["variants"]
+    shares = {}
+    for name, config in (("default", tuatara_tpu_torch.OcrConfig()),
+                         ("latency", tuatara_tpu_torch.OcrConfig.latency())):
+        hit = total = 0
+        per_page = {}
+        for page, img in pages.items():
+            want = ref[name]["pages"][page]["words"]
+            got = tuatara_tpu_torch.image_to_data(img, WEIGHTS, config=config)
+            share = word_share(want, got)
+            per_page[page] = round(share, 4)
+            hit += round(share * len(want))
+            total += len(want)
+        shares[name] = hit / total
+        print(f"bf16 agreement with JAX (10c), {name}: {shares[name]:.4f} ({hit} of {total} JAX "
+              f"records, text and bbox) on the card; per page {json.dumps(per_page)}; floor "
+              f"{BF16_FLOOR[name]:.4f}", flush=True)
+        if floor and hit < BF16_FLOOR[name] * total - 1e-9:
+            fail(f"bf16 agreement with JAX under {name}: {shares[name]:.4f} < "
+                 f"{BF16_FLOOR[name]}")
+    return shares
+
+
+def check_phase10(engine, pages, launches):
+    """Phase 10 (see the module docstring). -> (the kernels line's bias_act
+    entry, the phase's summary)."""
+    t_phase = time.perf_counter()
+    entry = check_bias_act(engine, pages, launches)
+    per_page = check_bias_act_launches(pages)
+    rounding = check_rounding(engine, next(iter(pages.values())))
+    agreement = check_bf16_agreement(pages)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 10: {secs:.1f} s", flush=True)
+    return entry, {"bias_act_launches": per_page, "rounding": rounding,
+                   "jax_bf16_share": agreement, "seconds": secs}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1000, exit=True)
     t_start = time.perf_counter()
@@ -3719,7 +4233,7 @@ def main() -> int:
     default = tuatara_tpu_torch.OcrConfig()
     engine = tuatara_tpu_torch.api.get_engine(default, WEIGHTS)
     print(f"engine load: {time.perf_counter() - t0:.1f} s", flush=True)
-    results, launches = drive(default, pages, post)
+    results, launches = drive(default, pages, post + ("bias_act",))
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     for name, words in results.items():
         print(f"bf16 {name}: {len(words)} boxes: "
@@ -3728,7 +4242,8 @@ def main() -> int:
     # 3b. the latency() preset: fused recognizer kernels
     latency = tuatara_tpu_torch.OcrConfig.latency()
     lat = tuatara_tpu_torch.api.get_engine(latency, WEIGHTS)
-    lat_results, lat_launches = drive(latency, pages, post + ("vit_blocks", "greedy_decode"))
+    lat_results, lat_launches = drive(latency, pages,
+                                      post + ("vit_blocks", "greedy_decode", "bias_act"))
     print(f"latency path launches: {json.dumps(lat_launches)}", flush=True)
     for name, words in lat_results.items():
         same = sum(a["text"] == b["text"] for a, b in zip(words, results[name]))
@@ -3831,7 +4346,8 @@ def main() -> int:
 
     # 7. training at full width: parity with JAX's record, resume, the
     # checkpoint served, learning, step rates
-    training = check_training(pages, results, lat_results, post, card)
+    training, gelu_entry = check_training(pages, results, lat_results, post, card)
+    kernels.append(gelu_entry)
 
     # 8. conversion, mesh, profiling, native
     phase8 = check_phase8(pages, lat, lat_results, calibrated, post, card)
@@ -3839,11 +4355,16 @@ def main() -> int:
     # 9. engines with no weights, the C ABI, the binding, the examples
     phase9 = check_phase9(pages, post)
 
+    # 10. bf16 rounded where JAX rounds: bias_act, the rounding, JAX's records
+    bias_entry, phase10 = check_phase10(engine, pages, launches)
+    kernels.append(bias_entry)
+
     print(json.dumps({"int8_conv": int8_summary}), flush=True)
     print(json.dumps({"int8_linear": int8_linear_summary}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"phase8": phase8}), flush=True)
     print(json.dumps({"phase9": phase9}), flush=True)
+    print(json.dumps({"phase10": phase10}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -33,7 +33,11 @@ traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
   say whether K8 (`--fused-stage1`) beats the cuDNN chain end to end and
   what int8 CRAFT (`--config production`) costs against bf16;
 * the CUDA kernels with the most device time, grouped by name, and the
-  number of kernel launches per page.
+  number of kernel launches per page;
+* the port's own launch counts a page (`kernels.LAUNCHES`), and how many
+  of `bias_act`'s (the bias add and ReLU of a bf16 convolution, or the
+  bias add and GELU of a bf16 fc1) fall inside CRAFT and outside it
+  (PARSEQ).
 
 Writes the chrome trace to build/profile_torch_port_<config>.json.
 Usage: python3 scripts/profile_torch_port.py [--reps N]
@@ -142,6 +146,9 @@ def main() -> int:
 
     n_pages = args.reps * len(pages)
     stages = {"detect_s": 0.0, "recognize_s": 0.0}
+    from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -182,11 +189,16 @@ def main() -> int:
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {ms / n_pages:8.3f} ms/page {cnt / n_pages:7.1f} launches/page "
               f"{ms / total_k * 100:5.1f}%  {name[:110]}")
+    craft_bias = sum("bias_act" in e["name"] for e in craft_kernels)
+    print(f"port kernel launches/page (wrapper counts): "
+          f"{json.dumps({k: v / n_pages for k, v in sorted(LAUNCHES.items())})}; bias_act "
+          f"inside CRAFT {craft_bias / n_pages:.1f}/page, outside "
+          f"{(LAUNCHES.get('bias_act', 0) - craft_bias) / n_pages:.1f}/page")
     ours = {n: v for n, v in by_name.items()
             if any(f"(anonymous namespace)::{k}" in n
                    for k in ("cc_", "area_", "component_stats", "gemm_kernel",
                              "attention", "decode_kernel", "fused_conv_pool",
-                             "lower_chains"))}
+                             "lower_chains", "bias_act"))}
     print("port kernels: " + json.dumps(
         {n: {"ms_per_page": v[0] / n_pages, "launches_per_page": v[1] / n_pages}
          for n, v in ours.items()}))

@@ -15,11 +15,14 @@ runs `tiled_detection=True` at canvas 1024 (only table_english tiles) and
 a variant. `--config modes` runs `decode_mode` "beam" and "nar" and
 `quantized_serving=True` (int8 CRAFT and int8 recognizer encoder)
 calibrated on resume_example and rotated_text, into
-`torch_reference_modes.json`. The GPU machine has no JAX, so the
+`torch_reference_modes.json`. `--config bf16` runs `OcrConfig()` and
+`OcrConfig.latency()` at their own compute dtype, bf16 (the Pallas
+recognizer kernels in interpret mode), on the four pages, into
+`torch_reference_bf16.json`. The GPU machine has no JAX, so the
 references are recorded here and committed (a few KB each).
 
 Usage: PYTHONPATH=. JAX_PLATFORMS=cpu python tests/gen_torch_reference.py
-       [--config default|lowthresh|rotated|tiled|modes]
+       [--config default|lowthresh|rotated|tiled|modes|bf16]
 """
 
 import argparse
@@ -60,6 +63,9 @@ VARIANTS = {
         "beam": {"compute_dtype": "float32", "decode_mode": "beam"},
         "nar": {"compute_dtype": "float32", "decode_mode": "nar"},
         "int8_calibrated": {"compute_dtype": "float32", "quantized_serving": True}}),
+    # An OcrConfig preset by name ("preset"), the four pages only.
+    "bf16": ("torch_reference_bf16.json", {
+        "default": {}, "latency": {"preset": "latency"}}),
 }
 # Variants whose engine calibrates first, on these pages.
 CALIBRATED = {"int8_calibrated": ("resume_example", "rotated_text")}
@@ -87,14 +93,23 @@ def main():
         name, variants = VARIANTS[which]
         record = {"weights": "evals/production_weights", "backend": "jax cpu", "variants": {}}
         for variant, overrides in variants.items():
-            engine = OcrEngine(OcrConfig(**overrides), weights_dir=WEIGHTS)
-            entry = {"config": overrides}
+            overrides = dict(overrides)
+            preset = overrides.pop("preset", None)
+            if preset:
+                sys.path.insert(0, HERE)
+                from probe_torch_bf16 import interpret_pallas
+
+                interpret_pallas()
+            config = getattr(OcrConfig, preset)(**overrides) if preset else OcrConfig(**overrides)
+            engine = OcrEngine(config, weights_dir=WEIGHTS)
+            entry = {"config": {"preset": preset or "OcrConfig", **overrides,
+                                "compute_dtype": config.compute_dtype}}
             if variant in CALIBRATED:
                 entry["calibration_pages"] = CALIBRATED[variant]
                 entry["calibration_layers"] = engine.calibrate(
                     [load_image(os.path.join(ROOT, "images", f"{n}.png"))[None]
                      for n in CALIBRATED[variant]])
-            entry["pages"] = record_pages(engine, GEOMETRY_PAGES)
+            entry["pages"] = record_pages(engine, PAGES if which == "bf16" else GEOMETRY_PAGES)
             record["variants"][variant] = entry
         with open(os.path.join(HERE, "fixtures", name), "w") as f:
             json.dump(record, f, indent=0)

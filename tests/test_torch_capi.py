@@ -132,13 +132,15 @@ def test_capi_equals_jax_image_to_data(on_cpu):
 
 
 def test_bf16_agrees_with_jax_within_rounding_fp32_exactly():
-    """The default configuration computes in bf16, and the port's bf16
-    convolutions and products round otherwise than XLA's on the CPU. On a
-    dense crop, fp32 gives JAX's heatmaps within 1e-5 and all its words and
-    bboxes; bf16 gives heatmaps within a few bf16 steps of JAX's, and pixels
-    near low_text and link_threshold fall on the other side, so some boxes
-    grow or shrink by a few pixels (ROADMAP Queue 3 item 19;
-    `tests/probe_torch_bf16.py` prints them)."""
+    """The default configuration computes in bf16. On a dense crop, fp32
+    gives JAX's heatmaps within 1e-5 and all its words and bboxes; bf16,
+    where the port rounds where XLA rounds JAX's forward on the CPU (the
+    bias after the product's rounding, the decoder's conv before its
+    upsample, the upsample's two contractions; ROADMAP Queue 3 item 19),
+    gives heatmaps within 1/64 of JAX's (mean 1e-4; the fp32 sums run in
+    their own orders), no pixel on the other side of text_threshold,
+    low_text or link_threshold, and all 13 words and bboxes
+    (`tests/probe_torch_bf16.py` prints the figures)."""
     from probe_torch_bf16 import compare
 
     page = image("resume_example")[:200, :300].copy()
@@ -147,5 +149,6 @@ def test_bf16_agrees_with_jax_within_rounding_fp32_exactly():
     assert not any(px for _, px in fp32["flips"].values())
     assert [len(r) for r in fp32["records"]] == [13, 13] and fp32["same"] == 13
     bf16 = compare(page, GOLDEN, "bfloat16")
-    assert max(bf16["max_abs"].values()) < 0.05
-    assert [len(r) for r in bf16["records"]] == [13, 13] and bf16["same"] >= 9
+    assert max(bf16["max_abs"].values()) <= 1 / 64 and bf16["mean_abs"] <= 1e-4
+    assert not any(px for _, px in bf16["flips"].values())
+    assert [len(r) for r in bf16["records"]] == [13, 13] and bf16["same"] == 13

@@ -28,7 +28,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("cc", "stats", "vit", "decode", "stage1", "hull")
+SOURCES = ("cc", "stats", "vit", "decode", "stage1", "hull", "bias_act")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, object] = {}
@@ -87,16 +87,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
-    """C entry `int symbol(void* x n_ptr, int x n_int, float x n_float,
-    stream)` of csrc/<name>.cu, bound once: every pointer and the stream are
-    declared c_void_p, so none is cut to 32 bits."""
+def entry(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0, n_i64: int = 0):
+    """C entry `int symbol(void* x n_ptr, int x n_int, long long x n_i64,
+    float x n_float, stream)` of csrc/<name>.cu, bound once: every pointer
+    and the stream are declared c_void_p, so none is cut to 32 bits."""
     key = (name, symbol)
     fn = _entries.get(key)
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * n_i64 + [ctypes.c_float] * n_float
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _entries[key] = fn
     return fn

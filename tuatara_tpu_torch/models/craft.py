@@ -8,11 +8,14 @@ conv -> ReLU chains. Architecture:
 * VGG16-BN trunk; the skips f2..f5 are the pre-ReLU outputs of the second
   conv of stages 2-5. conv5_3 and the last pool are dropped; a stride-1 3x3
   max-pool, a rate-6 dilated 3x3 "fc6" and a 1x1 "fc7" follow.
-* U-Net decoder: at each level the trunk side is bilinearly upsampled
-  (half-pixel) to the skip's size, then a 1x1 conv over concat(trunk, skip)
-  + ReLU and a 3x3 conv + ReLU. The 1x1 conv runs as two convs summed, one
-  per side of the concat (`conv1_split`), in the reference op order:
-  upsample, then conv.
+* U-Net decoder: at each level a 1x1 conv over concat(trunk, skip) +
+  ReLU and a 3x3 conv + ReLU, the trunk side arriving at the previous
+  level's resolution. The 1x1 conv runs as two convs summed, one per side
+  of the concat (`conv1_split`). At fp32 the trunk side is bilinearly
+  upsampled (half-pixel) to the skip's size first, the reference op
+  order; at a 16-bit compute dtype its conv runs at the low resolution
+  and its output is upsampled, as JAX orders it (the two commute in exact
+  arithmetic, not in their roundings).
 * Head: 3x[3x3 conv + ReLU] -> 1x1 conv + ReLU -> 1x1 conv to 2 channels.
 
 int8 serving (`Craft.quantize`, JAX's `quantize_craft_trunk`): every trunk
@@ -24,6 +27,13 @@ output is upsampled, as JAX orders it (`tuatara_tpu/models/craft.py:
 476-491`); at fp32 the trunk is upsampled first. JAX packs the head's
 width for the TPU; the packed int8 conv is bit-equal to the unpacked one,
 so the head runs unpacked here.
+
+At a 16-bit compute dtype (bf16 by default) the port rounds where XLA's
+CPU backend rounds JAX's compiled forward: each float conv's product is
+rounded before its bias is added, with a second rounding
+(`layers.add_bias`: one `bias_act` pass with the ReLU that follows, and
+the pre-ReLU output where a skip keeps it), and the upsample contracts
+one axis at a time, rounding between (`upsample_to`).
 
 At fp32 the port rounds where XLA's CPU backend rounds JAX's compiled
 forward, so that int8 CRAFT's scores equal JAX's bit for bit given one
@@ -63,8 +73,9 @@ from torch import nn
 
 from tuatara_tpu_torch.config import CraftConfig
 from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool, pack_conv_pool_weights
-from tuatara_tpu_torch.models.layers import BatchNorm, Conv, QConv, dequant, init_conv
+from tuatara_tpu_torch.models.layers import BatchNorm, Conv, QConv, add_bias, dequant, init_conv
 from tuatara_tpu_torch.ops.minarearect import fma
+from tuatara_tpu_torch.ops.resize import resize_weights
 
 _STAGE_COUNTS = (2, 2, 3, 3, 2)
 
@@ -88,13 +99,41 @@ def vgg_plan(cfg: CraftConfig):
 
 
 def upsample_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Bilinear resize with half-pixel (align_corners=False) semantics. An
-    fp32 2x upsample (every level of the U-Net: canvases are multiples of
-    32) rounds as XLA's CPU backend rounds JAX's `jax.image.resize`, on
-    either device (`_upsample2x`)."""
-    if x.dtype == torch.float32 and (h, w) == (2 * x.shape[-2], 2 * x.shape[-1]):
-        return _upsample2x(x)
-    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    """Bilinear resize with half-pixel (align_corners=False) semantics,
+    rounded as XLA's CPU backend rounds JAX's `jax.image.resize`. At fp32 a
+    2x upsample (every level of the U-Net when the canvas is a multiple of
+    32) takes `_upsample2x`, on either device. At a 16-bit dtype JAX's
+    resize is one einsum of x with a weight matrix per axis, which
+    contracts one axis, rounds to the dtype, then contracts the other: the
+    axis first whose order costs fewer products (opt_einsum's choice; H
+    first on a tie), each pass summing its taps in fp32 (`_resize_axis`)."""
+    hi, wi = x.shape[-2:]
+    if x.dtype == torch.float32:
+        if (h, w) == (2 * hi, 2 * wi):
+            return _upsample2x(x)
+        return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    h_first = wi * h * (hi + w) <= hi * w * (wi + h)
+    for dim, n in ((2, h), (3, w)) if h_first else ((3, w), (2, h)):
+        x = _resize_axis(x, dim, n)
+    return x
+
+
+def _resize_axis(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """Resize axis `dim` (2 or 3) of a 16-bit NCHW tensor to n: each output
+    sums its (at most two) bilinear taps in fp32, whose products of 16-bit
+    values and weights are exact, and rounds once to x's dtype. A 2x axis
+    is one `F.interpolate` pass, whose weights (0.25, 0.75; 1 at the edges)
+    are JAX's; another size takes JAX's weight matrix, rounded to x's
+    dtype, as an fp32 product."""
+    m = x.shape[dim]
+    if n == m:
+        return x
+    if n == 2 * m:
+        size = list(x.shape[-2:])
+        size[dim - 2] = n
+        return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
+    wm = resize_weights(m, n).to(x.dtype).to(x.device, torch.float32)
+    return torch.movedim(torch.movedim(x.float(), dim, -1) @ wm, -1, dim).to(x.dtype)
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -150,6 +189,15 @@ def _conv1x1_xla(conv: Conv, x: torch.Tensor) -> torch.Tensor:
     while len(parts) > 1:
         parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
     return parts[0] + conv.bias[:, None, None]
+
+
+def _conv_relu(conv: nn.Module, x: torch.Tensor, keep_pre: bool = False):
+    """ReLU(conv(x)), and conv(x) too with `keep_pre`: a float `Conv` at a
+    16-bit dtype adds its bias and the ReLU in one pass."""
+    if isinstance(conv, Conv) and conv.weight.dtype != torch.float32:
+        return conv(x, relu=True, keep_pre=keep_pre)
+    y = conv(x)
+    return (F.relu(y), y) if keep_pre else F.relu(y)
 
 
 def _qconv(conv: Conv) -> QConv:
@@ -248,18 +296,28 @@ class Craft(nn.Module):
 
     def _double_conv(self, block: str, y: torch.Tensor, skip: torch.Tensor
                      ) -> torch.Tensor:
+        """A float decoder level (JAX `conv1_split`, then conv2): the 1x1
+        conv1 as two convs summed, one a side of the concat; at fp32 the
+        trunk side is upsampled first, at a 16-bit dtype its conv (with
+        the bias, rounded as `Conv` rounds it) runs at the low resolution
+        and its output is upsampled."""
         blk = self.up[block]
         if "conv1a" in blk:
             return self._double_conv_q(blk, y, skip)
-        if y.shape[-2:] != skip.shape[-2:]:
-            y = upsample_to(y, skip.shape[-2], skip.shape[-1])
-        c1 = self.up[block]["conv1"]
-        ca = y.shape[1]
-        w = c1.weight
-        ya = F.conv2d(y.to(w.dtype), w[:, :ca], c1.bias)
+        size = skip.shape[-2:]
+        up = y.shape[-2:] != size
+        c1 = blk["conv1"]
+        w, ca = c1.weight, y.shape[1]
+        if w.dtype == torch.float32:
+            if up:
+                y = upsample_to(y, *size)
+            ya = F.conv2d(y, w[:, :ca], c1.bias)
+        else:
+            ya = add_bias(F.conv2d(y.to(w.dtype), w[:, :ca]), c1.bias)
+            if up:
+                ya = upsample_to(ya, *size)
         yb = F.conv2d(skip.to(w.dtype), w[:, ca:])
-        y = F.relu(ya + yb)
-        return F.relu(self.up[block]["conv2"](y))
+        return _conv_relu(blk["conv2"], F.relu(ya + yb))
 
     def _double_conv_q(self, blk: nn.ModuleDict, y: torch.Tensor, skip: torch.Tensor
                        ) -> torch.Tensor:
@@ -313,7 +371,7 @@ class Craft(nn.Module):
             # its normalized copy) unless a gray canvas was broadcast to its
             # channels, and the convolution keeps its input's layout.
             h = h.contiguous(memory_format=torch.channels_last)
-            h = F.relu(self.vgg["conv1_1"]["conv"](h))
+            h = _conv_relu(self.vgg["conv1_1"]["conv"], h)
             h = fused_conv_pool(h, self.conv1_2_packed, self.vgg["conv1_2"]["conv"].bias)
             start = 2
         for idx, (name, _, _, pool_before, skip) in enumerate(self.plan):
@@ -321,10 +379,10 @@ class Craft(nn.Module):
                 continue
             if pool_before and not (start and idx == start):  # K8 pooled already
                 h = F.max_pool2d(h, 2, 2)
-            h = self.vgg[name]["conv"](h)
             if skip is not None:
-                skips[skip] = h  # pre-ReLU
-            h = F.relu(h)
+                h, skips[skip] = _conv_relu(self.vgg[name]["conv"], h, keep_pre=True)
+            else:
+                h = _conv_relu(self.vgg[name]["conv"], h)
 
         h = F.max_pool2d(h, 3, 1, padding=1)  # -inf padding, as in JAX
         h = self.fc["fc6"](h)
@@ -335,9 +393,9 @@ class Craft(nn.Module):
         y = self._double_conv("upconv3", y, skips["f3"])
         feat = self._double_conv("upconv4", y, skips["f2"])
         hd = self.head
-        y = F.relu(hd["conv1"](feat))
-        y = F.relu(hd["conv2"](y))
-        y = F.relu(hd["conv3"](y))
+        y = _conv_relu(hd["conv1"], feat)
+        y = _conv_relu(hd["conv2"], y)
+        y = _conv_relu(hd["conv3"], y)
         if self.quantized and y.dtype == torch.float32 and all(
                 (hd[n].weight.shape[1], hd[n].weight.shape[0]) in _HEAD_1X1_LANES
                 for n in ("conv4", "conv5")):
@@ -345,7 +403,7 @@ class Craft(nn.Module):
             # does and the fp32 scores equal JAX's.
             y = _conv1x1_xla(hd["conv5"], F.relu(_conv1x1_xla(hd["conv4"], y)))
         else:
-            y = hd["conv5"](F.relu(hd["conv4"](y)))
+            y = hd["conv5"](_conv_relu(hd["conv4"], y))
         return (y.float().permute(0, 2, 3, 1).contiguous(),
                 feat.float().permute(0, 2, 3, 1).contiguous())
 

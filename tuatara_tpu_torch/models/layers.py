@@ -7,6 +7,12 @@ weights of convolutions and linear layers are cast once to the model's
 compute dtype (`set_compute_dtype`), and each such layer casts its input to
 that dtype, so products run in the compute dtype with fp32 accumulation.
 LayerNorm and softmax always run in fp32. GELU is the exact erf form.
+At a 16-bit compute dtype the port rounds where XLA's CPU backend rounds
+JAX's compiled bf16 graph: a product is rounded to the dtype before its
+bias is added, with a second rounding (`add_bias`: `torch.add`, or the
+`bias_act` kernel where a ReLU or GELU follows); the attention logits are fp32 sums never rounded to the
+dtype (`attention_logits`); GELU rounds erfc to the dtype before its last
+product (`kernels.bias_act.gelu_plain`).
 
 int8 serving (`QConv`, JAX's `quantize_conv` / `conv2d_q` family, and
 `QLinear`, its `quantize_linear` / `linear_q`): weights per output channel
@@ -36,6 +42,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from tuatara_tpu_torch.kernels.bias_act import bias_act, bias_view
 from tuatara_tpu_torch.kernels.int8 import int8_conv, int8_linear, weight_matrix
 
 
@@ -46,6 +53,20 @@ def _cast(layer: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
     if layer.compute_dtype is not None:
         w, b = w.to(layer.compute_dtype), b.to(layer.compute_dtype)
     return w, b
+
+
+def add_bias(y: torch.Tensor, b: Optional[torch.Tensor], act: Optional[str] = None,
+             keep_pre: bool = False, dim: int = 1):
+    """A 16-bit product y, rounded to its dtype, plus the bias b (or None)
+    along `dim`, rounded again (JAX's `y + params["b"].astype(y.dtype)`),
+    then `act` ("relu", "gelu" or None). With an activation, one
+    `bias_act` pass (with `keep_pre`, also the pre-activation value);
+    without, one `torch.add`, which rounds the same way."""
+    if act is not None:
+        return bias_act(y, b, act, keep_pre, dim)
+    if b is None:
+        return y
+    return y + bias_view(b.to(y.dtype), y, dim)
 
 
 class Conv(nn.Module):
@@ -60,9 +81,21 @@ class Conv(nn.Module):
         self.dilation = dilation
         self.padding = dilation * (k - 1) // 2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False, keep_pre: bool = False):
+        """-> the output, its ReLU with `relu`, or (the ReLU, the output)
+        with `keep_pre` as well (a trunk conv that feeds a skip). At fp32
+        the bias is part of the product; at a 16-bit compute dtype the
+        product is rounded first and the bias added with a second
+        rounding, as JAX's `conv2d` does (`add_bias`)."""
         w, b = _cast(self)
-        return F.conv2d(x.to(w.dtype), w, b, padding=self.padding, dilation=self.dilation)
+        x = x.to(w.dtype)
+        if w.dtype == torch.float32:
+            y = F.conv2d(x, w, b, padding=self.padding, dilation=self.dilation)
+            if not relu:
+                return y
+            return (F.relu(y), y) if keep_pre else F.relu(y)
+        y = F.conv2d(x, w, None, padding=self.padding, dilation=self.dilation)
+        return add_bias(y, b, "relu" if relu else None, keep_pre)
 
 
 class Linear(nn.Module):
@@ -75,9 +108,16 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+        """-> x @ W^T + b, or its exact GELU with act="gelu". At fp32 the
+        bias is part of the product; at a 16-bit compute dtype the product
+        is rounded first, as JAX's `linear` does (`add_bias`)."""
         w, b = _cast(self)
-        return F.linear(x.to(w.dtype), w, b)
+        x = x.to(w.dtype)
+        if w.dtype == torch.float32:
+            y = F.linear(x, w, b)
+            return gelu(y) if act else y
+        return add_bias(F.linear(x, w), b, act, dim=-1)
 
 
 class PaddedLinear(Linear):
@@ -95,8 +135,10 @@ class PaddedLinear(Linear):
         if pad == 0:
             return super().forward(x)
         w, b = _cast(self)
-        w = F.pad(w, (0, 0, 0, pad))
-        return F.linear(x.to(w.dtype), w, F.pad(b, (0, pad)))[..., :n]
+        w, b, x = F.pad(w, (0, 0, 0, pad)), F.pad(b, (0, pad)), x.to(w.dtype)
+        if w.dtype == torch.float32:
+            return F.linear(x, w, b)[..., :n]
+        return add_bias(F.linear(x, w), b, dim=-1)[..., :n]
 
 
 class LayerNorm(nn.Module):
@@ -397,7 +439,17 @@ def make_static_quant(stats: Dict[nn.Module, float], margin: float = 1.1) -> int
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="none")
+    """Exact GELU: `F.gelu` at fp32; at a 16-bit dtype rounded as XLA's
+    CPU backend rounds JAX's bf16 `jax.nn.gelu(approximate=False)`
+    (`kernels.bias_act.gelu_plain`), one `bias_act` pass on the card."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    return add_bias(x, None, "gelu", dim=-1)
+
+
+def linear_gelu(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """gelu(lin(x)): a float Linear adds its bias and the GELU in one pass."""
+    return lin(x, act="gelu") if isinstance(lin, Linear) else gelu(lin(x))
 
 
 class Mlp(nn.Module):
@@ -407,7 +459,7 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+        return self.fc2(linear_gelu(self.fc1, x))
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -420,13 +472,53 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * hd)
 
 
+class _Fp32Logits(torch.autograd.Function):
+    """q3 [B, Lq, hd] @ k3 [B, Lk, hd]^T of a 16-bit dtype -> fp32 [B, Lq,
+    Lk]: one cuBLAS product with an fp32 output. Its backward is the one
+    autograd takes through the same product of the operands cast to fp32
+    (exact): fp32 products, the gradients cast back."""
+
+    @staticmethod
+    def forward(ctx, q3, k3):
+        ctx.save_for_backward(q3, k3)
+        return torch.bmm(q3, k3.transpose(1, 2), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        q3, k3 = ctx.saved_tensors
+        gq = torch.bmm(g, k3.float()).to(q3.dtype) if ctx.needs_input_grad[0] else None
+        gk = (torch.bmm(g.transpose(1, 2), q3.float()).to(k3.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return gq, gk
+
+
+def attention_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [..., Lq, hd] @ k[..., Lk, hd]^T in fp32, the sums of the products
+    of q's dtype never rounded to it: XLA folds JAX's
+    `einsum(...).astype(float32)` into a dot with an fp32 result. At a
+    16-bit dtype on the card, one cuBLAS product with an fp32 output
+    (`_Fp32Logits`, differentiable); on the CPU, which has no such
+    product, the same sums of the operands cast to fp32 (exact)."""
+    k = k.to(q.dtype)
+    if q.dtype == torch.float32:
+        return torch.matmul(q, k.transpose(-1, -2))
+    if not q.is_cuda:
+        return torch.matmul(q.float(), k.float().transpose(-1, -2))
+    lq, lk = q.shape[-2], k.shape[-2]
+    lead = torch.broadcast_shapes(q.shape[:-2], k.shape[:-2])
+    q3 = q.expand(*lead, *q.shape[-2:]).reshape(-1, lq, q.shape[-1])
+    k3 = k.expand(*lead, *k.shape[-2:]).reshape(-1, lk, k.shape[-1])
+    return _Fp32Logits.apply(q3, k3).reshape(*lead, lq, lk)
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Scaled dot-product attention over [B, H, L, hd]. Products in the
-    inputs' dtype, the scale and softmax in fp32; mask True = attend."""
+    """Scaled dot-product attention over [B, H, L, hd]: the logits in fp32
+    (`attention_logits`), the scale and softmax in fp32, the probabilities
+    rounded to the inputs' dtype for their product with v; mask True =
+    attend."""
     dtype = q.dtype
-    logits = torch.matmul(q, k.transpose(-1, -2).to(dtype)).float()
-    logits = logits * (1.0 / math.sqrt(q.shape[-1]))
+    logits = attention_logits(q, k) * (1.0 / math.sqrt(q.shape[-1]))
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)
     p = torch.softmax(logits, dim=-1)

@@ -61,8 +61,8 @@ from tuatara_tpu_torch.config import ParseqConfig
 from tuatara_tpu_torch.kernels import decode as K7
 from tuatara_tpu_torch.kernels import vit as K6
 from tuatara_tpu_torch.models.layers import (
-    MHA, LayerNorm, Linear, PaddedLinear, QLinear, VitBlock, attention_core, gelu, init_linear,
-    merge_heads, trunc_normal, xavier_uniform,
+    MHA, LayerNorm, Linear, PaddedLinear, QLinear, VitBlock, attention_core, init_linear,
+    linear_gelu, merge_heads, trunc_normal, xavier_uniform,
 )
 
 _INV_6 = float(torch.tensor(1.0 / 6.0, dtype=torch.float32))  # XLA's `x / 6.0`
@@ -96,7 +96,7 @@ class DecoderLayer(nn.Module):
         self.linear2 = Linear(hidden, dim)
 
     def ff(self, x: torch.Tensor) -> torch.Tensor:
-        h = gelu(self.linear1(self.norm2(x)))
+        h = linear_gelu(self.linear1, self.norm2(x))
         return x + self.linear2(h)
 
 

@@ -56,6 +56,23 @@ def canvas_shape(h: int, w: int, cfg: OcrConfig) -> Tuple[int, int, int, int, fl
     return canvas_h, canvas_w, ch, cw, ratio
 
 
+def resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """JAX's bilinear weight matrix for one axis of an upsample (n_out >=
+    n_in; `jax.image.resize`'s `compute_weight_mat`, triangle kernel) ->
+    fp32 [n_in, n_out]: output j takes sum_i x[i] * W[i, j], at most two
+    taps. Computed in fp32 in the formula's order, equal to JAX's."""
+    inv = float(np.float32(1.0 / (n_out / n_in)))
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    taps = torch.arange(n_in, dtype=torch.float32)[:, None]
+    w = torch.clamp(1.0 - (sample[None, :] - taps).abs(), min=0.0)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
 def resample(image: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     """[H, W, C] -> fp32 [th, tw, C], or the page itself when the size
     does not change (as JAX skips the identity resize)."""

@@ -20,12 +20,14 @@ rank, so each pair costs one all-reduce forward and one backward.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from tuatara_tpu_torch.models.layers import Linear, _cast
+from tuatara_tpu_torch.models.layers import Linear, _cast, add_bias, gelu
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -101,14 +103,18 @@ class ColumnParallelLinear(_ParallelLinear):
         o = w.shape[0] // size
         return w[rank * o:(rank + 1) * o].contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
         o = self.weight.shape[0]
         # The slice's gradient is assembled in fp32, then the cast's.
         b = _SliceAssemble.apply(self.bias, self.rank * o, (self.rank + 1) * o, self.group)
         w = self.weight
         if self.compute_dtype is not None:
             w, b = w.to(self.compute_dtype), b.to(self.compute_dtype)
-        return F.linear(copy_to_tp(x, self.group).to(w.dtype), w, b)
+        x = copy_to_tp(x, self.group).to(w.dtype)
+        if w.dtype == torch.float32:
+            y = F.linear(x, w, b)
+            return gelu(y) if act else y
+        return add_bias(F.linear(x, w), b, act, dim=-1)
 
 
 class RowParallelLinear(_ParallelLinear):
