@@ -14,16 +14,33 @@ dtypes, then `latency()` and `production()`, both bf16):
 
 Three more probes, each a word on the command line:
 
-* `pages [PACKAGE_DIR]`: on the CPU, the port (or the `tuatara_tpu_torch`
-  found under PACKAGE_DIR, e.g. a parent commit unpacked there) at
-  `OcrConfig()` and `latency()` with the full-width
+* `pages [PACKAGE_DIR] [--attribute]`: on the CPU, the port (or the
+  `tuatara_tpu_torch` found under PACKAGE_DIR, e.g. a parent commit
+  unpacked there) at `OcrConfig()` and `latency()` with the full-width
   `evals/production_weights` on the four main-path pages, the share of
   JAX's bf16 records (tests/fixtures/torch_reference_bf16.json) with the
-  same text and bbox. Full width, the fp32 sums' order decides bf16
-  roundings that grow through the layers, so this share is not 1.
+  same text and bbox, a page at a time. Full width, the fp32 sums' order
+  decides bf16 roundings that grow through the layers, so this share is
+  not 1. With `--attribute`, a line for each JAX record the port does not
+  give: where the two first part (`first_parting`: heatmap pixels across
+  a threshold near the box, or the first greedy step or refined position
+  whose argmax differs, with both packages' logits).
 * `residual`: a bf16 Linear whose output feeds an fp32 add (a residual,
   PARSEQ's `x + linear(h)`): the share of JAX's compiled values that each
-  form of the port's gives (XLA drops the rounding of the bias add there).
+  form gives (XLA drops the rounding of the bias add there), the port's
+  `Linear(h, residual=x)` last.
+* `hlo`: XLA's optimised HLO of what the JAX engine jits at bf16 on the
+  golden weights (`_recognize_body` under greedy, NAR and beam, which
+  holds `parseq_encode`'s eager blocks, the greedy decode, the refine and
+  the confidence; `parseq_encode` of the int8 encoder; `craft_forward` on
+  the canvases of `OcrConfig()` and `latency()`) and of the training
+  losses' gradients (`parseq_plm_loss`, `craft_loss`). Every `linear`,
+  `linear_q` and `conv2d` call is traced inside a named scope that holds
+  its JAX call site; each bias add is followed through the graph (fusions,
+  loops, tuples) to its consumers, and printed with the op's name, the
+  port's counterpart by file:line where its sum is not rounded:
+  "rounded" where a convert to bf16 comes first, or "UNROUNDED" and the
+  fp32 op its sum reaches.
 * `resample`: table_english's shrinking, antialiased canvas resample at
   fp32 (ROADMAP Queue 3 item 6): `F.interpolate` against JAX's
   `jax.image.resize`, and the two-contraction form (JAX's weight matrix
@@ -32,7 +49,9 @@ Three more probes, each a word on the command line:
 
 import json
 import os
+import re
 import sys
+import traceback
 
 import numpy as np
 import torch
@@ -120,8 +139,9 @@ def main():
                 print(f"    JAX {a['text']!r} {a['bbox']}  port {b['text']!r} {b['bbox']}")
 
 
-def pages_share(package=None):
-    """The `pages` probe (see the module docstring)."""
+def pages_share(package=None, attribute=False):
+    """The `pages` probe (see the module docstring); with `attribute`, where
+    each record that differs first parts from JAX (`first_parting`)."""
     if package:
         sys.path.insert(0, package)
     sys.path.insert(1, os.path.dirname(HERE))
@@ -137,13 +157,152 @@ def pages_share(package=None):
     for preset, cfg in (("default", tuatara_tpu_torch.OcrConfig()),
                         ("latency", tuatara_tpu_torch.OcrConfig.latency())):
         engine = tuatara_tpu_torch.OcrEngine(cfg, weights_dir=weights, device="cpu")
+        jax_engine = None
         hit = total = 0
+        per_page = {}
         for page in PAGES:
             want = ref[preset]["pages"][page]["words"]
-            got = engine.run(load_image(os.path.join(root, "images", f"{page}.png")))
-            hit += round(word_share(want, got) * len(want))
+            img = load_image(os.path.join(root, "images", f"{page}.png"))
+            got = engine.run(img)
+            n = round(word_share(want, got) * len(want))
+            per_page[page] = n
+            hit += n
             total += len(want)
-        print(f"{preset}: {hit} of {total} JAX bf16 records ({hit / total:.4f})")
+            if attribute and n < len(want):
+                if jax_engine is None:
+                    from tuatara_tpu.api import OcrEngine as JaxEngine
+                    from tuatara_tpu.config import OcrConfig as JaxConfig
+
+                    jax_engine = JaxEngine(JaxConfig() if preset == "default" else
+                                           JaxConfig.latency(), weights_dir=weights)
+                for line in first_parting(engine, jax_engine, img, want, got):
+                    print(f"  {preset} {page}: {line}", flush=True)
+        print(f"{preset}: {hit} of {total} JAX bf16 records ({hit / total:.4f}); per page "
+              f"{json.dumps(per_page)}", flush=True)
+
+
+def _unmatched(want, got):
+    """JAX's records that no distinct port record equals in text and bbox
+    (chip_smoke.word_share's matching)."""
+    pool = {}
+    for w in got:
+        key = (w["text"], tuple(w["bbox"]))
+        pool[key] = pool.get(key, 0) + 1
+    out = []
+    for w in want:
+        key = (w["text"], tuple(w["bbox"]))
+        if pool.get(key, 0) > 0:
+            pool[key] -= 1
+        else:
+            out.append(w)
+    return out
+
+
+def first_parting(engine, jax_engine, img, want, got):
+    """For each JAX record (want) that the port's records (got) do not
+    give, where the two first part, as a line:
+
+    * the port has no box with JAX's bbox: detection. The pixels of the
+      bf16 heatmaps on the other side of a threshold (text_threshold and
+      low_text on the text map, link_threshold on the link map) within 2
+      pixels of the box, and the first of them with both values;
+    * the port has the box, with other text: recognition. The box's crop
+      (the engine's own) through both recognizers alone (a slab of one):
+      the first greedy step whose argmax differs, with JAX's two best
+      classes and both packages' logits for them, else the first refined
+      position that differs, else "not reproduced" (the slab's other rows
+      change the sums' order)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tuatara_tpu.api import _canvas_prep
+    from tuatara_tpu.models import parseq as jparseq
+    from tuatara_tpu.models.craft import craft_forward
+    from tuatara_tpu_torch.ops.resize import resize_geometry
+
+    bf16 = jnp.bfloat16
+    cfg, pq, tok = engine.config, engine.parseq, engine.tokenizer
+    images, _, h, w, _ = engine._batch_geometry(img)
+    images = engine._to_device(images)
+    with torch.no_grad():
+        det = engine.detect(images)
+    bboxes = [tuple(float(v) for v in b) for b in det["bbox"][0].tolist()]
+    lines, heat = [], None
+    jcfg, pcfg = jax_engine.config, jax_engine.parseq_config
+
+    def chars(i):
+        return repr(tok.itos[i]) if i else "EOS"
+
+    for rec in _unmatched(want, got):
+        bbox = tuple(rec["bbox"])
+        same = [g for g in got if tuple(g["bbox"]) == bbox]
+        head = f"JAX {rec['text']!r} {list(bbox)}, port "
+        if not same:
+            if heat is None:
+                canv = jax.jit(lambda im: _canvas_prep(im, jcfg))(jnp.asarray(np.asarray(img)))
+                want_h = np.asarray(craft_forward(jax_engine.craft_params, canv[None],
+                                                  jax_engine.craft_config,
+                                                  compute_dtype=bf16)[0][0])
+                heat = want_h, det["scores"][0].float().numpy()
+            ratio = resize_geometry(h, w, cfg)[2] / 2
+            x0, y0, x1, y1 = (int(round(v * ratio)) for v in bbox)
+            region = (slice(max(y0 - 2, 0), y1 + 3), slice(max(x0 - 2, 0), x1 + 3))
+            flips = []
+            for name, ch, thr in (("text_threshold", 0, cfg.text_threshold),
+                                  ("low_text", 0, cfg.low_text),
+                                  ("link_threshold", 1, cfg.link_threshold)):
+                a, b = heat[0][region + (ch,)], heat[1][region + (ch,)]
+                for y, x in np.argwhere((a > thr) != (b > thr)):
+                    flips.append((name, thr, y + region[0].start, x + region[1].start,
+                                  float(a[y, x]), float(b[y, x])))
+            near = max(bboxes or [(0, 0, 0, 0)], key=lambda b: _iou(b, bbox))
+            where = (f"first {flips[0][0]} {flips[0][1]} at heatmap (y {flips[0][2]}, x "
+                     f"{flips[0][3]}): JAX {flips[0][4]:.5f}, port {flips[0][5]:.5f}"
+                     if flips else "none within 2 px of the box")
+            lines.append(head + f"no box there (nearest {list(near)}, IoU {_iou(near, bbox):.2f})"
+                         f"; detection: {len(flips)} heatmap pixels across a threshold, {where}")
+            continue
+        j = bboxes.index(bbox)
+        valid = torch.zeros_like(det["valid"])
+        valid[0, j] = True
+        with torch.no_grad():
+            crops, _ = engine._crop_slab(images, det["rects"], valid, 1)
+            memory = pq.encode(crops)
+            ar = pq.greedy_decode(memory)
+            refined = pq.refine(memory, ar)
+        x = crops.numpy()
+        jmem = jax.jit(lambda p, v: jparseq.parseq_encode(p, v, pcfg, compute_dtype=bf16))(
+            jax_engine.parseq_params, x)
+        jar = jax.jit(lambda p, m: jparseq.parseq_greedy_decode(p, m, pcfg, bf16)[0].astype(
+            jnp.float32))(jax_engine.parseq_params, jmem)
+        # The refined logits leave the jit in bf16, as the engine's graph
+        # keeps them (a cast inside would drop the head's rounding).
+        jref = jax.jit(lambda p, m, lg: jparseq.parseq_refine(p, m, lg, pcfg, bf16))(
+            jax_engine.parseq_params, jmem, jar).astype(jnp.float32)
+        mem_diff = float(np.abs(np.asarray(jmem) - memory.numpy()).max())
+        where = "not reproduced at a slab of one"
+        for stage, a, b in (("greedy step", np.asarray(jar)[0], ar.float().numpy()[0]),
+                            ("refined position", np.asarray(jref)[0], refined.numpy()[0])):
+            ia, ib = a.argmax(-1), b.argmax(-1)
+            diff = np.nonzero(ia != ib)[0]
+            if len(diff):
+                t = int(diff[0])
+                c1, c2 = np.argsort(-a[t], kind="stable")[:2]
+                where = (f"{stage} {t}: JAX {chars(c1)} {a[t, c1]:.4f} > {chars(c2)} "
+                         f"{a[t, c2]:.4f}; port {chars(c1)} {b[t, c1]:.4f}, {chars(c2)} "
+                         f"{b[t, c2]:.4f}, argmax {chars(ib[t])} {b[t, ib[t]]:.4f}")
+                break
+        lines.append(head + f"{same[0]['text']!r}; recognition: {where} (memory max |JAX - "
+                     f"port| {mem_diff:.3g})")
+    return lines
+
+
+def _iou(a, b):
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / union if union > 0 else 0.0
 
 
 def residual_rounding():
@@ -162,8 +321,17 @@ def residual_rounding():
     want = np.asarray(jax.jit(lambda x, h: x + JL.linear({"w": w, "b": b}, h, jnp.bfloat16))(x, h))
     y = F.linear(torch.from_numpy(h).bfloat16(), torch.from_numpy(w.T).bfloat16())
     bt, xt = torch.from_numpy(b).bfloat16(), torch.from_numpy(x)
+    from tuatara_tpu_torch.models import layers as TL
+
+    lin = TL.Linear(384, 384)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(w.T))
+        lin.bias.copy_(torch.from_numpy(b))
+        TL.set_compute_dtype(lin, torch.bfloat16)
+        port = lin(torch.from_numpy(h), residual=xt)
     for name, got in (("x + bf16(y + b)", xt + (y + bt).float()),
-                      ("x + (fp32(y) + fp32(b))", xt + (y.float() + bt.float()))):
+                      ("x + (fp32(y) + fp32(b))", xt + (y.float() + bt.float())),
+                      ("the port's Linear(h, residual=x)", port)):
         print(f"{name}: {np.mean(got.numpy() == want):.6f} of JAX's values equal")
 
 
@@ -232,12 +400,293 @@ def resample_residual():
                fused_taps(fused_taps(img.astype(np.float32), a, 0), b, 1))
 
 
+# ---- the `hlo` probe -------------------------------------------------------
+
+_HLO_COMP = re.compile(r"^(ENTRY )?%([\w.\-]+) .*\{$")
+_HLO_INSTR = re.compile(r"^\s*(ROOT )?%([\w.\-]+) = (\S+?|\(.*?\)) ([\w\-]+)\((.*)$")
+# Ops that move an fp32 value without computing on it: followed through.
+_MOVES = {"bitcast", "reshape", "copy", "transpose", "slice", "dynamic-slice", "broadcast",
+          "concatenate", "pad", "reverse", "dynamic-update-slice"}
+# A scope name keeps only [A-Za-z0-9_]: "bias__parseq_245__layers_607".
+_SCOPE = re.compile(r"(bias__[A-Za-z0-9_]+)\)*/add$")
+
+
+def parse_hlo(text):
+    """Optimised HLO text -> ({computation: {instruction: fields}}, the
+    entry computation's name)."""
+    comps, entry, cur = {}, None, None
+    for line in text.splitlines():
+        m = _HLO_COMP.match(line)
+        if m:
+            cur = comps.setdefault(m[2], {})
+            entry = m[2] if m[1] else entry
+            continue
+        m = _HLO_INSTR.match(line)
+        if m is None or cur is None:
+            continue
+        rest, depth = m[5], 1
+        for i, ch in enumerate(rest):
+            depth += {"(": 1, ")": -1}.get(ch, 0)
+            if depth == 0:
+                break
+        attrs = rest[i + 1:]
+
+        def attr(pattern):
+            a = re.search(pattern, attrs)
+            return a[1] if a else None
+
+        cur[m[2]] = {"root": bool(m[1]), "type": m[3], "op": m[4],
+                     "operands": re.findall(r"%([\w.\-]+)", rest[:i]),
+                     "op_name": attr(r'op_name="([^"]*)"') or "",
+                     "calls": attr(r"calls=%([\w.\-]+)"), "body": attr(r"body=%([\w.\-]+)"),
+                     "cond": attr(r"condition=%([\w.\-]+)"), "index": attr(r"index=(\d+)"),
+                     "param": rest[:i] if m[4] == "parameter" else None}
+    return comps, entry
+
+
+def bias_add_outcomes(text):
+    """Each bias add of the optimised HLO (an `add` named `<scope>/add`
+    directly under a `bias__...` scope) -> {scope: set of outcomes}:
+    "rounded" where a convert to a 16-bit type comes first on a path,
+    "rounded (bf16 add)" where the add itself is bf16, else "fp32 <op> (<op
+    name>)" for the first op that computes on the unrounded fp32 sum, or
+    "fp32 output". Paths are followed through fusions, calls, while loops
+    (the body's result back into the body and out of the loop), tuples and
+    the ops in _MOVES."""
+    comps, entry = parse_hlo(text)
+    users, callers = {}, {}
+    for cname, instrs in comps.items():
+        u = users.setdefault(cname, {})
+        for iname, ins in instrs.items():
+            for pos, o in enumerate(ins["operands"]):
+                u.setdefault(o, []).append((iname, pos))
+            for callee in (ins["calls"], ins["body"]):
+                if callee:
+                    callers.setdefault(callee, []).append((cname, iname))
+
+    def param(comp, k):
+        return next(n for n, i in comps[comp].items() if i["op"] == "parameter"
+                    and i["param"] == str(k))
+
+    def short(op_name):
+        return "/".join(op_name.split("/")[-2:])
+
+    found = {}
+    for cname, instrs in comps.items():
+        for iname, ins in instrs.items():
+            m = _SCOPE.search(ins["op_name"])
+            if ins["op"] != "add" or m is None:
+                continue
+            out = found.setdefault(m[1], set())
+            if not ins["type"].startswith("f32"):
+                out.add(f"rounded ({ins['type'].split('[')[0]} add)")
+                continue
+            work, seen = [(cname, iname, ())], set()
+            while work:
+                c, n, path = work.pop()
+                if (c, n, path) in seen:
+                    continue
+                seen.add((c, n, path))
+                if comps[c][n]["root"]:
+                    if c == entry:
+                        out.add("fp32 output")
+                    for cc, ci in callers.get(c, []):
+                        if comps[cc][ci]["op"] == "while":
+                            work.append((c, param(c, 0), path))
+                        work.append((cc, ci, path))
+                for un, pos in users[c].get(n, []):
+                    u = comps[c][un]
+                    if u["op"] == "convert" and not path:
+                        out.add("rounded" if u["type"].startswith(("bf16", "f16")) else
+                                f"fp32 convert ({short(u['op_name'])})")
+                    elif u["op"] == "tuple":
+                        work.append((c, un, (pos,) + path))
+                    elif u["op"] == "get-tuple-element":
+                        if path and str(path[0]) == u["index"]:
+                            work.append((c, un, path[1:]))
+                    elif u["op"] in _MOVES:
+                        if pos == 0 or (u["op"] == "dynamic-update-slice" and pos == 1) or (
+                                u["op"] not in ("dynamic-slice", "dynamic-update-slice")):
+                            work.append((c, un, path))
+                    elif u["op"] in ("fusion", "call"):
+                        work.append((u["calls"], param(u["calls"], pos), path))
+                    elif u["op"] == "while":
+                        work += [(u[k], param(u[k], 0), path) for k in ("body", "cond")]
+                    else:
+                        out.add(f"fp32 {u['op']} ({short(u['op_name'])})")
+    return found
+
+
+class bias_scopes:
+    """While open, the JAX package's `linear` and `conv2d` (module
+    attributes, which its own functions look up at call time) run inside a
+    named scope `bias__<file>_<line>__<file>_<line>` naming the two
+    innermost frames of the repository's files that called them; `self.sites` maps each scope to
+    those frames [(file, function, line), ...]. The package is not edited."""
+
+    def __enter__(self):
+        import jax
+
+        from tuatara_tpu.models import layers as JL
+
+        self.sites, self.saved = {}, (JL.linear, JL.conv2d)
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(JL.__file__))))
+
+        def scoped(fn):
+            def call(*args, **kwargs):
+                frames = [f for f in traceback.extract_stack()[:-1]
+                          if os.path.abspath(f.filename).startswith(root + os.sep)][::-1][:2]
+                sites = [(os.path.basename(f.filename), f.name, f.lineno) for f in frames]
+                scope = "bias__" + "__".join(f"{n[:-3]}_{ln}" for n, _, ln in sites)
+                self.sites[scope] = sites
+                with jax.named_scope(scope):
+                    return fn(*args, **kwargs)
+            return call
+
+        JL.linear, JL.conv2d = scoped(JL.linear), scoped(JL.conv2d)
+        return self
+
+    def __exit__(self, *exc):
+        from tuatara_tpu.models import layers as JL
+
+        JL.linear, JL.conv2d = self.saved
+
+
+# The JAX call site of an unrounded bias add (the frame that called
+# `linear`, and the one above it) -> the port's counterpart: (module,
+# function, a text on the line). Sites not listed are printed with "-".
+PORT_SITES = {
+    ("parseq.py", 112): ("models.parseq", "Parseq.encode", "residual=self.pos_embed"),
+    ("layers.py", 558, "layers.py", 607): ("models.layers", "VitBlock.forward",
+                                           "self.attn(h, h, residual"),
+    ("layers.py", 445, "layers.py", 608): ("models.layers", "VitBlock.forward",
+                                           "self.mlp(self.norm2(x), residual"),
+    ("layers.py", 558, "parseq.py", 260): ("models.parseq", "Parseq.decode", "layer.self_attn(qn"),
+    ("layers.py", 558, "parseq.py", 262): ("models.parseq", "Parseq.decode",
+                                           "layer.cross_attn(layer.norm1(q)"),
+    ("parseq.py", 245): ("models.parseq", "DecoderLayer.ff", "linear2(h, residual"),
+    ("parseq.py", 442): ("models.parseq", "Parseq.greedy_decode", "self_attn.o("),
+    ("layers.py", 582, "parseq.py", 447): ("models.parseq", "Parseq.greedy_decode",
+                                           "cross_attn.attend("),
+    ("layers.py", 582, "parseq.py", 558): ("models.parseq", "Parseq.beam_decode",
+                                           "self_attn.attend("),
+    ("layers.py", 582, "parseq.py", 560): ("models.parseq", "Parseq.beam_decode",
+                                           "cross_attn.attend("),
+    # The training graph (the losses' gradients).
+    ("parseq.py", 318, "losses.py", 172): ("train.losses", "parseq_plm_loss", "fp32_logits=True"),
+}
+
+
+def port_line(site):
+    """A JAX call site [(file, function, line), ...] -> the port's
+    counterpart as "tuatara_tpu_torch/<path>:<line> <function>", or "-"."""
+    import importlib
+    import inspect
+
+    flat = [x for f, _, ln in site for x in (f, ln)]
+    hit = PORT_SITES.get(tuple(flat)) or PORT_SITES.get(tuple(flat[:2]))
+    if hit is None:
+        return "-"
+    module, qualname, text = hit
+    mod = importlib.import_module(f"tuatara_tpu_torch.{module}")
+    obj = mod
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    lines, start = inspect.getsourcelines(obj)
+    k = next(i for i, ln in enumerate(lines) if text in ln and i > 0)
+    return f"tuatara_tpu_torch/{module.replace('.', '/')}.py:{start + k} {qualname}"
+
+
+def hlo_graphs():
+    """[(name, function, args, is a training graph)]: what the JAX engine
+    jits at bf16 on the golden weights, and the training losses'
+    gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, HERE)
+    from torch_common import GOLDEN, image
+
+    from tuatara_tpu.api import OcrEngine as JaxEngine, _canvas_prep
+    from tuatara_tpu.config import OcrConfig as JaxConfig
+    from tuatara_tpu.models.craft import craft_forward
+    from tuatara_tpu.models.parseq import parseq_encode, quantize_parseq_encoder
+    from tuatara_tpu.train.losses import craft_loss, parseq_plm_loss
+    from tuatara_tpu.utils import weights as JW
+
+    bf16 = jnp.bfloat16
+    engine = JaxEngine(JaxConfig(), weights_dir=GOLDEN)
+    pcfg = engine.parseq_config
+    rng = np.random.default_rng(0)
+    crops = rng.random((8, *pcfg.img_size, 3)).astype(np.float32)
+    page = image("resume_example")[:200, :300].copy()
+    graphs = []
+    for mode in ("greedy", "nar", "beam"):
+        eng = JaxEngine(JaxConfig(decode_mode=mode), weights_dir=GOLDEN)
+        graphs.append((f"_recognize_body ({mode})", eng._recognize_body,
+                       (eng.parseq_params, crops), False))
+    qparams = quantize_parseq_encoder(engine.parseq_params)
+    graphs.append(("parseq_encode (int8 encoder)",
+                   lambda p, x: parseq_encode(p, x, pcfg, compute_dtype=bf16), (qparams, crops),
+                   False))
+    for preset in ("default", "latency"):
+        cfg = JaxConfig() if preset == "default" else JaxConfig.latency()
+        canvas = jax.jit(lambda im: _canvas_prep(im, cfg))(page)[None]
+        graphs.append((f"craft_forward ({preset}, canvas {tuple(canvas.shape[1:3])})",
+                       lambda p, x: craft_forward(p, x, engine.craft_config,
+                                                  compute_dtype=bf16)[0],
+                       (engine.craft_params, canvas), False))
+    T = pcfg.max_label_length + 1
+    labels = np.zeros((4, T + 1), np.int32)
+    labels[:, 0], labels[:, 1:4] = pcfg.num_tokens - 2, 5
+    lengths = np.full(4, 4, np.int32)
+    graphs.append(("parseq_plm_loss (its gradient)", jax.value_and_grad(
+        lambda p: parseq_plm_loss(p, crops[:4], labels, lengths, jax.random.PRNGKey(0),
+                                  pcfg)[0]), (engine.parseq_params,), True))
+    tree = jax.tree_util.tree_map(jnp.asarray, JW.load_weights_dir(GOLDEN)[0])
+    images = rng.random((2, 64, 64, 3)).astype(np.float32)
+    target = rng.random((2, 32, 32, 2)).astype(np.float32)
+    graphs.append(("craft_loss (train_bn, its gradient)", jax.value_and_grad(
+        lambda p: craft_loss(p, images, target, None, engine.craft_config)[0]), (tree,), True))
+    return graphs
+
+
+def hlo_sites(training=None):
+    """The `hlo` probe (see the module docstring) over `hlo_graphs()` (only
+    the serving or the training graphs when `training` is False or True).
+    -> [(JAX call site, a tuple of frames; its outcomes)], one a site of a
+    graph."""
+    import jax
+
+    out = []
+    for name, fn, args, train in hlo_graphs():
+        if training is not None and train != training:
+            continue
+        with bias_scopes() as scopes:
+            text = jax.jit(fn).lower(*args).compile().as_text()
+        found = bias_add_outcomes(text)
+        print(f"{name}: {len(found)} bias-add sites")
+        for scope in sorted(found, key=lambda k: scopes.sites[k]):
+            site = tuple(scopes.sites[scope])
+            outcome = found[scope]
+            unrounded = any(o.startswith("fp32") for o in outcome)
+            out.append((site, outcome))
+            print(f"  {'UNROUNDED' if unrounded else 'rounded':9s} {scope}/add  JAX "
+                  + " < ".join(f"{f}:{ln} {fn}" for f, fn, ln in site)
+                  + f"  port {port_line(site) if unrounded else '-'}  "
+                  + f"[{'; '.join(sorted(outcome))}]")
+    return out
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "crop"
     if what == "pages":
-        pages_share(sys.argv[2] if len(sys.argv) > 2 else None)
+        args = sys.argv[2:]
+        pages_share(next((a for a in args if a != "--attribute"), None), "--attribute" in args)
     elif what == "residual":
         residual_rounding()
+    elif what == "hlo":
+        hlo_sites()
     elif what == "resample":
         resample_residual()
     else:

@@ -29,8 +29,13 @@ points (`models/layers.add_bias`, `kernels/bias_act.py`,
   every layout the kernel takes, `add_bias`'s plain add where no
   activation follows, and the kernel's backward (`bias_act_grads`) and
   the attention logits' (`_Fp32Logits`) against autograd's, bit for bit;
-* `latency()` and `production()` on a dense crop: every record equal to
-  JAX's (Pallas recognizer kernels in interpret mode).
+* `OcrConfig()`, `latency()` and `production()` on a dense crop: every
+  record equal to JAX's, its confidence within a stated tolerance;
+* where XLA leaves a bf16 Linear's bias add unrounded (its sum goes
+  straight into an fp32 add: PARSEQ's residuals, `patch_embed +
+  pos_embed`), the port's `Linear(x, residual=r)` against JAX's compiled
+  sites, the fp32-output mode of `bias_act` (its plain version and
+  backward), and the `hlo` probe that lists those sites from XLA's graph.
 """
 
 import dataclasses
@@ -424,14 +429,463 @@ def test_fp32_logits_backward_equals_fp32_operand_autograd():
     assert all(a.dtype == BF16 and torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("preset,n_records", [("latency", 16), ("production", 12)])
+# JAX's confidence at bf16 is a bf16 value: the product of bf16-rounded
+# per-position probabilities (XLA rounds the logits' softmax to bf16 at
+# each step and the product at the end); the port multiplies fp32
+# probabilities of the same rounded logits, within this of JAX's under
+# `OcrConfig()`. Under `latency()` and `production()` the port's encoder
+# and greedy decode are K6 and K7, which compute as the Pallas kernels do,
+# while JAX's CPU reference runs XLA's graph: logits ~0.1 apart, so the
+# confidences part by a few hundredths.
+BF16_CONF_ATOL = {"default": 0.005, "latency": 0.03, "production": 0.03}
+
+
+@pytest.mark.parametrize("preset,n_records", [("latency", 16), ("production", 12),
+                                              ("default", 13)])
 def test_presets_bf16_records_equal_jax(preset, n_records):
-    """`latency()` and `production()` (both bf16) on the golden weights and
-    a 200x300 crop of resume_example: every record equal to JAX's (text
-    and bbox), no pixel of the heatmaps across a threshold."""
+    """`OcrConfig()`, `latency()` and `production()` (all bf16) on the
+    golden weights and a 200x300 crop of resume_example: every record
+    equal to JAX's (text and bbox), confidences within
+    BF16_CONF_ATOL[preset] of JAX's, no pixel of the heatmaps across a
+    threshold."""
     page = image("resume_example")[:200, :300].copy()
     r = compare(page, GOLDEN, "bfloat16", preset)
     assert [len(x) for x in r["records"]] == [n_records, n_records]
     assert r["same"] == n_records
+    np.testing.assert_allclose([w["confidence"] for w in r["records"][1]],
+                               [w["confidence"] for w in r["records"][0]], rtol=0,
+                               atol=BF16_CONF_ATOL[preset])
     assert not any(px for _, px in r["flips"].values())
     assert max(r["max_abs"].values()) <= 1 / 64 and r["mean_abs"] <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# A Linear whose sum goes straight into an fp32 op: XLA adds its bias in fp32
+# and never rounds the sum (`tests/probe_torch_bf16.py hlo` lists the sites)
+# ---------------------------------------------------------------------------
+
+RESIDUAL_MIN_EQUAL = 0.9995  # equal share at a residual site (fp32 sums' order)
+SMALL_BF16 = dict(embed_dim=64, enc_depth=2, enc_heads=4, dec_heads=4, max_label_length=7)
+
+
+def _linear(w, b):
+    """The port's Linear on JAX's {w [in, out], b}, at bf16."""
+    lin = TL.Linear(*w.shape)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(w.T))
+        lin.bias.copy_(torch.from_numpy(b))
+    return TL.set_compute_dtype(lin, BF16)
+
+
+@pytest.mark.parametrize("rshape", [(4, 26, 384), (1, 26, 384), (1, 1, 384)],
+                         ids=["full", "pos_embed", "step"])
+def test_linear_residual_bf16_equals_jax(rshape):
+    """`Linear(h, residual=r)` at bf16 against JAX's compiled `r +
+    linear(h)`: r + (fp32(y) + fp32(b)), never rounded, for a residual of
+    the output's shape and ones broadcast over its leading dimensions
+    (pos_embed [1, S, D]; a decode step's position query [1, 1, D]). The
+    rounded form, the bias add rounded first, gives about half."""
+    rng = np.random.default_rng(len(rshape) + rshape[0] + rshape[1])
+    w = (rng.standard_normal((384, 384)) * 0.05).astype(np.float32)
+    b = rng.standard_normal(384).astype(np.float32)
+    h = rng.standard_normal((4, 26, 384)).astype(np.float32)
+    r = rng.standard_normal(rshape).astype(np.float32) * 3
+    want = np.asarray(jax.jit(lambda r, h: r + JL.linear({"w": w, "b": b}, h, jnp.bfloat16))(r, h))
+    lin = _linear(w, b)
+    with torch.no_grad():
+        got = lin(torch.from_numpy(h), residual=torch.from_numpy(r))
+        rounded = torch.from_numpy(r) + lin(torch.from_numpy(h))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _equal_share(got.numpy(), want) >= RESIDUAL_MIN_EQUAL
+    assert _equal_share(rounded.numpy(), want) < 0.6
+    with pytest.raises(ValueError, match="do not go together"):
+        lin(torch.from_numpy(h), act="gelu", residual=torch.from_numpy(r))
+
+
+@pytest.fixture(scope="module")
+def small_bf16():
+    """(JAX params with seeded nonzero biases, the port's Parseq on them at
+    bf16, JAX config, crops, JAX's bf16 memory of the crops)."""
+    from tuatara_tpu.config import ParseqConfig as JaxParseqConfig
+    from tuatara_tpu.models import parseq as jparseq
+    from tuatara_tpu_torch.config import ParseqConfig
+    from tuatara_tpu_torch.models.parseq import Parseq
+    from tuatara_tpu_torch.weights import parseq_state_dict
+
+    jcfg = JaxParseqConfig(**SMALL_BF16)
+    params = jax.tree_util.tree_map(
+        np.asarray, jparseq.init_parseq_params(jax.random.PRNGKey(3), jcfg))
+    rng = np.random.default_rng(3)
+
+    def biases(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                biases(v)
+            elif isinstance(v, list):
+                for x in v:
+                    biases(x)
+            elif k == "b":
+                tree[k] = (rng.standard_normal(v.shape) * 0.5).astype(np.float32)
+
+    biases(params)
+    params["head"]["w"] = params["head"]["w"] * 40.0  # confident, varied tokens
+    m = Parseq(ParseqConfig(**SMALL_BF16))
+    m.load_state_dict(parseq_state_dict(params))
+    TL.set_compute_dtype(m.eval(), BF16)
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    crops = np.random.default_rng(4).random((6, 32, 128, 3), dtype=np.float32)
+    memory = np.asarray(jax.jit(lambda p, x: jparseq.parseq_encode(
+        p, x, jcfg, compute_dtype=jnp.bfloat16))(params, crops))
+    return params, m, jcfg, crops, memory
+
+
+def _site(name, params, m, jcfg, crops, memory):
+    """One residual site of PARSEQ at bf16, fed the same inputs on both
+    sides, or a whole decode holding such sites: -> (the port's output,
+    JAX's compiled one), numpy fp32."""
+    from tuatara_tpu.models import parseq as jparseq
+
+    bf16, H = jnp.bfloat16, jcfg.dec_heads
+    rng = np.random.default_rng(sum(map(ord, name)))
+    layer, tl, blk, tb = params["dec"][0], m.dec[0], params["enc"][0], m.enc[0]
+    D, T = jcfg.embed_dim, jcfg.max_label_length + 1
+    t = torch.from_numpy
+
+    def f32(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    run = jax.jit
+    with torch.no_grad():
+        if name == "patch_pos_embed":
+            x = rng.random((6, jcfg.seq_len, 96), dtype=np.float32)
+            want = run(lambda p, x: JL.linear(p["patch_embed"], x, bf16) + p["pos_embed"])(
+                params, x)
+            return m.patch_embed(t(x), residual=m.pos_embed), want
+        if name in ("vit_attn", "vit_mlp"):
+            # The attention's output projection fed the attention's output
+            # (the softmax's fp32 sums run in XLA's order, not torch's), and
+            # the MLP fed its input.
+            x, h = f32(6, jcfg.seq_len, D), f32(6, jcfg.seq_len, D)
+            if name == "vit_attn":
+                want = run(lambda p, x, h: x + JL.linear(p["attn"]["o"], h, bf16))(blk, x, h)
+                return tb.attn.o(t(h), residual=t(x)), want
+            want = run(lambda p, x, h: x + JL.mlp(p["mlp"], h, bf16))(blk, x, h)
+            return tb.mlp(t(h), residual=t(x)), want
+        if name == "vit_block":
+            x = f32(6, jcfg.seq_len, D)
+            want = run(lambda p, x: JL.vit_block(p, x, jcfg.enc_heads, jcfg.layer_norm_eps,
+                                                 bf16))(blk, x)
+            return tb(t(x)), want
+        if name in ("decode_self_attn", "decode_cross_attn"):
+            q, xq = f32(6, T, D), f32(6, T, D)
+            if name == "decode_self_attn":
+                xkv, mask = f32(6, T, D), np.array(jparseq.refine_mask(T))[None, None]
+                attn, tattn = layer["self_attn"], tl.self_attn
+            else:
+                xkv, mask, attn, tattn = memory.copy(), None, layer["cross_attn"], tl.cross_attn
+            want = run(lambda a, q, xq, xkv: q + JL.mha(a, xq, xkv, H, mask, bf16))(
+                attn, q, xq, xkv)
+            return tattn(t(xq), t(xkv), None if mask is None else t(mask), residual=t(q)), want
+        if name == "dec_ff":
+            # `DecoderLayer.ff` after its LayerNorm (norm2): linear2's residual.
+            x, h = f32(6, T, D), f32(6, T, D)
+            want = run(lambda l, x, h: x + JL.linear(l["linear2"], jax.nn.gelu(JL.linear(
+                l["linear1"], h, bf16), approximate=False), bf16))(layer, x, h)
+            return tl.linear2(TL.linear_gelu(tl.linear1, t(h)), residual=t(x)), want
+        if name == "greedy_decode":
+            want = run(lambda p, x: jparseq.parseq_greedy_decode(
+                p, x, jcfg, bf16, early_exit=False)[0])(params, memory)
+            return m.greedy_decode(t(memory.copy()), early_exit=False), want
+        if name == "refine":
+            ar = np.asarray(run(lambda p, x: jparseq.parseq_greedy_decode(
+                p, x, jcfg, bf16, early_exit=False)[0].astype(jnp.float32))(params, memory))
+            want = run(lambda p, x, lg: jparseq.parseq_refine(p, x, lg, jcfg, bf16))(
+                params, memory, ar)
+            return m.refine(t(memory.copy()), t(ar)), want
+        if name == "beam_decode":
+            ids, scores = run(lambda p, x: jparseq.parseq_beam_decode(
+                p, x, jcfg, 4, compute_dtype=bf16))(params, memory)
+            got_ids, got_scores = m.beam_decode(t(memory.copy()), 4)
+            return (torch.cat([got_ids.float(), got_scores[:, None]], 1),
+                    np.concatenate([np.asarray(ids, np.float32), np.asarray(scores)[:, None]], 1))
+    raise ValueError(name)
+
+
+def _rounded_bias_add(y, b, residual=None):
+    """The rounded form at a residual site: the bias add rounded to y's
+    dtype, then widened for the residual add."""
+    s = (y + b.to(y.dtype)).float()
+    return s if residual is None else residual + s
+
+
+def _site_shares(monkeypatch, site, fixture):
+    """(the port's share of JAX's values at `site`, the share with the
+    rounded bias add in its place)."""
+    shares = []
+    for form in (None, _rounded_bias_add):
+        with monkeypatch.context() as mp:
+            if form is not None:
+                mp.setattr(TL, "bias_add_f32", form)
+            got, want = _site(site, *fixture)
+        want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+        shares.append(_equal_share(got.float().numpy(), want))
+    return shares
+
+
+@pytest.mark.parametrize("site", ["patch_pos_embed", "vit_attn", "vit_mlp", "decode_self_attn",
+                                  "decode_cross_attn", "dec_ff", "greedy_decode"])
+def test_residual_sites_bf16_equal_jax(small_bf16, monkeypatch, site):
+    """Each place where XLA leaves a bf16 Linear's bias add unrounded
+    (`probe_torch_bf16.py hlo`), fed the same inputs as JAX's compiled
+    expression on seeded weights with nonzero biases: `patch_embed +
+    pos_embed`, a ViT block's attention and MLP residuals, the decoder's
+    self-attention, cross-attention and MLP (`DecoderLayer.ff` after its
+    LayerNorm) residuals, and the whole greedy decode, whose steps hold
+    the same three with the position query as the first residual and whose
+    head stays rounded (8 keys a step: the softmax sums agree): at least
+    RESIDUAL_MIN_EQUAL of the values equal.
+    The rounded form, the bias add rounded first, parts from JAX on far more."""
+    share, rounded = _site_shares(monkeypatch, site, small_bf16)
+    assert share >= RESIDUAL_MIN_EQUAL and rounded < share - 0.2, (share, rounded)
+
+
+# A whole ViT block, the refine and the beam decode also run LayerNorms,
+# whose fp32 results differ from XLA's by an ulp on many values (XLA's
+# rsqrt), and the block's softmax sums its 128 keys in XLA's own order: a
+# rare bf16 rounding downstream flips. The shares these hold (the
+# rounded bias adds give 0.13 and 0.48 here).
+WHOLE_MIN_EQUAL = {"vit_block": 0.997, "refine": 0.999}
+BEAM_SCORE_ATOL = 1e-5  # fp32 log-probability sums of the same ids
+
+
+@pytest.mark.parametrize("fn", ["vit_block", "refine", "beam_decode"])
+def test_layers_with_residual_sites_bf16_agree_with_jax(small_bf16, monkeypatch, fn):
+    """A whole `VitBlock` and the refine (its rounded head logits) against
+    JAX's compiled functions at bf16, at least WHOLE_MIN_EQUAL of the
+    values equal; the beam decode's ids equal and its scores within
+    BEAM_SCORE_ATOL. With rounded bias adds each parts
+    further."""
+    if fn != "beam_decode":
+        share, rounded = _site_shares(monkeypatch, fn, small_bf16)
+        assert share >= WHOLE_MIN_EQUAL[fn] and rounded < share - 0.2, (share, rounded)
+        return
+    results = []
+    for form in (None, _rounded_bias_add):
+        with monkeypatch.context() as mp:
+            if form is not None:
+                mp.setattr(TL, "bias_add_f32", form)
+            got, want = _site(fn, *small_bf16)
+        results.append((got.numpy(), want))
+    (got, want), (rounded, _) = results
+    np.testing.assert_array_equal(got[:, :-1], want[:, :-1])
+    np.testing.assert_allclose(got[:, -1], want[:, -1], rtol=0, atol=BEAM_SCORE_ATOL)
+    assert np.abs(rounded[:, -1] - want[:, -1]).max() > 100 * BEAM_SCORE_ATOL
+
+
+def test_fused_kernels_keep_the_rounded_residual_form():
+    """Where `prestack` builds K6's or K7's bundle (`latency()`,
+    `production()`), the eager residual sites around them keep the
+    rounded bias add, then the residual (`Linear.fp32_residual` off): JAX's
+    CPU reference runs XLA's eager encoder and decode there, not the fused
+    kernels, and the unrounded form moved that preset's records below its
+    floor on the card. Without a bundle the sites take the fp32 form."""
+    from tuatara_tpu_torch.config import ParseqConfig
+    from tuatara_tpu_torch.models.parseq import Parseq
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.random((4, 128, 96), dtype=np.float32))
+    forms = []
+    for impl in ("xla", "pallas"):
+        torch.manual_seed(0)
+        m = Parseq(ParseqConfig(**SMALL_BF16, encoder_impl=impl, decode_impl=impl))
+        with torch.no_grad():
+            for prm in m.parameters():
+                prm.normal_(0, 0.3)
+        m.prestack(BF16)
+        TL.set_compute_dtype(m.eval(), BF16)
+        assert all(lin.fp32_residual == (impl == "xla") for lin in m.modules()
+                   if isinstance(lin, TL.Linear))
+        with torch.no_grad():
+            got = m.patch_embed(x, residual=m.pos_embed)
+            y = F.linear(x.to(BF16), m.patch_embed.weight)
+            b = m.patch_embed.bias
+            want = (BA.bias_add_f32_plain(y, b, m.pos_embed) if impl == "xla"
+                    else m.pos_embed + (y + b))
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+        forms.append(got)
+    assert not torch.equal(*forms)
+
+
+def _residuals(dtype, rng):
+    """(y [3, 5, 16], residual) cases: none, y's shape, broadcast [1, 5,
+    16] and [16], an expanded view, and a [1, 1, 16] step query."""
+    y = torch.from_numpy(rng.standard_normal((3, 5, 16)).astype(np.float32) * 4).to(dtype)
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3)
+
+    return y, [None, r(3, 5, 16), r(1, 5, 16), r(16), r(1, 5, 16).expand(3, 5, 16), r(1, 1, 16)]
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float16], ids=str)
+def test_bias_add_f32_plain_is_the_formula(dtype):
+    """The fp32-output mode's plain version (what `bias_add_f32` runs on
+    the CPU): r + (fp32(y) + fp32(dtype(b))) in fp32, that order, for every
+    residual shape it takes, and with no residual; `residual_period`
+    gives the values the kernel repeats over y's leading dimensions, and
+    refuses a residual that broadcasts over an inner dimension."""
+    rng = np.random.default_rng(21)
+    y, residuals = _residuals(dtype, rng)
+    b32 = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    for r in residuals:
+        s = y.float() + b32.to(dtype).float()
+        want = s if r is None else r + s
+        got = BA.bias_add_f32(y, b32, r)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+        assert torch.equal(BA.bias_add_f32_plain(y, b32, r), want)
+        if r is not None:
+            flat = BA.residual_period(r, y.shape)
+            assert flat.is_contiguous() and y.numel() % flat.numel() == 0
+            assert torch.equal(flat.reshape(-1).repeat(y.numel() // flat.numel()),
+                               r.expand(y.shape).reshape(-1))
+    assert BA.residual_period(residuals[3], y.shape).numel() == 16
+    with pytest.raises(ValueError, match="inner dimension"):
+        BA.residual_period(torch.zeros(3, 1, 16), y.shape)
+    with pytest.raises(ValueError, match="does not broadcast"):
+        BA.residual_period(torch.zeros(2, 5, 16), y.shape)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float16], ids=str)
+@pytest.mark.parametrize("bias_fp32", [True, False], ids=["fp32_bias", "dtype_bias"])
+def test_bias_add_f32_grads_equal_autograd_of_plain(dtype, bias_fp32):
+    """The mode's backward (`bias_add_f32_grads`, which `_BiasAddF32` runs
+    on the card) against autograd through the plain version, bit for bit:
+    y's gradient (the output's, cast to y's dtype), the bias's (summed over
+    the leading dimensions in y's dtype; for an fp32 bias cast as `Linear`
+    casts it, cast back) and the residual's (summed to its shape), for
+    every residual shape."""
+    rng = np.random.default_rng(22)
+    y0, residuals = _residuals(dtype, rng)
+    for r0 in residuals:
+        y = y0.clone().requires_grad_()
+        leaf = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+        leaf = (leaf if bias_fp32 else leaf.to(dtype)).requires_grad_()
+        b = leaf.to(dtype)
+        r = None if r0 is None else r0.detach().clone().requires_grad_()
+        out = BA.bias_add_f32_plain(y, b, r)
+        g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+        want = list(torch.autograd.grad(out, [y, leaf] + ([r] if r is not None else []), g))
+        gy, gb, gr = BA.bias_add_f32_grads(g, dtype, b.shape, b.dtype,
+                                           None if r is None else r.shape)
+        assert gy.dtype == dtype and torch.equal(gy, want[0])
+        assert gb.dtype == dtype and torch.equal(gb.to(leaf.dtype), want[1])
+        if r is not None:
+            assert torch.equal(gr, want[2])
+        else:
+            assert gr is None
+    assert BA.bias_add_f32_grads(None, dtype, torch.Size([16]), dtype, None) == (None, None, None)
+
+
+def test_plm_loss_head_bf16_equals_jax(small_bf16):
+    """The training graph's own site (`probe_torch_bf16.py hlo` on the PLM
+    loss's gradient): the head's logits before the loss's fp32 log-softmax
+    (`Parseq.decode(..., fp32_logits=True)`, `PaddedLinear`'s 95 columns
+    padded to 96) against JAX's compiled `linear` cast to fp32: at least
+    RESIDUAL_MIN_EQUAL of the values equal, where the rounded head parts
+    from JAX on far more."""
+    params, m, jcfg, _, _ = small_bf16
+    x = np.random.default_rng(9).standard_normal((6, 8, jcfg.embed_dim)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, x: JL.linear(p["head"], x, jnp.bfloat16).astype(
+        jnp.float32))(params, x))
+    with torch.no_grad():
+        got = m.head(torch.from_numpy(x), fp32_logits=True)
+        old = m.head(torch.from_numpy(x)).float()
+    assert got.dtype == torch.float32
+    share = _equal_share(got.numpy(), want)
+    assert share >= RESIDUAL_MIN_EQUAL, share
+    assert _equal_share(old.numpy(), want) < share - 0.2
+
+
+def test_hlo_probe_tells_rounded_from_unrounded():
+    """The `hlo` probe's reading of XLA's optimised graph, on functions
+    whose answer is known: a bf16 Linear into an fp32 residual add (bias
+    add unrounded), the same into an argmax and into a bf16 ReLU before
+    the cast to fp32 (both rounded), and linear_q's explicit cast of its
+    fp32 sum (rounded). Each scope names the call's two frames."""
+    from probe_torch_bf16 import bias_add_outcomes, bias_scopes
+
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((64, 32)).astype(np.float32)
+    b = rng.standard_normal(32).astype(np.float32)
+    q = JL.quantize_linear({"w": w, "b": b})
+    h = rng.standard_normal((4, 6, 64)).astype(np.float32)
+    x = rng.standard_normal((4, 6, 32)).astype(np.float32)
+    fns = {"residual": lambda x, h: x + JL.linear({"w": w, "b": b}, h, jnp.bfloat16),
+           "argmax": lambda x, h: jnp.argmax(JL.linear({"w": w, "b": b}, h, jnp.bfloat16), -1),
+           "relu": lambda x, h: jax.nn.relu(JL.linear({"w": w, "b": b}, h, jnp.bfloat16)
+                                            ).astype(jnp.float32) + x,
+           "int8": lambda x, h: x + JL.linear(q, h, jnp.bfloat16)}
+    verdicts = {}
+    for name, fn in fns.items():
+        with bias_scopes() as scopes:
+            found = bias_add_outcomes(jax.jit(fn).lower(x, h).compile().as_text())
+        (scope, outcome), = found.items()
+        assert scopes.sites[scope][0][:2] == ("test_torch_bf16.py", "<lambda>")
+        verdicts[name] = sorted(outcome)
+    assert verdicts["residual"] == ["fp32 add (jit(<lambda>)/add)"]
+    assert verdicts["argmax"] == verdicts["relu"] == verdicts["int8"] == ["rounded"]
+
+
+# Each graph's unrounded bias adds by (file, line) of the call to `linear` /
+# `conv2d`: the serving graph of the greedy `_recognize_body` and the
+# training losses' gradients.
+HLO_UNROUNDED = {
+    "serving": [("layers.py", 445), ("layers.py", 558), ("layers.py", 558), ("layers.py", 558),
+                ("layers.py", 582), ("parseq.py", 112), ("parseq.py", 245), ("parseq.py", 245),
+                ("parseq.py", 442)],
+    "training": [("craft.py", 307), ("craft.py", 307), ("craft.py", 307), ("layers.py", 445),
+                 ("layers.py", 558), ("layers.py", 558), ("layers.py", 558), ("parseq.py", 112),
+                 ("parseq.py", 245), ("parseq.py", 318)],
+}
+
+
+@pytest.mark.parametrize("graph", ["serving", "training"])
+def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
+    """On the golden weights, XLA's graph of the greedy `_recognize_body`
+    (the eager encoder, the greedy decode, the refine, the confidence), or
+    of the PLM and CRAFT losses' gradients, leaves exactly these bias adds
+    unrounded, and each of PARSEQ's has its counterpart in the port
+    (`probe_torch_bf16.PORT_SITES`): the residual Linears and
+    `patch_embed`, in training also the PLM loss's head. CRAFT's training
+    convs before a BatchNorm or the loss are listed and left as they are
+    (the bf16 training parity on the card moved out of its bounds with
+    them). The serving heads stay rounded."""
+    import probe_torch_bf16 as probe
+
+    graphs = probe.hlo_graphs()
+    keep = graphs[:1] if graph == "serving" else [g for g in graphs if g[3]]
+    monkeypatch.setattr(probe, "hlo_graphs", lambda: keep)
+    found = probe.hlo_sites()
+    unrounded = [site for site, o in found if any(x.startswith("fp32") for x in o)]
+    assert sorted((s[0][0], s[0][2]) for s in unrounded) == HLO_UNROUNDED[graph]
+    for site in unrounded:
+        where = probe.port_line(site)
+        if site[0][0] == "craft.py":
+            # CRAFT's training convs before a BatchNorm or the loss: not
+            # routed (ROADMAP Queue 3 item 19).
+            assert where == "-", (site, where)
+            continue
+        assert any(k in _source_line(where) for k in ("residual", "fp32_logits")), (site, where)
+    if graph == "serving":
+        heads = [o for site, o in found if site[0][2] in (318, 450)]
+        assert len(heads) == 2 and all(o == {"rounded"} for o in heads)
+
+
+def _source_line(where):
+    """'tuatara_tpu_torch/models/x.py:N fn' -> that line of the source."""
+    import os
+
+    path, line = where.split()[0].rsplit(":", 1)
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           path)) as f:
+        return f.read().splitlines()[int(line) - 1]

@@ -18,7 +18,8 @@
 // intrinsics keep nvcc from contracting the products into fused
 // multiply-adds, so the kernel equals the plain PyTorch version
 // (kernels/bias_act.py bias_act_plain) bit for bit. A bias add that no
-// activation follows is torch.add in the port: there is no mode for it.
+// activation follows is torch.add in the port where its sum is rounded to
+// T, and tt_bias_add_f32 (below) where it is not.
 //
 // What bounds it: bytes. Each element is read once and written once or
 // twice (2 + 2 or 2 + 4 bytes), the bias stays in L1: ~0.9 us for a 1 MiB
@@ -38,6 +39,23 @@
 //   gv = T(ga * c + (g * e) * 0.5f)
 // The ReLU mode's backward is one torch threshold_backward, and the bias's
 // gradient a sum over the other dimensions, in the port.
+//
+// tt_bias_add_f32: the fp32-output mode, for a Linear whose sum goes
+// straight into an fp32 op (PARSEQ's residual adds, patch_embed +
+// pos_embed; in the training graph also the head before the PLM loss's
+// fp32 log-softmax). There XLA's CPU backend adds the bias in fp32 and
+// never rounds the sum to T, so nor does this mode. y [n] in T, a Linear's
+// product [..., C] (contiguous, already rounded to T); b [C] in T,
+// widened in registers; r in fp32 or null, the residual, one period of
+// `period` elements repeated over y's leading dimensions (period = n for
+// a residual of y's shape; S * D for pos_embed [1, S, D]). Per element:
+//   out = r[i % period] + (float(y) + float(b[i % C]))   (fp32, that order)
+// with __fadd_rn, so the kernel equals the plain version
+// (kernels/bias_act.py bias_add_f32_plain) bit for bit. Its backward is
+// casts and sums in the port. What bounds it: bytes (2 + 4 read, 4
+// written an element: ~4.7 us for a [32, 128, 384] slab at 3.35 TB/s);
+// a thread moves 8 elements as one 16-byte load of y, two of r and two
+// 16-byte stores when the pointers and the period allow it.
 //
 // The entry points launch on the caller's stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError().
@@ -206,6 +224,78 @@ void launch_grad(const void* g, const void* v, void* out, int64_t n, float s, fl
   }
 }
 
+template <typename T, bool kRes, bool kVec>
+__global__ void bias_add_f32_kernel(const T* __restrict__ y, const T* __restrict__ b,
+                                    const float* __restrict__ r, float* __restrict__ out,
+                                    int64_t n, int C, int64_t period) {
+  const int64_t groups = (n + 7) / 8;
+  for (int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; g < groups;
+       g += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i0 = g * 8;
+    const int cnt = n - i0 < 8 ? (int)(n - i0) : 8;
+    alignas(16) T in[8];
+    alignas(16) float res[8];
+    alignas(16) float o[8];
+    int64_t j = kRes ? i0 % period : 0;
+    if (kVec && cnt == 8) {
+      *reinterpret_cast<uint4*>(in) = __ldg(reinterpret_cast<const uint4*>(y + i0));
+      if (kRes) {
+        // period % 8 == 0 here, so the group does not wrap.
+        *reinterpret_cast<float4*>(res) = __ldg(reinterpret_cast<const float4*>(r + j));
+        *reinterpret_cast<float4*>(res + 4) = __ldg(reinterpret_cast<const float4*>(r + j + 4));
+      }
+    } else {
+      for (int k = 0; k < cnt; ++k) {
+        in[k] = y[i0 + k];
+        if (kRes) {
+          res[k] = r[j];
+          if (++j == period) j = 0;
+        }
+      }
+    }
+    int c = (int)(i0 % C);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k < cnt) {
+        float s = __fadd_rn(to_f(in[k]), to_f(b[c]));
+        if (kRes) s = __fadd_rn(res[k], s);
+        o[k] = s;
+      }
+      if (++c == C) c = 0;
+    }
+    if (kVec && cnt == 8) {
+      *reinterpret_cast<float4*>(out + i0) = *reinterpret_cast<const float4*>(o);
+      *reinterpret_cast<float4*>(out + i0 + 4) = *reinterpret_cast<const float4*>(o + 4);
+    } else {
+      for (int k = 0; k < cnt; ++k) out[i0 + k] = o[k];
+    }
+  }
+}
+
+template <typename T, bool kRes>
+void launch_f32(const void* y, const void* b, const void* r, void* out, int64_t n, int C,
+                int64_t period, cudaStream_t stream) {
+  const int threads = 256;
+  int64_t blocks = ((n + 7) / 8 + threads - 1) / threads;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  const bool vec = ((uintptr_t)y | (uintptr_t)r | (uintptr_t)out) % 16 == 0 &&
+                   (!kRes || period % 8 == 0);
+  if (vec) {
+    bias_add_f32_kernel<T, kRes, true><<<(int)blocks, threads, 0, stream>>>(
+        (const T*)y, (const T*)b, (const float*)r, (float*)out, n, C, period);
+  } else {
+    bias_add_f32_kernel<T, kRes, false><<<(int)blocks, threads, 0, stream>>>(
+        (const T*)y, (const T*)b, (const float*)r, (float*)out, n, C, period);
+  }
+}
+
+template <typename T>
+void dispatch_f32(const void* y, const void* b, const void* r, void* out, int64_t n, int C,
+                  int64_t period, cudaStream_t stream) {
+  if (r) launch_f32<T, true>(y, b, r, out, n, C, period, stream);
+  else launch_f32<T, false>(y, b, r, out, n, C, period, stream);
+}
+
 }  // namespace
 
 // dtype 0 bf16, 1 fp16.
@@ -226,5 +316,16 @@ extern "C" int tt_bias_act(const void* p, const void* b, void* y, void* pre, int
   cudaStream_t st = (cudaStream_t)stream;
   if (mode / 4 == 0) dispatch_act<__nv_bfloat16>(mode & 3, p, b, y, pre, n, C, div, s, st);
   else dispatch_act<__half>(mode & 3, p, b, y, pre, n, C, div, s, st);
+  return (int)cudaGetLastError();
+}
+
+// dtype 0 bf16, 1 fp16; r may be null; period > 0 (ignored without r).
+extern "C" int tt_bias_add_f32(const void* y, const void* b, const void* r, void* out, int C,
+                               int dtype, long long n, long long period, void* stream) {
+  if (!b || n <= 0 || C <= 0 || period <= 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) dispatch_f32<__nv_bfloat16>(y, b, r, out, n, C, period, st);
+  else dispatch_f32<__half>(y, b, r, out, n, C, period, st);
   return (int)cudaGetLastError();
 }

@@ -20,8 +20,17 @@ T(float(p) + float(b)), then ReLU(v), or T(0.5 * float(v) * float(T(erfc(
 -float(v) * T(sqrt(0.5)))))); with no bias v = p. The plain version runs
 the same ops in PyTorch, so on the card the kernel equals it bit for bit.
 
-The kernel is differentiable (`_BiasAct`), so the training graph
-launches it too. Its backward (`bias_act_grads`) is the one PyTorch's
+`bias_add_f32` is the fp32-output mode (`tt_bias_add_f32`): where a
+Linear's sum goes straight into an fp32 op (PARSEQ's residual adds,
+`patch_embed + pos_embed`, in training the head before the PLM loss),
+XLA's CPU backend adds the bias in fp32 and never rounds the sum to the
+dtype, so the port computes `r + (fp32(y) + fp32(b))` in fp32, that
+order, the residual r folded into the same pass, bit-equal to its plain
+version (`bias_add_f32_plain`) on the card. A bias add whose sum is
+rounded stays `torch.add` (`models/layers.add_bias`).
+
+The kernel is differentiable (`_BiasAct`, `_BiasAddF32`), so the training
+graph launches it too. Its backward (`bias_act_grads`) is the one PyTorch's
 autograd takes through the plain version, op for op: ReLU's is one
 `threshold_backward`, the bias's a sum, and GELU's, ~20 elementwise ops
 in autograd, one pass of a second kernel, `gelu_grad` (`tt_gelu_grad`,
@@ -218,3 +227,112 @@ def bias_act(p: torch.Tensor, bias: Optional[torch.Tensor], act: str, keep_pre: 
         return _BiasAct.apply(p, bias, act, keep_pre, dim)
     y, pre = _launch(p, bias, act, keep_pre, dim)
     return (y, pre) if keep_pre else y
+
+
+def bias_add_f32_plain(y: torch.Tensor, bias: torch.Tensor,
+                       residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fp32-output mode's plain version: y [..., C] (bf16 or fp16) plus
+    the bias [C] rounded to y's dtype, both widened to fp32, never rounded;
+    then residual + that sum (residual fp32, of y's shape or broadcast over
+    its leading dimensions)."""
+    s = y.float() + bias.to(y.dtype).float()
+    return s if residual is None else residual + s
+
+
+def bias_add_f32_grads(g: Optional[torch.Tensor], y_dtype: torch.dtype,
+                       bias_shape: torch.Size, bias_dtype: torch.dtype,
+                       residual_shape: Optional[torch.Size]):
+    """The backward of `bias_add_f32_plain` as autograd takes it, for the
+    output's gradient g (fp32) -> (y's gradient, g cast to y's dtype; the
+    bias's, g summed to its shape and cast to its dtype; the residual's, g
+    summed to its shape, None without a residual); all None without g."""
+    if g is None:
+        return None, None, None
+    gb = g.sum_to_size(bias_shape).to(bias_dtype)
+    gr = None if residual_shape is None else g.sum_to_size(residual_shape)
+    return g.to(y_dtype), gb, gr
+
+
+def residual_period(residual: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """A residual that broadcasts to `shape` (y's) over leading dimensions
+    only -> a contiguous tensor whose flat values, repeated, are the
+    broadcast residual's: the residual without the leading dimensions that
+    broadcast (size 1 against more, or stride 0 in an expanded view).
+    Raises if it broadcasts elsewhere."""
+    rs = (1,) * (len(shape) - residual.dim()) + tuple(residual.shape)
+    if len(rs) != len(shape) or any(a != b and a != 1 for a, b in zip(rs, shape)):
+        raise ValueError(f"bias_add_f32: residual {tuple(residual.shape)} does not broadcast to "
+                         f"{tuple(shape)}")
+    k, lead = 0, len(shape) - residual.dim()
+    while k < len(shape) and ((rs[k] == 1 and shape[k] != 1)
+                              or (k >= lead and residual.stride(k - lead) == 0)):
+        k += 1
+    if rs[k:] != tuple(shape[k:]):
+        raise ValueError(f"bias_add_f32: residual {tuple(residual.shape)} broadcasts over an "
+                         f"inner dimension of {tuple(shape)}")
+    r = residual[(0,) * (k - lead)] if k > lead else residual
+    return r.contiguous()
+
+
+def _launch_f32(y: torch.Tensor, bias: torch.Tensor,
+                residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """One `tt_bias_add_f32` launch -> the fp32 output, y's shape."""
+    if y.dtype not in _DTYPES or not y.is_contiguous():
+        raise ValueError(f"bias_add_f32: expected a contiguous bfloat16 or float16 tensor, got "
+                         f"{y.dtype} strides {y.stride()}")
+    c = y.shape[-1]
+    if (tuple(bias.shape) != (c,) or not bias.is_contiguous() or bias.device != y.device
+            or bias.dtype != y.dtype):
+        raise ValueError(f"bias: expected a contiguous [{c}] {y.dtype} tensor on {y.device}, "
+                         f"got {tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    r = None
+    if residual is not None:
+        if residual.dtype != torch.float32 or residual.device != y.device:
+            raise ValueError(f"bias_add_f32: expected an fp32 residual on {y.device}, got "
+                             f"{residual.dtype} on {residual.device}")
+        r = residual_period(residual, y.shape)
+    out = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+    if y.numel():
+        fn = entry("bias_act", "tt_bias_add_f32", 4, 2, n_i64=2)
+        err = fn(y.data_ptr(), bias.data_ptr(), 0 if r is None else r.data_ptr(),
+                 out.data_ptr(), c, _DTYPES[y.dtype],
+                 y.numel(), 1 if r is None else r.numel(),
+                 torch.cuda.current_stream(y.device).cuda_stream)
+        _raise_on(err, "tt_bias_add_f32")
+        LAUNCHES[BA] += 1
+    return out
+
+
+class _BiasAddF32(torch.autograd.Function):
+    """The fp32-output mode with the plain version's backward
+    (`bias_add_f32_grads`)."""
+
+    @staticmethod
+    def forward(ctx, y, bias, residual):
+        ctx.set_materialize_grads(False)
+        ctx.y_dtype, ctx.bias_shape, ctx.bias_dtype = y.dtype, bias.shape, bias.dtype
+        ctx.residual_shape = None if residual is None else residual.shape
+        return _launch_f32(y, bias, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        return bias_add_f32_grads(g, ctx.y_dtype, ctx.bias_shape, ctx.bias_dtype,
+                                  ctx.residual_shape)
+
+
+def bias_add_f32(y: torch.Tensor, bias: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y [..., C] bf16 or fp16, a Linear's product without its bias; bias
+    [C] (rounded to y's dtype); residual fp32 of y's shape or
+    broadcast over its leading dimensions ([1, S, D] against [N, S, D]),
+    or None -> residual + (fp32(y) + fp32(bias)) in fp32, y's shape, never
+    rounded to y's dtype. One `tt_bias_add_f32` launch for CUDA tensors,
+    differentiable (`_BiasAddF32`); the plain version for CPU tensors."""
+    if not y.is_cuda:
+        return bias_add_f32_plain(y, bias, residual)
+    if bias.dtype != y.dtype:
+        bias = bias.to(y.dtype)
+    if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad or (
+            residual is not None and residual.requires_grad)):
+        return _BiasAddF32.apply(y, bias, residual)
+    return _launch_f32(y, bias, residual)

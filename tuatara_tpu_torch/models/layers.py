@@ -10,8 +10,13 @@ LayerNorm and softmax always run in fp32. GELU is the exact erf form.
 At a 16-bit compute dtype the port rounds where XLA's CPU backend rounds
 JAX's compiled bf16 graph: a product is rounded to the dtype before its
 bias is added, with a second rounding (`add_bias`: `torch.add`, or the
-`bias_act` kernel where a ReLU or GELU follows); the attention logits are fp32 sums never rounded to the
-dtype (`attention_logits`); GELU rounds erfc to the dtype before its last
+`bias_act` kernel where a ReLU or GELU follows), except where a Linear's
+sum goes straight into an fp32 add (PARSEQ's residuals, `patch_embed +
+pos_embed`): there XLA adds the bias in fp32 and never rounds the sum, so
+`Linear(x, residual=r)` returns `r + (fp32(y) + fp32(b))` in fp32
+(`kernels.bias_act.bias_add_f32`, one pass with the residual); the
+attention logits are fp32 sums never rounded to the dtype
+(`attention_logits`); GELU rounds erfc to the dtype before its last
 product (`kernels.bias_act.gelu_plain`).
 
 int8 serving (`QConv`, JAX's `quantize_conv` / `conv2d_q` family, and
@@ -42,7 +47,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from tuatara_tpu_torch.kernels.bias_act import bias_act, bias_view
+from tuatara_tpu_torch.kernels.bias_act import bias_act, bias_add_f32, bias_view
 from tuatara_tpu_torch.kernels.int8 import int8_conv, int8_linear, weight_matrix
 
 
@@ -102,22 +107,40 @@ class Linear(nn.Module):
     """y = x @ W^T + b, W stored [out, in]."""
 
     compute_dtype: Optional[torch.dtype] = None  # set by `cast_products`
+    # With a residual at a 16-bit compute dtype: the bias added in fp32 and
+    # never rounded (True), or rounded first, then the residual added
+    # (False: what `Parseq.prestack` sets where the fused kernels run).
+    fp32_residual: bool = True
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
-        """-> x @ W^T + b, or its exact GELU with act="gelu". At fp32 the
-        bias is part of the product; at a 16-bit compute dtype the product
-        is rounded first, as JAX's `linear` does (`add_bias`)."""
+    def forward(self, x: torch.Tensor, act: Optional[str] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """-> x @ W^T + b, its exact GELU with act="gelu", or residual +
+        (x @ W^T + b) in fp32 with an fp32 `residual` (of the output's shape
+        or broadcast over its leading dimensions). At fp32 the bias is part
+        of the product; at a 16-bit compute dtype the product is rounded
+        first, as JAX's `linear` does, and then either the bias is added
+        with a second rounding (`add_bias`) or, with a residual, added in
+        fp32 and never rounded, as XLA compiles JAX's `x + linear(h)`
+        (`bias_add_f32`); with `fp32_residual` off, rounded, then the
+        residual added."""
+        if act is not None and residual is not None:
+            raise ValueError("Linear: an activation and a residual do not go together")
         w, b = _cast(self)
         x = x.to(w.dtype)
         if w.dtype == torch.float32:
             y = F.linear(x, w, b)
+            if residual is not None:
+                return residual + y
             return gelu(y) if act else y
-        return add_bias(F.linear(x, w), b, act, dim=-1)
+        if residual is not None and self.fp32_residual:
+            return bias_add_f32(F.linear(x, w), b, residual)
+        y = add_bias(F.linear(x, w), b, act, dim=-1)
+        return y if residual is None else residual + y
 
 
 class PaddedLinear(Linear):
@@ -129,16 +152,23 @@ class PaddedLinear(Linear):
     other confidences, when a slab held more padding rows. At a multiple
     of 8 the rows' results do not depend on the row count."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fp32_logits: bool = False) -> torch.Tensor:
+        """-> x @ W^T + b. With `fp32_logits` at a 16-bit compute dtype, the
+        bias is added to the rounded product in fp32 and never rounded
+        (`bias_add_f32`), as XLA compiles JAX's training loss, whose
+        log-softmax reads the head's logits as fp32; else rounded, as its
+        serving graph keeps them (argmax and softmax of bf16 logits)."""
         n = self.weight.shape[0]
-        pad = -n % 8
-        if pad == 0:
-            return super().forward(x)
         w, b = _cast(self)
-        w, b, x = F.pad(w, (0, 0, 0, pad)), F.pad(b, (0, pad)), x.to(w.dtype)
+        pad = -n % 8
+        if pad:
+            w, b = F.pad(w, (0, 0, 0, pad)), F.pad(b, (0, pad))
+        x = x.to(w.dtype)
         if w.dtype == torch.float32:
             return F.linear(x, w, b)[..., :n]
-        return add_bias(F.linear(x, w), b, dim=-1)[..., :n]
+        y = F.linear(x, w)
+        y = bias_add_f32(y, b) if fp32_logits else add_bias(y, b, dim=-1)
+        return y[..., :n]
 
 
 class LayerNorm(nn.Module):
@@ -370,9 +400,13 @@ class QLinear(nn.Module):
         xq = torch.mul(x, xs.reshape(1)).round_().clamp_(-127, 127).to(torch.int8)
         return xq, xs
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """-> the output in `out_dtype`; with a residual, residual + that
+        (JAX's `linear_q` rounds its fp32 sum to out_dtype explicitly, and
+        XLA keeps that rounding before the residual add)."""
         xq, xs = self.quantize_input(x)
-        return dequant(int8_linear(xq, self.wmat), self.sw / xs, self.bias, self.out_dtype)
+        y = dequant(int8_linear(xq, self.wmat), self.sw / xs, self.bias, self.out_dtype)
+        return y if residual is None else residual + y
 
 
 # Under a data-parallel mesh each rank quantizes its shard of a batch with
@@ -458,8 +492,9 @@ class Mlp(nn.Module):
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(linear_gelu(self.fc1, x))
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """fc2(gelu(fc1(x))), plus `residual` inside fc2 (`Linear`)."""
+        return self.fc2(linear_gelu(self.fc1, x), residual=residual)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -540,14 +575,18 @@ class MHA(nn.Module):
         return split_heads(self.k(xkv), self.heads), split_heads(self.v(xkv), self.heads)
 
     def attend(self, xq: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               mask: Optional[torch.Tensor] = None,
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Attention over cached k, v [B, H, Lk, hd]; with a residual, the
+        output projection adds it (`Linear`: residual + o(...) in fp32)."""
         q = split_heads(self.q(xq), self.heads)
-        return self.o(merge_heads(attention_core(q, k, v, mask)))
+        return self.o(merge_heads(attention_core(q, k, v, mask)), residual=residual)
 
     def forward(self, xq: torch.Tensor, xkv: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         k, v = self.kv(xkv)
-        return self.attend(xq, k, v, mask)
+        return self.attend(xq, k, v, mask, residual)
 
 
 class VitBlock(nn.Module):
@@ -561,9 +600,11 @@ class VitBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x + attn(norm1(x)), then that + mlp(norm2(that)): each residual
+        added inside the output projection (o, fc2), in fp32."""
         h = self.norm1(x)
-        x = x + self.attn(h, h)
-        return x + self.mlp(self.norm2(x))
+        x = self.attn(h, h, residual=x)
+        return self.mlp(self.norm2(x), residual=x)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,17 @@ Port of `tuatara_tpu/models/parseq.py`. The default (XLA) lowering:
   4x8 patches (a reshape + one linear layer, the patch-embed conv written
   as a product), `pos_embed` is added, 12 pre-norm blocks and a final
   LayerNorm follow -> memory [N, 128, 384].
+
+Every residual add of the eager layers (each block's two, the decoder's
+three, the greedy and beam steps' three) and `patch_embed + pos_embed`
+goes through the Linear before it (`Linear(x, residual=r)`): at bf16
+XLA's CPU backend adds that Linear's bias in fp32 and never rounds the
+sum to bf16 (`tests/probe_torch_bf16.py hlo` lists these sites from the
+compiled graph), so the port adds `r + (fp32(y) + fp32(b))` in one pass;
+not where K6 or K7 runs (`prestack`).
+Every other bias add, the head's included, is rounded, except in the
+training loss, whose log-softmax reads the head's logits in fp32
+(`decode(..., fp32_logits=True)`).
 * `greedy_decode`: autoregressive argmax decode with a KV cache. The
   decoder has depth 1, so the content stream's self-attention K/V are
   per-token functions of (token id, position) and are cached; each step
@@ -96,8 +107,10 @@ class DecoderLayer(nn.Module):
         self.linear2 = Linear(hidden, dim)
 
     def ff(self, x: torch.Tensor) -> torch.Tensor:
+        """x + linear2(gelu(linear1(norm2(x)))), the residual added inside
+        linear2 in fp32 (`Linear`)."""
         h = linear_gelu(self.linear1, self.norm2(x))
-        return x + self.linear2(h)
+        return self.linear2(h, residual=x)
 
 
 class Parseq(nn.Module):
@@ -142,7 +155,15 @@ class Parseq(nn.Module):
         here, not at the first page; on the CPU the plain version takes
         any. Once K6's bundle is built, `encode` no longer reads the
         per-block modules, so they are released rather than kept as a
-        second copy of the encoder."""
+        second copy of the encoder.
+
+        Where a bundle is built, the eager residual sites around the fused
+        kernels (`patch_embed + pos_embed`, the refine's) keep the rounded
+        bias add (`Linear.fp32_residual` off): there JAX's CPU reference
+        runs XLA's eager encoder and decode (exact GELU, products rounded
+        to bf16), not K6 and K7 (tanh GELU, fp32 bias), and the unrounded
+        form moved the `latency()` records' share below its floor on the
+        card (89 of 113 against 92; ROADMAP Queue 3 item 19)."""
         if compute_dtype != torch.bfloat16:
             return
         if self.cfg.encoder_impl == "pallas" and not self.quantized:
@@ -154,6 +175,10 @@ class Parseq(nn.Module):
             self.enc = nn.ModuleList()
         if self.cfg.decode_impl == "pallas" and decode_mode == "greedy":
             self.dec_stacked = Bundle(K7.stack_decode_weights(self))
+        if self.enc_stacked is not None or self.dec_stacked is not None:
+            for m in self.modules():
+                if isinstance(m, Linear):
+                    m.fp32_residual = False
 
     @property
     def quantized(self) -> bool:
@@ -196,7 +221,7 @@ class Parseq(nn.Module):
         gh, gw = h // ph, w // pw
         x = images.reshape(n, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(n, gh * gw, ph * pw * c)
-        x = self.patch_embed(x) + self.pos_embed
+        x = self.patch_embed(x, residual=self.pos_embed)
         if self.enc_stacked is not None:
             x = K6.vit_blocks(x.float().contiguous(), self.enc_stacked, cfg.enc_heads,
                               cfg.layer_norm_eps)
@@ -212,9 +237,12 @@ class Parseq(nn.Module):
 
     def decode(self, memory: torch.Tensor, tgt_ids: torch.Tensor,
                query: Optional[torch.Tensor] = None,
-               query_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               query_mask: Optional[torch.Tensor] = None,
+               fp32_logits: bool = False) -> torch.Tensor:
         """Full-sequence decode: content ids [N, L] (BOS first) -> logits
-        [N, Lq, C]. query_mask broadcastable to [N, heads, Lq, L]."""
+        [N, Lq, C]. query_mask broadcastable to [N, heads, Lq, L].
+        `fp32_logits`: the head's bias added in fp32 and never rounded (the
+        training loss's form, `PaddedLinear`)."""
         layer = self.dec[0]
         N, L_ = tgt_ids.shape
         pos = self.pos_queries[0, :L_]
@@ -224,10 +252,10 @@ class Parseq(nn.Module):
             query = self.pos_queries[:, :L_].expand(N, L_, -1)
         cn = layer.norm_c(content)
         qn = layer.norm_q(query)
-        q = query + layer.self_attn(qn, cn, query_mask)
-        q = q + layer.cross_attn(layer.norm1(q), memory)
+        q = layer.self_attn(qn, cn, query_mask, residual=query)
+        q = layer.cross_attn(layer.norm1(q), memory, residual=q)
         q = layer.ff(q)
-        return self.head(self.dec_norm(q))
+        return self.head(self.dec_norm(q), fp32_logits=fp32_logits)
 
     def greedy_decode(self, memory: torch.Tensor, early_exit: bool = True) -> torch.Tensor:
         """KV-cached greedy AR decode with batch early exit -> logits
@@ -277,8 +305,8 @@ class Parseq(nn.Module):
             qh = q_all[i][None].expand(N, H, 1, hd)
             mask = (steps <= i)[None, None, None, :]
             attn = attention_core(qh, k_cache, v_cache, mask)
-            x = pos_q[i][None, None] + layer.self_attn.o(merge_heads(attn))
-            x = x + layer.cross_attn.attend(layer.norm1(x), mem_k, mem_v)
+            x = layer.self_attn.o(merge_heads(attn), residual=pos_q[i][None, None])
+            x = layer.cross_attn.attend(layer.norm1(x), mem_k, mem_v, residual=x)
             x = layer.ff(x)
             logits_i = self.head(self.dec_norm(x))[:, 0].float()  # [N, C]
             logits[:, i] = logits_i
@@ -353,8 +381,8 @@ class Parseq(nn.Module):
             v_cache[:, :, i] = layer.self_attn.v(cn).reshape(NB, H, hd).to(kv_dtype)
             q = pos_q[i].expand(NB, 1, D)
             mask = (steps <= i)[None, None, None, :]
-            x = q + layer.self_attn.attend(layer.norm_q(q), k_cache, v_cache, mask)
-            x = x + layer.cross_attn.attend(layer.norm1(x), mem_k, mem_v)
+            x = layer.self_attn.attend(layer.norm_q(q), k_cache, v_cache, mask, residual=q)
+            x = layer.cross_attn.attend(layer.norm1(x), mem_k, mem_v, residual=x)
             x = layer.ff(x)
             logits = self.head(self.dec_norm(x))[:, 0]
             logp = torch.log_softmax(logits.float(), dim=-1)

@@ -11,7 +11,8 @@ annotations let XLA insert the collectives; here they are written out).
 * `RowParallelLinear`: the weight's input columns are split (JAX P("tp",
   None)); each rank's partial product is summed by `reduce_from_tp`
   (all-reduce forward, identity backward), and the whole bias is added
-  once, after the sum.
+  once, after the sum, with the residual where one follows (o, fc2,
+  linear2: in fp32 and never rounded at bf16, as `Linear` adds it).
 
 A column layer followed by a row layer (q/k/v then o; fc1 then fc2;
 linear1 then linear2) keeps the heads or hidden units of the pair on one
@@ -27,6 +28,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from tuatara_tpu_torch.kernels.bias_act import bias_add_f32
 from tuatara_tpu_torch.models.layers import Linear, _cast, add_bias, gelu
 
 
@@ -126,10 +128,18 @@ class RowParallelLinear(_ParallelLinear):
         i = w.shape[1] // size
         return w[:, rank * i:(rank + 1) * i].contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The partial products summed over tp in fp32 and rounded to the
+        compute dtype, then the bias, rounded again, or with an fp32
+        `residual`, residual + (sum + bias) in fp32 (`Linear`'s forms)."""
         w, b = _cast(self)
         y = F.linear(x.to(w.dtype), w)
-        return reduce_from_tp(y.float(), self.group).to(w.dtype) + b
+        y = reduce_from_tp(y.float(), self.group).to(w.dtype)
+        if residual is None:
+            return y + b
+        if w.dtype == torch.float32 or not self.fp32_residual:
+            return residual + (y + b)
+        return bias_add_f32(y, b, residual)
 
 
 def tp_sharded(p: torch.Tensor) -> bool:

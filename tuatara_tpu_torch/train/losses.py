@@ -182,7 +182,9 @@ def parseq_plm_loss(model: Parseq, images: torch.Tensor, labels: torch.Tensor,
     with cast_products(model, compute_dtype):
         memory = model.encode(images)
         query = model.pos_queries[:, :T].repeat(1, K, 1).expand(N, K * T, -1)
-        logits = model.decode(memory, tgt_in, query=query, query_mask=qmask)
+        # XLA leaves the head's bias add unrounded before JAX's fp32
+        # log-softmax (tests/probe_torch_bf16.py hlo).
+        logits = model.decode(memory, tgt_in, query=query, query_mask=qmask, fp32_logits=True)
     C = logits.shape[-1]
     logp = F.log_softmax(logits.float().reshape(N, K, T, C), dim=-1)
     onehot = F.one_hot(tgt_out.clamp(0, C - 1), C).to(logp.dtype)  # [N, T, C]
