@@ -172,8 +172,9 @@ line without a CUDA device or outside the repo.
              (Frobenius) error of 5.5e-3 (bf16 roundings flipped by another
              sum order grow through 12 blocks), and a control that must
              exceed it: the default lowering's eager block chain (erf GELU)
-             on the same input; K7's ids equal up to the first EOS on >= 99%
-             of crops and its step-0 logits within 5e-2. Times, bounds
+             on the same input; K7's ids equal up to the first EOS on every
+             crop and its step-0 logits within K7_MAX_STEP0 (its error on
+             every step up to the first EOS printed). Times, bounds
              (K7's bytes counted from the tiles' steps and tokens on each
              input), beside K6 the eager block chain (cuBLAS) at the same N.
              K6's device time per encode split by launch role (LN1+QKV,
@@ -353,8 +354,8 @@ line without a CUDA device or outside the repo.
              after: `bias_act` once for every float conv call that a ReLU
              follows (the trunk's, each decoder level's conv2, the head's
              first four), every float Linear call with a GELU (fc1) and
-             every float Linear call with a residual taken in fp32 (the
-             default path's; where K6 or K7 runs those stay rounded), and
+             every float Linear call with a residual, taken in fp32 (beside
+             K6 and K7 too), and
              no other time (a rounded bias add with no activation is
              torch.add). 10b: every
              float conv and Linear of one default page, and each float
@@ -362,12 +363,17 @@ line without a CUDA device or outside the repo.
              bias, rounded", or for a Linear with a residual "r +
              (fp32(product) + fp32(bias))", computed on the card from the
              layer's inputs: at least BF16_MIN_ROUNDED of the values
-             bit-equal. 10c: the default and latency() engines
-             on the four pages against JAX's bf16 records
-             (tests/fixtures/torch_reference_bf16.json): the share of JAX's
-             records with the same text and bbox, printed and held to
-             BF16_FLOOR. Prints the phase's seconds and a {"phase10": ...}
-             line.
+             bit-equal. 10c: the default, latency() and production()
+             engines on the four pages against JAX's bf16 records
+             (tests/fixtures/torch_reference_bf16.json) of the same
+             algorithm: `OcrConfig()`'s, and for the presets JAX's with its
+             Pallas recognizer kernels forced ("latency_pallas",
+             "production_pallas"): the share of JAX's records with the
+             same text and bbox, printed and held to BF16_FLOOR; and,
+             printed only, latency() against JAX's `latency()` off a TPU
+             (XLA's eager encoder and scan decode, the record the floor
+             held until the forced-Pallas records existed). Prints the
+             phase's seconds and a {"phase10": ...} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -397,8 +403,14 @@ MIN_WORD_SHARE = 0.95
 # (table_english's slab) since that chain rounds as JAX does (1.2e-2 before, when the tolerance
 # was 7e-3): the tolerance sits between the two.
 K6_MAX_REL = 5.5e-3
-K7_MIN_IDS = 0.99
-K7_MAX_STEP0 = 5e-2
+# K7 against its plain version, both rounding each attention product to bf16
+# as the Pallas kernel does: ids equal up to the first EOS on every crop of
+# every slab, step-0 logits within 9.89e-3 (the matmuls' fp32 sums in mma
+# order against cuBLAS's flip a bf16 activation now and then; NVIDIA H100
+# 80GB HBM3, 700 W, PERF.md §6). With exact products the kernel was held to
+# 99% of crops and 5e-2.
+K7_MIN_IDS = 1.0
+K7_MAX_STEP0 = 1.5e-2
 K7_TILES = ((4, 4), (4, 6), (8, 4), (8, 6), (16, 4), (16, 6))  # (crops, CTAs) per cluster
 K8_MAX_REL = 1e-3
 K8_BATCH, K8_BATCH_PAGE = 16, "funsd_0001129658"  # BASELINE.md config 1's dense batch
@@ -429,13 +441,20 @@ BF16_OPS_PER_S = 989e12
 # Phase 10: JAX's bf16 records (tests/gen_torch_reference.py --config bf16),
 # the share of a layer's values that must equal "(product rounded) + bias,
 # rounded" (or, at a residual site, "r + (fp32(product) + fp32(bias))") on
-# the card, and the least share of JAX's 113 bf16 records the card must
-# give under each preset: 99 under `OcrConfig()` since its residual sites
-# keep XLA's unrounded bias add (95 before), 92 under `latency()`, whose
-# sites around K6 and K7 stay rounded (PERF.md §6).
+# the card, and the least share of JAX's bf16 records of the same algorithm
+# the card must give under each preset (BF16_RECORD), the card's counts
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): 99 of 113 under `OcrConfig()`
+# since its residual sites keep XLA's unrounded bias add (95 before); under
+# `latency()` and `production()` the forced-Pallas records, 99 of 113 and 83
+# of 111 (int8 CRAFT's per-tensor dynamic scales turn an ulp of a bf16
+# activation into another scale for the whole map: most of the records it
+# misses part at a heatmap threshold). These replaced JAX's `latency()` off
+# a TPU, XLA's algorithm, against which `latency()` was held to 92 of 113.
 FIXTURE_BF16 = os.path.join(ROOT, "tests", "fixtures", "torch_reference_bf16.json")
 BF16_MIN_ROUNDED = 0.9999
-BF16_FLOOR = {"default": 99 / 113, "latency": 92 / 113}
+BF16_RECORD = {"default": "default", "latency": "latency_pallas",
+               "production": "production_pallas"}
+BF16_FLOOR = {"default": 99 / 113, "latency": 99 / 113, "production": 83 / 111}
 
 
 def fail(msg: str) -> None:
@@ -1440,6 +1459,12 @@ def check_recognizer_kernels(lat, default, pages, launches):
         torch.cuda.synchronize()
         same = float((first_eos_ids(lg) == first_eos_ids(pl)).all(1).float().mean())
         err7 = float((lg[:, 0] - pl[:, 0]).abs().max())
+        # Every step up to the plain version's first EOS, on the crops whose
+        # ids agree there (informative; the gate reads step 0).
+        ids = pl.argmax(-1)
+        upto = ((ids == 0).int().cumsum(1) - (ids == 0).int()) == 0
+        agree = (first_eos_ids(lg) == first_eos_ids(pl)).all(1)
+        err_steps = float(((lg - pl).abs().amax(-1) * (upto & agree[:, None])).max())
         if not torch.isfinite(lg).all() or same < K7_MIN_IDS or err7 > K7_MAX_STEP0:
             fail(f"{decode.K7} on {label}: ids equal on {same:.4f} of crops, step-0 "
                  f"max abs err {err7}")
@@ -1447,6 +1472,7 @@ def check_recognizer_kernels(lat, default, pages, launches):
         o_ms = decode_ops(lg, decode.TB, d, pq.dec_stacked["f1_b"].shape[0], s, C) \
             / BF16_OPS_PER_S * 1e3
         row = {"input": label, "n": n, "ids_equal": same, "max_abs_err": err7,
+               "max_abs_err_to_eos": err_steps,
                "ms": cuda_ms(lambda: decode.greedy_decode(mk, mv, *dargs), 20),
                "plain_ms": cuda_ms(lambda: decode.greedy_decode_plain(mk, mv, *dargs), 3, 1),
                "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
@@ -1466,7 +1492,8 @@ def check_recognizer_kernels(lat, default, pages, launches):
                 lambda: decode.greedy_decode(mk, mv, *dargs, tb=tb, cluster=cs), 10)
         rows[decode.K7].append(row)
         print(f"kernel {decode.K7:24s} {label:18s} N={n} ids_equal={same:.4f} "
-              f"step0_err={err7:.2e} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
+              f"step0_err={err7:.2e} err_to_eos={err_steps:.2e} "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
               f"bound_ms={row['bound_ms']:.5f} steps={row['steps']} "
               f"ms_per_step={row['ms_per_step']:.4f} ms_by_tile="
               f"{json.dumps(row['ms_by_tile'])}", flush=True)
@@ -4148,10 +4175,9 @@ def check_bias_act_launches(pages):
     each call of a float Conv of CRAFT that a ReLU follows (the trunk's,
     each decoder level's conv2, the head's first four), once for each
     call of a float Linear of PARSEQ with a GELU (fc1) and once for each
-    call with a residual where the Linear takes it in fp32 (its
-    fp32-output mode: the residual Linears and patch_embed of the default
-    path; where K6 or K7 runs, `prestack` keeps those rounded, torch.add),
-    and nowhere else.
+    call with a residual, which the Linear takes in fp32 (its fp32-output
+    mode: the residual Linears and patch_embed, beside K6 and K7 too), and
+    nowhere else.
     -> {preset: launches a page, CRAFT's and PARSEQ's}."""
     import tuatara_tpu_torch
     from tuatara_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -4173,7 +4199,7 @@ def check_bias_act_launches(pages):
         def layer(m, _a, kwargs, _o):
             seen["relu"] += bool(kwargs.get("relu"))
             seen["gelu"] += kwargs.get("act") == "gelu"
-            seen["residual"] += kwargs.get("residual") is not None and m.fp32_residual
+            seen["residual"] += kwargs.get("residual") is not None
 
         hooks = [engine.craft.register_forward_pre_hook(pre),
                  engine.craft.register_forward_hook(post)]
@@ -4296,7 +4322,7 @@ def check_rounding(engine, img):
             wp = F.pad(w, (0, 0, 0, -n % 8)) if isinstance(m, PaddedLinear) else w
             p = F.linear(x.to(w.dtype), wp)[..., :n]
             r = kw.get("residual")
-            if r is not None and m.fp32_residual:
+            if r is not None:
                 # The fp32-output sites: r + (fp32(product) + fp32(bias)), never rounded.
                 tally("residual", out, r + (p.float() + m.bias.float()))
                 continue
@@ -4331,34 +4357,41 @@ def check_rounding(engine, img):
 
 
 def check_bf16_agreement(pages, floor=True):
-    """Phase 10c: the default and latency() engines (bf16) on the four pages
-    against JAX's bf16 records (FIXTURE_BF16): the share of JAX's records
-    with the same text and bbox. Fatal below BF16_FLOOR unless `floor` is
-    off (to read the parent commit's share with this function). -> {preset:
-    share}."""
+    """Phase 10c: the default, latency() and production() engines (bf16) on
+    the four pages against JAX's bf16 records of the same algorithm
+    (FIXTURE_BF16, BF16_RECORD): the share of JAX's records with the same
+    text and bbox. Fatal below BF16_FLOOR unless `floor` is off (to read
+    the parent commit's share with this function). Then, printed only,
+    latency() against JAX's `latency()` off a TPU ("latency": XLA's eager
+    encoder and scan decode). -> {preset: share}, the last under
+    "latency_vs_xla"."""
     import tuatara_tpu_torch
 
     with open(FIXTURE_BF16) as f:
         ref = json.load(f)["variants"]
     shares = {}
-    for name, config in (("default", tuatara_tpu_torch.OcrConfig()),
-                         ("latency", tuatara_tpu_torch.OcrConfig.latency())):
+    runs = [(name, name, record, True) for name, record in BF16_RECORD.items()]
+    runs.append(("latency_vs_xla", "latency", "latency", False))
+    for key, preset, record, gated in runs:
+        config = getattr(tuatara_tpu_torch.OcrConfig, preset)() if preset != "default" \
+            else tuatara_tpu_torch.OcrConfig()
         hit = total = 0
         per_page = {}
         for page, img in pages.items():
-            want = ref[name]["pages"][page]["words"]
+            want = ref[record]["pages"][page]["words"]
             got = tuatara_tpu_torch.image_to_data(img, WEIGHTS, config=config)
             share = word_share(want, got)
             per_page[page] = round(share, 4)
             hit += round(share * len(want))
             total += len(want)
-        shares[name] = hit / total
-        print(f"bf16 agreement with JAX (10c), {name}: {shares[name]:.4f} ({hit} of {total} JAX "
-              f"records, text and bbox) on the card; per page {json.dumps(per_page)}; floor "
-              f"{BF16_FLOOR[name]:.4f}", flush=True)
-        if floor and hit < BF16_FLOOR[name] * total - 1e-9:
-            fail(f"bf16 agreement with JAX under {name}: {shares[name]:.4f} < "
-                 f"{BF16_FLOOR[name]}")
+        shares[key] = hit / total
+        limit = f"floor {BF16_FLOOR[key]:.4f}" if gated else "not gated"
+        print(f"bf16 agreement with JAX (10c), {preset} against the {record!r} record: "
+              f"{shares[key]:.4f} ({hit} of {total} JAX records, text and bbox) on the card; "
+              f"per page {json.dumps(per_page)}; {limit}", flush=True)
+        if gated and floor and hit < BF16_FLOOR[key] * total - 1e-9:
+            fail(f"bf16 agreement with JAX under {preset} ({record!r} record): "
+                 f"{shares[key]:.4f} < {BF16_FLOOR[key]}")
     return shares
 
 

@@ -2,24 +2,33 @@
 heatmaps of a page through both engines, the pixels whose side of each
 threshold (text_threshold and low_text on the text map, link_threshold on
 the link map) differs, and the records whose text or bbox differs, under
-`OcrConfig()` or the `latency()` and `production()` presets (JAX's Pallas
-recognizer kernels in interpret mode, all that Pallas runs on a CPU).
+`OcrConfig()`, the `latency()` and `production()` presets as JAX runs them
+off a TPU (XLA's eager encoder and scan decode, exact GELU), or those
+presets with JAX's Pallas recognizer kernels forced, the algorithm they
+serve on a TPU (`pallas_reference`: the fused ViT kernel in interpret
+mode, the fused decode by the JAX tests' eager transcription of its
+kernel, `_simulate_kernel`, since compiled by XLA's CPU backend the
+interpret mode drops the kernel's bf16 rounding of the attention products).
 
 `tests/test_torch_capi.py` and `tests/test_torch_bf16.py` hold the port to
 JAX with `compare`; run this file to print what it measures (a 200x300
 crop of `resume_example` on the golden weights: `OcrConfig()` at both
-dtypes, then `latency()` and `production()`, both bf16):
+dtypes, then `latency()` and `production()`, both bf16, against JAX's
+presets off a TPU and forced to Pallas; at the golden weights' width, 32,
+JAX's gates and the port's run no Pallas kernel):
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/probe_torch_bf16.py
 
 Three more probes, each a word on the command line:
 
-* `pages [PACKAGE_DIR] [--attribute]`: on the CPU, the port (or the
-  `tuatara_tpu_torch` found under PACKAGE_DIR, e.g. a parent commit
-  unpacked there) at `OcrConfig()` and `latency()` with the full-width
-  `evals/production_weights` on the four main-path pages, the share of
-  JAX's bf16 records (tests/fixtures/torch_reference_bf16.json) with the
-  same text and bbox, a page at a time. Full width, the fp32 sums' order
+* `pages [PACKAGE_DIR] [--preset NAME[,NAME]] [--attribute]`: on the CPU,
+  the port (or the `tuatara_tpu_torch` found under PACKAGE_DIR, e.g. a
+  parent commit unpacked there) at `OcrConfig()` and `latency()` (or the
+  presets named: `default`, `latency`, `latency_pallas`,
+  `production_pallas`, each the port's preset against that record) with
+  the full-width `evals/production_weights` on the four main-path pages,
+  the share of JAX's bf16 records (tests/fixtures/torch_reference_bf16.json)
+  with the same text and bbox, a page at a time. Full width, the fp32 sums' order
   decides bf16 roundings that grow through the layers, so this share is
   not 1. With `--attribute`, a line for each JAX record the port does not
   give: where the two first part (`first_parting`: heatmap pixels across
@@ -33,12 +42,15 @@ Three more probes, each a word on the command line:
   golden weights (`_recognize_body` under greedy, NAR and beam, which
   holds `parseq_encode`'s eager blocks, the greedy decode, the refine and
   the confidence; `parseq_encode` of the int8 encoder; `craft_forward` on
-  the canvases of `OcrConfig()` and `latency()`) and of the training
+  the canvases of `OcrConfig()` and `latency()`; on
+  `evals/production_weights`, the greedy `_recognize_body` of the
+  forced-Pallas `latency()` engine, `pallas_graph`) and of the training
   losses' gradients (`parseq_plm_loss`, `craft_loss`). Every `linear`,
   `linear_q` and `conv2d` call is traced inside a named scope that holds
   its JAX call site; each bias add is followed through the graph (fusions,
   loops, tuples) to its consumers, and printed with the op's name, the
-  port's counterpart by file:line where its sum is not rounded:
+  port's counterpart by file:line where `PORT_SITES` lists it (every site
+  whose sum is not rounded, and the rounded ones next to K7):
   "rounded" where a convert to bf16 comes first, or "UNROUNDED" and the
   fp32 op its sum reaches.
 * `resample`: table_english's shrinking, antialiased canvas resample at
@@ -59,32 +71,115 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def interpret_pallas():
-    """Run the JAX package's Pallas recognizer kernels in interpret mode
-    (wrapping the module functions the engine calls; the package is not
-    edited). Idempotent."""
+def simulated_decode(mem_k, mem_v, stacked, heads, t, n_classes, bos_id, eps=1e-6, tb=32,
+                     interpret=False, early_exit=True):
+    """`greedy_decode_pallas`'s result computed by the JAX tests'
+    transcription of its kernel, `_simulate_kernel`
+    (tests/test_pallas_decode.py), eagerly on the host through
+    `jax.pure_callback`: a tile of `tb` crops at a time, and with
+    `early_exit` the kernel's tile early exit (the positions after the step
+    at which every crop of the tile has emitted EOS hold the EOS-certain
+    logits, +30 at id 0, -30 elsewhere). Eagerly, because each bf16 product
+    of the kernel's attention is then rounded, as on the TPU; compiled by
+    XLA's CPU backend, in interpret mode too, the rounding is dropped.
+    `interpret` is taken and ignored."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from test_pallas_decode import _simulate_kernel
+
+    n, _, d = mem_k.shape
+    cfg = types.SimpleNamespace(embed_dim=d, dec_heads=heads, charset_size=n_classes - 1,
+                                layer_norm_eps=eps, num_tokens=bos_id + 2)
+
+    def host(mk, mv, st):
+        st = {k: jnp.asarray(v) for k, v in st.items()}
+        out = np.empty((n, t, n_classes), np.float32)
+        for t0 in range(0, n, tb):
+            lg = np.array(_simulate_kernel(st, jnp.asarray(mk[t0:t0 + tb]),
+                                           jnp.asarray(mv[t0:t0 + tb]), cfg, t))
+            ended = (np.cumsum(lg.argmax(-1) == 0, axis=1) > 0).all(0)
+            if early_exit and ended.any():
+                stop = int(np.argmax(ended))
+                lg[:, stop + 1:] = -30.0
+                lg[:, stop + 1:, 0] = 30.0
+            out[t0:t0 + tb] = lg
+        return out
+
+    return jax.pure_callback(host, jax.ShapeDtypeStruct((n, t, n_classes), jnp.float32),
+                             mem_k, mem_v, stacked)
+
+
+def pallas_reference():
+    """The JAX package's Pallas recognizer kernels as the forced-Pallas
+    references run them on the CPU: K6's `vit_blocks_pallas` in interpret
+    mode, K7's `greedy_decode_pallas` by `simulated_decode` (module
+    attributes wrapped; the package is not edited). Idempotent."""
     import tuatara_tpu.ops.pallas.decode as pallas_decode
     import tuatara_tpu.ops.pallas.vit as pallas_vit
 
-    def interpreted(fn):
-        if getattr(fn, "interpreted", False):
-            return fn
-
+    pallas_decode.greedy_decode_pallas = simulated_decode
+    vit = pallas_vit.vit_blocks_pallas
+    if not getattr(vit, "interpreted", False):
         def call(*args, **kwargs):
             kwargs["interpret"] = True
-            return fn(*args, **kwargs)
+            return vit(*args, **kwargs)
         call.interpreted = True
-        return call
+        pallas_vit.vit_blocks_pallas = call
 
-    pallas_vit.vit_blocks_pallas = interpreted(pallas_vit.vit_blocks_pallas)
-    pallas_decode.greedy_decode_pallas = interpreted(pallas_decode.greedy_decode_pallas)
+
+# Preset -> (the OcrConfig factory, JAX's and the port's; the overrides of
+# JAX's): the forced-Pallas presets run the JAX package's Pallas recognizer
+# kernels off a TPU (`pallas_reference`), where JAX's `latency()` and
+# `production()` run XLA's eager encoder and scan decode.
+PALLAS = {"encoder_impl": "pallas", "decode_impl": "pallas"}
+PRESETS = {"latency": ("latency", {}), "production": ("production", {}),
+           "latency_pallas": ("latency", PALLAS), "production_pallas": ("production", PALLAS)}
+
+
+def jax_recognize(params, crops, pcfg):
+    """JAX's `OcrEngine._recognize_body` (greedy, bf16, the confidence
+    included) with its recognizer's Pallas kernels forced
+    (`encoder_impl`/`decode_impl` "pallas" on `pcfg`, run by
+    `pallas_reference`), jitted, on a parameter tree and crops -> (ids
+    [N, T], conf [N]) as numpy fp32."""
+    import dataclasses
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from tuatara_tpu.api import OcrEngine as JaxEngine
+    from tuatara_tpu.config import OcrConfig as JaxConfig
+
+    pallas_reference()
+    eng = types.SimpleNamespace(parseq_config=dataclasses.replace(pcfg, **PALLAS),
+                                config=JaxConfig(), mesh=None)
+    ids, conf = jax.jit(lambda p, x: JaxEngine._recognize_body(eng, p, x))(params, crops)
+    return np.asarray(ids), np.asarray(conf.astype(jnp.float32))
+
+
+def jax_config(preset):
+    """JAX's OcrConfig of a preset name (`PRESETS`, or "default" for
+    `OcrConfig()`); installs `pallas_reference` for the forced-Pallas ones
+    (off a TPU the others call no Pallas kernel)."""
+    from tuatara_tpu.config import OcrConfig as JaxConfig
+
+    if preset == "default":
+        return JaxConfig()
+    factory, overrides = PRESETS[preset]
+    if overrides:
+        pallas_reference()
+    return getattr(JaxConfig, factory)(**overrides)
 
 
 def compare(page, weights_dir, dtype, preset="default"):
     """-> {"max_abs": {"text", "link"}, "mean_abs", "flips": {name: (threshold,
     [[y, x], ...])}, "records": (JAX's, the port's), "same": records equal
-    in text and bbox}. `preset`: "default" (`OcrConfig(compute_dtype=dtype)`),
-    "latency" or "production" (the preset, at its own bf16)."""
+    in text and bbox}. `preset`: "default" (`OcrConfig(compute_dtype=dtype)`)
+    or a name of `PRESETS` (the preset, at its own bf16)."""
     import jax
     import jax.numpy as jnp
 
@@ -95,12 +190,11 @@ def compare(page, weights_dir, dtype, preset="default"):
     from tuatara_tpu_torch.config import OcrConfig
 
     if preset == "default":
-        jax_config, config = JaxConfig(compute_dtype=dtype), OcrConfig(compute_dtype=dtype)
+        jcfg, config = JaxConfig(compute_dtype=dtype), OcrConfig(compute_dtype=dtype)
     else:
-        interpret_pallas()
-        jax_config, config = getattr(JaxConfig, preset)(), getattr(OcrConfig, preset)()
-        assert jax_config.compute_dtype == config.compute_dtype == dtype
-    jax_engine = JaxEngine(jax_config, weights_dir=weights_dir)
+        jcfg, config = jax_config(preset), getattr(OcrConfig, PRESETS[preset][0])()
+        assert jcfg.compute_dtype == config.compute_dtype == dtype
+    jax_engine = JaxEngine(jcfg, weights_dir=weights_dir)
     engine = tuatara_tpu_torch.OcrEngine(config, weights_dir=weights_dir, device="cpu")
     cfg = jax_engine.config
     canvases = jax.vmap(lambda im: _canvas_prep(im, cfg))(jnp.asarray(page[None]))
@@ -126,7 +220,8 @@ def main():
 
     page = image("resume_example")[:200, :300].copy()
     for preset, dtype in (("default", "float32"), ("default", "bfloat16"),
-                          ("latency", "bfloat16"), ("production", "bfloat16")):
+                          ("latency", "bfloat16"), ("production", "bfloat16"),
+                          ("latency_pallas", "bfloat16"), ("production_pallas", "bfloat16")):
         r = compare(page, GOLDEN, dtype, preset)
         print(f"{preset} {dtype}: heatmap max |JAX - port| text {r['max_abs']['text']} link "
               f"{r['max_abs']['link']}, mean {r['mean_abs']}")
@@ -139,9 +234,12 @@ def main():
                 print(f"    JAX {a['text']!r} {a['bbox']}  port {b['text']!r} {b['bbox']}")
 
 
-def pages_share(package=None, attribute=False):
-    """The `pages` probe (see the module docstring); with `attribute`, where
-    each record that differs first parts from JAX (`first_parting`)."""
+def pages_share(package=None, attribute=False, presets=("default", "latency")):
+    """The `pages` probe (see the module docstring) over `presets` (record
+    names of tests/fixtures/torch_reference_bf16.json: "default",
+    "latency", "latency_pallas", "production_pallas"); with `attribute`,
+    where each record that differs first parts from JAX
+    (`first_parting`)."""
     if package:
         sys.path.insert(0, package)
     sys.path.insert(1, os.path.dirname(HERE))
@@ -154,8 +252,9 @@ def pages_share(package=None, attribute=False):
         ref = json.load(f)["variants"]
     weights = os.path.join(root, "evals", "production_weights")
     print(f"package: {os.path.dirname(tuatara_tpu_torch.__file__)}")
-    for preset, cfg in (("default", tuatara_tpu_torch.OcrConfig()),
-                        ("latency", tuatara_tpu_torch.OcrConfig.latency())):
+    for preset in presets:
+        cfg = (tuatara_tpu_torch.OcrConfig() if preset == "default" else
+               getattr(tuatara_tpu_torch.OcrConfig, PRESETS[preset][0])())
         engine = tuatara_tpu_torch.OcrEngine(cfg, weights_dir=weights, device="cpu")
         jax_engine = None
         hit = total = 0
@@ -171,10 +270,8 @@ def pages_share(package=None, attribute=False):
             if attribute and n < len(want):
                 if jax_engine is None:
                     from tuatara_tpu.api import OcrEngine as JaxEngine
-                    from tuatara_tpu.config import OcrConfig as JaxConfig
 
-                    jax_engine = JaxEngine(JaxConfig() if preset == "default" else
-                                           JaxConfig.latency(), weights_dir=weights)
+                    jax_engine = JaxEngine(jax_config(preset), weights_dir=weights)
                 for line in first_parting(engine, jax_engine, img, want, got):
                     print(f"  {preset} {page}: {line}", flush=True)
         print(f"{preset}: {hit} of {total} JAX bf16 records ({hit / total:.4f}); per page "
@@ -207,11 +304,12 @@ def first_parting(engine, jax_engine, img, want, got):
       low_text on the text map, link_threshold on the link map) within 2
       pixels of the box, and the first of them with both values;
     * the port has the box, with other text: recognition. The box's crop
-      (the engine's own) through both recognizers alone (a slab of one):
-      the first greedy step whose argmax differs, with JAX's two best
-      classes and both packages' logits for them, else the first refined
-      position that differs, else "not reproduced" (the slab's other rows
-      change the sums' order)."""
+      (the engine's own) through both recognizers alone (a slab of one;
+      of 8 copies where the recognizer's Pallas kernels are forced, so
+      that the gates run them): the first greedy step whose argmax
+      differs, with JAX's two best classes and both packages' logits for
+      them, else the first refined position that differs, else "not
+      reproduced" (the slab's other rows change the sums' order)."""
     import jax
     import jax.numpy as jnp
 
@@ -267,6 +365,8 @@ def first_parting(engine, jax_engine, img, want, got):
         valid[0, j] = True
         with torch.no_grad():
             crops, _ = engine._crop_slab(images, det["rects"], valid, 1)
+            if pcfg.encoder_impl == "pallas":
+                crops = crops.expand(8, *crops.shape[1:]).contiguous()
             memory = pq.encode(crops)
             ar = pq.greedy_decode(memory)
             refined = pq.refine(memory, ar)
@@ -552,9 +652,10 @@ class bias_scopes:
         JL.linear, JL.conv2d = self.saved
 
 
-# The JAX call site of an unrounded bias add (the frame that called
-# `linear`, and the one above it) -> the port's counterpart: (module,
-# function, a text on the line). Sites not listed are printed with "-".
+# The JAX call site of a bias add (the frame that called `linear`, and the
+# one above it) -> the port's counterpart: (module, function, a text on the
+# line); every unrounded site, and the rounded ones next to the fused
+# kernels. Sites not listed are printed with "-".
 PORT_SITES = {
     ("parseq.py", 112): ("models.parseq", "Parseq.encode", "residual=self.pos_embed"),
     ("layers.py", 558, "layers.py", 607): ("models.layers", "VitBlock.forward",
@@ -572,6 +673,9 @@ PORT_SITES = {
                                            "self_attn.attend("),
     ("layers.py", 582, "parseq.py", 560): ("models.parseq", "Parseq.beam_decode",
                                            "cross_attn.attend("),
+    # Next to K7 (the forced-Pallas graph): its memory K/V, rounded.
+    ("parseq.py", 369): ("models.parseq", "Parseq.greedy_decode", "ca.k(memory)"),
+    ("parseq.py", 370): ("models.parseq", "Parseq.greedy_decode", "ca.v(memory)"),
     # The training graph (the losses' gradients).
     ("parseq.py", 318, "losses.py", 172): ("train.losses", "parseq_plm_loss", "fp32_logits=True"),
 }
@@ -597,10 +701,23 @@ def port_line(site):
     return f"tuatara_tpu_torch/{module.replace('.', '/')}.py:{start + k} {qualname}"
 
 
-def hlo_graphs():
+def pallas_graph(engine, n=16):
+    """The `hlo` probe's graph of a forced-Pallas JAX engine (`jax_config`):
+    its greedy `_recognize_body` on n seeded crops, K6 interpreted and K7
+    a host callback (`pallas_reference`), as the forced-Pallas records run
+    them."""
+    crops = np.random.default_rng(0).random((n, *engine.parseq_config.img_size, 3),
+                                            dtype=np.float32)
+    return ("_recognize_body (greedy, forced Pallas)", engine._recognize_body,
+            (engine.parseq_params, crops), False)
+
+
+def hlo_graphs(pallas=True):
     """[(name, function, args, is a training graph)]: what the JAX engine
     jits at bf16 on the golden weights, and the training losses'
-    gradients."""
+    gradients; with `pallas`, last, the forced-Pallas `latency()` engine's
+    recognizer on `evals/production_weights` (`pallas_graph`; the golden
+    weights' width, 32, takes no Pallas kernel)."""
     import jax
     import jax.numpy as jnp
 
@@ -648,6 +765,9 @@ def hlo_graphs():
     target = rng.random((2, 32, 32, 2)).astype(np.float32)
     graphs.append(("craft_loss (train_bn, its gradient)", jax.value_and_grad(
         lambda p: craft_loss(p, images, target, None, engine.craft_config)[0]), (tree,), True))
+    if pallas:
+        weights = os.path.join(os.path.dirname(HERE), "evals", "production_weights")
+        graphs.append(pallas_graph(JaxEngine(jax_config("latency_pallas"), weights_dir=weights)))
     return graphs
 
 
@@ -673,7 +793,7 @@ def hlo_sites(training=None):
             out.append((site, outcome))
             print(f"  {'UNROUNDED' if unrounded else 'rounded':9s} {scope}/add  JAX "
                   + " < ".join(f"{f}:{ln} {fn}" for f, fn, ln in site)
-                  + f"  port {port_line(site) if unrounded else '-'}  "
+                  + f"  port {port_line(site)}  "
                   + f"[{'; '.join(sorted(outcome))}]")
     return out
 
@@ -682,7 +802,13 @@ if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "crop"
     if what == "pages":
         args = sys.argv[2:]
-        pages_share(next((a for a in args if a != "--attribute"), None), "--attribute" in args)
+        presets = ("default", "latency")
+        if "--preset" in args:
+            i = args.index("--preset")
+            presets = tuple(args[i + 1].split(","))
+            del args[i:i + 2]
+        pages_share(next((a for a in args if a != "--attribute"), None), "--attribute" in args,
+                    presets)
     elif what == "residual":
         residual_rounding()
     elif what == "hlo":

@@ -30,12 +30,19 @@ points (`models/layers.add_bias`, `kernels/bias_act.py`,
   activation follows, and the kernel's backward (`bias_act_grads`) and
   the attention logits' (`_Fp32Logits`) against autograd's, bit for bit;
 * `OcrConfig()`, `latency()` and `production()` on a dense crop: every
-  record equal to JAX's, its confidence within a stated tolerance;
+  record equal to JAX's (also with JAX's Pallas recognizer kernels
+  forced), its confidence within a stated tolerance: the confidence at
+  bf16 is JAX's bf16 softmax, max and product, rounded where XLA rounds
+  them (`models.parseq.confidence`);
+* at D = 128, where JAX's gates run the Pallas recognizer kernels, the
+  port's `recognize` under latency()'s lowering (K6, K7 and the sites and
+  confidence around them) against JAX's forced-Pallas `_recognize_body`;
 * where XLA leaves a bf16 Linear's bias add unrounded (its sum goes
   straight into an fp32 add: PARSEQ's residuals, `patch_embed +
   pos_embed`), the port's `Linear(x, residual=r)` against JAX's compiled
   sites, the fp32-output mode of `bias_act` (its plain version and
-  backward), and the `hlo` probe that lists those sites from XLA's graph.
+  backward), and the `hlo` probe that lists those sites from XLA's graph,
+  also of the forced-Pallas engine (the sites beside K6 and K7).
 """
 
 import dataclasses
@@ -429,22 +436,29 @@ def test_fp32_logits_backward_equals_fp32_operand_autograd():
     assert all(a.dtype == BF16 and torch.equal(a, b) for a, b in zip(got, want))
 
 
-# JAX's confidence at bf16 is a bf16 value: the product of bf16-rounded
-# per-position probabilities (XLA rounds the logits' softmax to bf16 at
-# each step and the product at the end); the port multiplies fp32
-# probabilities of the same rounded logits, within this of JAX's under
-# `OcrConfig()`. Under `latency()` and `production()` the port's encoder
-# and greedy decode are K6 and K7, which compute as the Pallas kernels do,
-# while JAX's CPU reference runs XLA's graph: logits ~0.1 apart, so the
-# confidences part by a few hundredths.
-BF16_CONF_ATOL = {"default": 0.005, "latency": 0.03, "production": 0.03}
+# JAX's confidence at bf16 is a bf16 value, and the port computes it as XLA
+# compiles JAX's softmax, max and product at bf16 (`models.parseq.confidence`:
+# bit-equal on 99.95% of 12288 seeded rows, one bf16 step on the rest), so
+# where both run the same algorithm the records' confidences are within one
+# bf16 step of a value below 1 (equal when measured). JAX's `production()`
+# off a TPU quantizes its recognizer's encoder to int8, while the port's
+# keeps the float encoder that the preset serves on a TPU: there the
+# confidences part by up to 1.8e-2 ("production_pallas" is the same
+# algorithm). Before the port rounded as XLA does: 0.005 under `OcrConfig()`
+# and 0.03 under the presets.
+BF16_CONF_ATOL = {"default": 2.0**-8, "latency": 2.0**-8, "production": 2e-2,
+                  "latency_pallas": 2.0**-8, "production_pallas": 2.0**-8}
 
 
 @pytest.mark.parametrize("preset,n_records", [("latency", 16), ("production", 12),
-                                              ("default", 13)])
+                                              ("default", 13), ("latency_pallas", 16),
+                                              ("production_pallas", 12)])
 def test_presets_bf16_records_equal_jax(preset, n_records):
     """`OcrConfig()`, `latency()` and `production()` (all bf16) on the
-    golden weights and a 200x300 crop of resume_example: every record
+    golden weights and a 200x300 crop of resume_example, against JAX's
+    presets as they run off a TPU and, for the two presets, with JAX's
+    Pallas recognizer kernels forced ("_pallas"; at the golden weights'
+    width, 32, JAX's gates and the port's run neither kernel): every record
     equal to JAX's (text and bbox), confidences within
     BF16_CONF_ATOL[preset] of JAX's, no pixel of the heatmaps across a
     threshold."""
@@ -466,6 +480,8 @@ def test_presets_bf16_records_equal_jax(preset, n_records):
 
 RESIDUAL_MIN_EQUAL = 0.9995  # equal share at a residual site (fp32 sums' order)
 SMALL_BF16 = dict(embed_dim=64, enc_depth=2, enc_heads=4, dec_heads=4, max_label_length=7)
+# A width at which JAX's gates run the Pallas recognizer kernels (D % 128 == 0).
+PALLAS_D128 = dict(embed_dim=128, enc_depth=2, enc_heads=4, dec_heads=4, max_label_length=7)
 
 
 def _linear(w, b):
@@ -502,20 +518,14 @@ def test_linear_residual_bf16_equals_jax(rshape):
         lin(torch.from_numpy(h), act="gelu", residual=torch.from_numpy(r))
 
 
-@pytest.fixture(scope="module")
-def small_bf16():
-    """(JAX params with seeded nonzero biases, the port's Parseq on them at
-    bf16, JAX config, crops, JAX's bf16 memory of the crops)."""
-    from tuatara_tpu.config import ParseqConfig as JaxParseqConfig
+def _seeded_params(jcfg, seed):
+    """JAX `init_parseq_params` (numpy) with seeded nonzero biases and a
+    head scaled for confident, varied tokens."""
     from tuatara_tpu.models import parseq as jparseq
-    from tuatara_tpu_torch.config import ParseqConfig
-    from tuatara_tpu_torch.models.parseq import Parseq
-    from tuatara_tpu_torch.weights import parseq_state_dict
 
-    jcfg = JaxParseqConfig(**SMALL_BF16)
     params = jax.tree_util.tree_map(
-        np.asarray, jparseq.init_parseq_params(jax.random.PRNGKey(3), jcfg))
-    rng = np.random.default_rng(3)
+        np.asarray, jparseq.init_parseq_params(jax.random.PRNGKey(seed), jcfg))
+    rng = np.random.default_rng(seed)
 
     def biases(tree):
         for k, v in tree.items():
@@ -529,6 +539,21 @@ def small_bf16():
 
     biases(params)
     params["head"]["w"] = params["head"]["w"] * 40.0  # confident, varied tokens
+    return params
+
+
+@pytest.fixture(scope="module")
+def small_bf16():
+    """(JAX params with seeded nonzero biases, the port's Parseq on them at
+    bf16, JAX config, crops, JAX's bf16 memory of the crops)."""
+    from tuatara_tpu.config import ParseqConfig as JaxParseqConfig
+    from tuatara_tpu.models import parseq as jparseq
+    from tuatara_tpu_torch.config import ParseqConfig
+    from tuatara_tpu_torch.models.parseq import Parseq
+    from tuatara_tpu_torch.weights import parseq_state_dict
+
+    jcfg = JaxParseqConfig(**SMALL_BF16)
+    params = _seeded_params(jcfg, 3)
     m = Parseq(ParseqConfig(**SMALL_BF16))
     m.load_state_dict(parseq_state_dict(params))
     TL.set_compute_dtype(m.eval(), BF16)
@@ -561,6 +586,19 @@ def _site(name, params, m, jcfg, crops, memory):
             want = run(lambda p, x: JL.linear(p["patch_embed"], x, bf16) + p["pos_embed"])(
                 params, x)
             return m.patch_embed(t(x), residual=m.pos_embed), want
+        if name == "k6_patch_pos_embed":
+            # `parseq_encode`'s Pallas branch: the sum cast to fp32 for K6.
+            x = rng.random((8, jcfg.seq_len, 96), dtype=np.float32)
+            want = run(lambda p, x: (JL.linear(p["patch_embed"], x, bf16)
+                                     + p["pos_embed"]).astype(jnp.float32))(params, x)
+            return m.patch_embed(t(x), residual=m.pos_embed), want
+        if name in ("k7_memory_k", "k7_memory_v"):
+            # `parseq_greedy_decode`'s Pallas branch: the memory K/V cast
+            # to bf16 for K7; the port's `greedy_decode` before K7.
+            key = name[-1]
+            want = run(lambda a, x: JL.linear(a[key], x, bf16).astype(bf16))(
+                layer["cross_attn"], memory)
+            return getattr(tl.cross_attn, key)(t(memory.copy())).to(torch.bfloat16), want
         if name in ("vit_attn", "vit_mlp"):
             # The attention's output projection fed the attention's output
             # (the softmax's fp32 sums run in XLA's order, not torch's), and
@@ -633,12 +671,14 @@ def _site_shares(monkeypatch, site, fixture):
 
 
 @pytest.mark.parametrize("site", ["patch_pos_embed", "vit_attn", "vit_mlp", "decode_self_attn",
-                                  "decode_cross_attn", "dec_ff", "greedy_decode"])
+                                  "decode_cross_attn", "dec_ff", "greedy_decode",
+                                  "k6_patch_pos_embed"])
 def test_residual_sites_bf16_equal_jax(small_bf16, monkeypatch, site):
     """Each place where XLA leaves a bf16 Linear's bias add unrounded
     (`probe_torch_bf16.py hlo`), fed the same inputs as JAX's compiled
     expression on seeded weights with nonzero biases: `patch_embed +
-    pos_embed`, a ViT block's attention and MLP residuals, the decoder's
+    pos_embed` (also as the Pallas branch casts it for K6), a ViT block's
+    attention and MLP residuals, the decoder's
     self-attention, cross-attention and MLP (`DecoderLayer.ff` after its
     LayerNorm) residuals, and the whole greedy decode, whose steps hold
     the same three with the position query as the first residual and whose
@@ -647,6 +687,17 @@ def test_residual_sites_bf16_equal_jax(small_bf16, monkeypatch, site):
     The rounded form, the bias add rounded first, parts from JAX on far more."""
     share, rounded = _site_shares(monkeypatch, site, small_bf16)
     assert share >= RESIDUAL_MIN_EQUAL and rounded < share - 0.2, (share, rounded)
+
+
+@pytest.mark.parametrize("site", ["k7_memory_k", "k7_memory_v"])
+def test_kernel_side_rounded_sites_bf16_equal_jax(small_bf16, site):
+    """The bias adds that XLA rounds next to K7 (`HLO_UNROUNDED`'s
+    forced-Pallas graph): the memory K/V projections cast to bf16 for the
+    kernel, fed the same memory as JAX's compiled expression, at least
+    MIN_EQUAL of the values equal, bf16 on both sides."""
+    got, want = _site(site, *small_bf16)
+    assert got.dtype == BF16 and want.dtype == jnp.bfloat16
+    assert _equal_share(got.float().numpy(), np.asarray(want.astype(jnp.float32))) >= MIN_EQUAL
 
 
 # A whole ViT block, the refine and the beam decode also run LayerNorms,
@@ -682,38 +733,102 @@ def test_layers_with_residual_sites_bf16_agree_with_jax(small_bf16, monkeypatch,
     assert np.abs(rounded[:, -1] - want[:, -1]).max() > 100 * BEAM_SCORE_ATOL
 
 
+# JAX's forced-Pallas recognizer (K6 interpreted, K7 by `_simulate_kernel`)
+# against the port's at D = 128 on 16 random crops: equal ids. K6's plain
+# version sums in other orders than the interpreted kernel, so roundings to
+# bf16 in the memory flip and grow through the blocks (23% of its values
+# equal, at most 1.9e-3 apart): the confidences part by up to 1.6e-2 (8 bf16
+# steps at 0.33). Fed JAX's memory and greedy logits, the port's refine and
+# confidence give JAX's confidences within a bf16 step (equal when measured).
+PALLAS_CONF_ATOL = 2e-2
+
+
+def test_forced_pallas_recognize_equals_jax():
+    """`Parseq.recognize` under latency()'s lowering at bf16 (K6, K7 and the
+    eager sites and confidence between them) against JAX's
+    `_recognize_body` with its Pallas kernels forced, at D = 128 (2
+    encoder blocks, 4 heads) with seeded nonzero biases: the ids equal,
+    the confidences within PALLAS_CONF_ATOL, and within a bf16 step when
+    the port's refine is fed JAX's memory and greedy logits."""
+    import dataclasses
+
+    from probe_torch_bf16 import PALLAS, jax_recognize
+    from tuatara_tpu.config import ParseqConfig as JaxParseqConfig
+    from tuatara_tpu.models import parseq as jparseq
+    from tuatara_tpu_torch.config import ParseqConfig
+    from tuatara_tpu_torch.models.parseq import Parseq, confidence
+    from tuatara_tpu_torch.weights import parseq_state_dict
+
+    jcfg = JaxParseqConfig(**PALLAS_D128)
+    params = _seeded_params(jcfg, 6)
+    m = Parseq(ParseqConfig(**PALLAS_D128, **PALLAS))
+    m.load_state_dict(parseq_state_dict(params))
+    m.eval().prestack(BF16)
+    TL.set_compute_dtype(m, BF16)
+    crops = np.random.default_rng(22).random((16, 32, 128, 3), dtype=np.float32)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    ids, conf = jax_recognize(jparams, crops, jcfg)
+    with torch.no_grad():
+        got_ids, got_conf = m.recognize(torch.from_numpy(crops))
+    np.testing.assert_array_equal(got_ids.numpy(), ids)
+    np.testing.assert_allclose(got_conf.numpy(), conf, rtol=0, atol=PALLAS_CONF_ATOL)
+    pcfg = dataclasses.replace(jcfg, **PALLAS)
+    jmem = np.array(jax.jit(lambda p, x: jparseq.parseq_encode(
+        p, x, pcfg, jnp.bfloat16))(jparams, crops))
+    jar = np.array(jax.jit(lambda p, x: jparseq.parseq_greedy_decode(
+        p, x, pcfg, jnp.bfloat16)[0])(jparams, jmem))
+    with torch.no_grad():
+        logits = m.refine(torch.from_numpy(jmem), torch.from_numpy(jar))
+    fed_ids, fed_conf = confidence(logits.to(BF16))
+    np.testing.assert_array_equal(fed_ids.numpy(), ids)
+    np.testing.assert_allclose(fed_conf.numpy(), conf, rtol=2.0**-8, atol=0)
+
+
 def test_fused_kernels_keep_the_rounded_residual_form():
-    """Where `prestack` builds K6's or K7's bundle (`latency()`,
-    `production()`), the eager residual sites around them keep the
-    rounded bias add, then the residual (`Linear.fp32_residual` off): JAX's
-    CPU reference runs XLA's eager encoder and decode there, not the fused
-    kernels, and the unrounded form moved that preset's records below its
-    floor on the card. Without a bundle the sites take the fp32 form."""
+    """The bias adds next to K6 and K7 take the form that XLA's graph of
+    the forced-Pallas JAX engine shows (`probe_torch_bf16.py hlo`,
+    `HLO_UNROUNDED["serving_pallas"]`), as the eager lowering's do: with the
+    bundles built (`latency()`'s lowering at D = 128) and without them,
+    `patch_embed + pos_embed` before K6 and the refine's three residuals
+    are added unrounded in fp32 (`bias_add_f32`), while K7's memory K/V
+    projections and the refine's head keep the rounded bias add. (Until
+    the forced-Pallas reference existed, these sites stayed rounded where
+    the bundles were built.)"""
     from tuatara_tpu_torch.config import ParseqConfig
     from tuatara_tpu_torch.models.parseq import Parseq
 
     rng = np.random.default_rng(13)
-    x = torch.from_numpy(rng.random((4, 128, 96), dtype=np.float32))
+    x = torch.from_numpy(rng.random((8, 128, 96), dtype=np.float32))
     forms = []
     for impl in ("xla", "pallas"):
         torch.manual_seed(0)
-        m = Parseq(ParseqConfig(**SMALL_BF16, encoder_impl=impl, decode_impl=impl))
+        m = Parseq(ParseqConfig(**PALLAS_D128, encoder_impl=impl, decode_impl=impl))
         with torch.no_grad():
             for prm in m.parameters():
                 prm.normal_(0, 0.3)
         m.prestack(BF16)
         TL.set_compute_dtype(m.eval(), BF16)
-        assert all(lin.fp32_residual == (impl == "xla") for lin in m.modules()
-                   if isinstance(lin, TL.Linear))
+        assert (m.enc_stacked is not None) == (m.dec_stacked is not None) == (impl == "pallas")
         with torch.no_grad():
             got = m.patch_embed(x, residual=m.pos_embed)
             y = F.linear(x.to(BF16), m.patch_embed.weight)
-            b = m.patch_embed.bias
-            want = (BA.bias_add_f32_plain(y, b, m.pos_embed) if impl == "xla"
-                    else m.pos_embed + (y + b))
-        assert got.dtype == torch.float32 and torch.equal(got, want)
+            assert torch.equal(got, BA.bias_add_f32_plain(y, m.patch_embed.bias, m.pos_embed))
+            memory = m.encode(x.reshape(8, 32, 128, 3))
+            ca = m.dec[0].cross_attn
+            mem_k = ca.k(memory)
+            assert mem_k.dtype == BF16 and torch.equal(
+                mem_k, F.linear(memory.to(BF16), ca.k.weight) + ca.k.bias)
+            ar, calls = m.greedy_decode(memory), []
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(TL, "bias_add_f32",
+                           lambda *a: calls.append(a) or BA.bias_add_f32_plain(*a))
+                logits = m.refine(memory, ar)
+            assert len(calls) == 3 and all(len(a) == 3 for a in calls)  # three residuals
+            head_in = m.dec_norm(torch.zeros(1, 1, m.cfg.embed_dim))
+            assert m.head(head_in).dtype == BF16  # the head: rounded
+        assert logits.dtype == torch.float32
         forms.append(got)
-    assert not torch.equal(*forms)
+    assert torch.equal(*forms)
 
 
 def _residuals(dtype, rng):
@@ -837,19 +952,23 @@ def test_hlo_probe_tells_rounded_from_unrounded():
 
 
 # Each graph's unrounded bias adds by (file, line) of the call to `linear` /
-# `conv2d`: the serving graph of the greedy `_recognize_body` and the
-# training losses' gradients.
+# `conv2d`: the serving graph of the greedy `_recognize_body`, the same with
+# the Pallas recognizer kernels forced (K6 interpreted, K7 a host callback:
+# the eager sites around them, `patch_embed + pos_embed` and the refine's
+# residuals) and the training losses' gradients.
 HLO_UNROUNDED = {
     "serving": [("layers.py", 445), ("layers.py", 558), ("layers.py", 558), ("layers.py", 558),
                 ("layers.py", 582), ("parseq.py", 112), ("parseq.py", 245), ("parseq.py", 245),
                 ("parseq.py", 442)],
+    "serving_pallas": [("layers.py", 558), ("layers.py", 558), ("parseq.py", 112),
+                       ("parseq.py", 245)],
     "training": [("craft.py", 307), ("craft.py", 307), ("craft.py", 307), ("layers.py", 445),
                  ("layers.py", 558), ("layers.py", 558), ("layers.py", 558), ("parseq.py", 112),
                  ("parseq.py", 245), ("parseq.py", 318)],
 }
 
 
-@pytest.mark.parametrize("graph", ["serving", "training"])
+@pytest.mark.parametrize("graph", ["serving", "serving_pallas", "training"])
 def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
     """On the golden weights, XLA's graph of the greedy `_recognize_body`
     (the eager encoder, the greedy decode, the refine, the confidence), or
@@ -859,11 +978,21 @@ def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
     `patch_embed`, in training also the PLM loss's head. CRAFT's training
     convs before a BatchNorm or the loss are listed and left as they are
     (the bf16 training parity on the card moved out of its bounds with
-    them). The serving heads stay rounded."""
+    them). The serving heads stay rounded. With the Pallas recognizer
+    kernels forced (`latency()`'s lowering at D = 128, random weights),
+    the sites around K6 and K7: `patch_embed` and the refine's residuals
+    unrounded, K7's memory K/V and the head rounded."""
     import probe_torch_bf16 as probe
+    from tuatara_tpu.api import OcrEngine as JaxEngine
+    from tuatara_tpu.config import ParseqConfig as JaxParseqConfig
 
-    graphs = probe.hlo_graphs()
-    keep = graphs[:1] if graph == "serving" else [g for g in graphs if g[3]]
+    if graph == "serving_pallas":
+        keep = [probe.pallas_graph(JaxEngine(probe.jax_config("latency_pallas"),
+                                             parseq_config=JaxParseqConfig(**PALLAS_D128),
+                                             seed=0))]
+    else:
+        graphs = probe.hlo_graphs(pallas=False)
+        keep = graphs[:1] if graph == "serving" else [g for g in graphs if g[3]]
     monkeypatch.setattr(probe, "hlo_graphs", lambda: keep)
     found = probe.hlo_sites()
     unrounded = [site for site, o in found if any(x.startswith("fp32") for x in o)]
@@ -879,6 +1008,14 @@ def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
     if graph == "serving":
         heads = [o for site, o in found if site[0][2] in (318, 450)]
         assert len(heads) == 2 and all(o == {"rounded"} for o in heads)
+    if graph == "serving_pallas":
+        heads = [o for site, o in found if site[0][2] == 318]
+        assert len(heads) == 1 and heads[0] == {"rounded"}
+        kv = [site for site, o in found if site[0][:3:2] in (("parseq.py", 369),
+                                                             ("parseq.py", 370))]
+        assert len(kv) == 2 and all(dict(found)[site] == {"rounded"} for site in kv)
+        for site in kv:
+            assert ".to(torch.bfloat16)" in _source_line(probe.port_line(site)), site
 
 
 def _source_line(where):

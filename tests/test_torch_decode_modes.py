@@ -172,12 +172,17 @@ def test_decode_modes_record_is_live_jax(record):
 
 @pytest.mark.parametrize("mode", ["beam", "nar", "greedy"])
 def test_latency_bundles_by_mode(mode):
-    """latency() at bf16: K6's bundle always, K7's only for the greedy
-    decode (JAX's decode_impl affects greedy alone); the engine serves."""
+    """latency() at bf16: K6's bundle in every mode, K7's only for the
+    greedy decode (JAX's decode_impl affects greedy alone), where JAX's gates
+    run the Pallas kernels: at PARSEQ's width, 384 (random weights), not at
+    the golden weights' 32. The golden engine serves."""
+    full = tuatara_tpu_torch.OcrEngine(OcrConfig.latency(decode_mode=mode), device="cpu",
+                                       seed=0)
+    assert full.parseq.enc_stacked is not None
+    assert (full.parseq.dec_stacked is not None) == (mode == "greedy")
     engine = tuatara_tpu_torch.OcrEngine(
         OcrConfig.latency(decode_mode=mode, max_label_length=7), weights_dir=GOLDEN,
         device="cpu")
-    assert engine.parseq.enc_stacked is not None
-    assert (engine.parseq.dec_stacked is not None) == (mode == "greedy")
+    assert engine.parseq.enc_stacked is None and engine.parseq.dec_stacked is None
     got = engine.run(image("rotated_text"))
     assert got and all(0.0 <= w["confidence"] <= 1.0 for w in got)

@@ -12,13 +12,19 @@ stacking and plain version against the JAX package's Pallas kernel.
   relative err <= 1e-3 (that test allows 5e-2 / 5e-3 against the erf chain).
 * `Parseq.encode` with encoder_impl="pallas" against JAX `parseq_encode`
   at bf16 with the Pallas kernel in interpret mode, same tolerance.
+* JAX's gates: the port's `recognize` runs K6 and K7 exactly where JAX's
+  recognizer runs its Pallas kernels (width a multiple of 128; K6 also a
+  slab of a multiple of 8 crops), and rebuilds the released encoder blocks
+  from K6's bundle, bit for bit, for a slab that K6 does not take.
 
 The CUDA kernel runs only on the card (`chip_smoke.py` holds it against
 `vit_blocks_plain` there); here the wrapper must take the plain path and
 count no launch.
 """
 
+import copy
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -26,6 +32,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch import nn
 
 from tuatara_tpu.config import ParseqConfig as JaxParseqConfig
 from tuatara_tpu.models import layers as L
@@ -117,15 +124,20 @@ def test_encode_pallas_matches_jax():
 
 
 def test_prestack_gates():
-    """No bundle at float32 compute or with the default lowering."""
-    cfg = JaxParseqConfig(embed_dim=64, enc_depth=1, enc_heads=4, dec_heads=4,
+    """No bundle at float32 compute, with the default lowering, or at a
+    width that is not a multiple of 128 (JAX's gates)."""
+    cfg = JaxParseqConfig(embed_dim=128, enc_depth=1, enc_heads=4, dec_heads=4,
                           max_label_length=7)
     params = init_parseq_params(jax.random.PRNGKey(1), cfg)
     m = _port_parseq(params, cfg)
     m.prestack(torch.bfloat16)
     assert m.enc_stacked is None and m.dec_stacked is None
-    m = _port_parseq(params, dataclasses.replace(cfg, encoder_impl="pallas",
-                                                 decode_impl="pallas"))
+    pallas = dict(encoder_impl="pallas", decode_impl="pallas")
+    narrow = dataclasses.replace(cfg, embed_dim=64, **pallas)
+    m = _port_parseq(init_parseq_params(jax.random.PRNGKey(1), narrow), narrow)
+    m.prestack(torch.bfloat16)
+    assert m.enc_stacked is None and m.dec_stacked is None
+    m = _port_parseq(params, dataclasses.replace(cfg, **pallas))
     m.prestack(torch.float32)
     assert m.enc_stacked is None and m.dec_stacked is None
     m.prestack(torch.bfloat16)
@@ -133,6 +145,69 @@ def test_prestack_gates():
     assert not any(k.startswith(("enc_stacked", "dec_stacked")) for k in m.state_dict())
     # The per-block encoder modules are released once K6's bundle holds them.
     assert len(m.enc) == 0 and not any(k.startswith("enc.") for k in m.state_dict())
+
+
+@pytest.mark.parametrize("n", [12, 16])
+@pytest.mark.parametrize("d", [32, 128])
+def test_kernels_run_where_jax_gates_run(d, n, monkeypatch):
+    """`Parseq.recognize` (latency()'s lowering, bf16) runs K6 and K7 exactly
+    where JAX's `_recognize_body` runs `vit_blocks_pallas` and
+    `greedy_decode_pallas`: K7 at D = 128, K6 at D = 128 on a slab of a
+    multiple of 8 crops, neither at D = 32. JAX's calls are recorded while
+    it traces; the port's wrappers are wrapped to record theirs. At N = 12
+    the port rebuilds the released blocks from K6's bundle
+    (`eager_blocks`), equal to the modules it released."""
+    import tuatara_tpu.ops.pallas.decode as pallas_decode
+    import tuatara_tpu.ops.pallas.vit as pallas_vit
+    from tuatara_tpu.api import OcrEngine as JaxEngine
+    from tuatara_tpu.config import OcrConfig as JaxOcrConfig
+    from tuatara_tpu_torch.kernels import decode as K7
+    from tuatara_tpu_torch.kernels import vit as K6
+    from tuatara_tpu_torch.models.layers import set_compute_dtype
+
+    cfg = JaxParseqConfig(embed_dim=d, enc_depth=2, enc_heads=4, dec_heads=4,
+                          max_label_length=7, encoder_impl="pallas", decode_impl="pallas")
+    params = init_parseq_params(jax.random.PRNGKey(d), cfg)
+    crops = np.random.default_rng(n).random((n, 32, 128, 3), np.float32)
+    ran = {"jax": set(), "port": set()}
+    T, C = cfg.max_label_length + 1, cfg.charset_size + 1
+
+    def jax_k6(x, *a, **k):
+        ran["jax"].add("K6")
+        return x
+
+    def jax_k7(mem_k, *a, **k):
+        ran["jax"].add("K7")
+        return jnp.zeros((mem_k.shape[0], T, C), jnp.float32)
+
+    monkeypatch.setattr(pallas_vit, "vit_blocks_pallas", jax_k6)
+    monkeypatch.setattr(pallas_decode, "greedy_decode_pallas", jax_k7)
+    eng = SimpleNamespace(parseq_config=cfg, config=JaxOcrConfig(), mesh=None)
+    jax.jit(lambda p, x: JaxEngine._recognize_body(eng, p, x)).lower(params, crops)
+
+    for name, mod, fn in (("K6", K6, "vit_blocks"), ("K7", K7, "greedy_decode")):
+        def record(*a, _name=name, _fn=getattr(mod, fn), **k):
+            ran["port"].add(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, fn, record)
+    m = _port_parseq(params, cfg)
+    eager = [copy.deepcopy(blk) for blk in m.enc]
+    m.prestack(torch.bfloat16)
+    set_compute_dtype(m, torch.bfloat16)
+    with torch.no_grad():
+        ids, conf = m.recognize(torch.from_numpy(crops))
+    assert ids.shape == (n, T) and torch.isfinite(conf).all()
+    want = {"K7"} if d == 128 else set()
+    if d == 128 and n % 8 == 0:
+        want.add("K6")
+    assert ran["jax"] == ran["port"] == want
+    if d == 128 and n % 8:
+        set_compute_dtype(nn.ModuleList(eager), torch.bfloat16)
+        got = m.eager_blocks().state_dict()
+        want_sd = nn.ModuleList(eager).state_dict()
+        assert set(got) == set(want_sd)
+        for k, v in want_sd.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
 
 
 def test_kernel_geometry_checks():

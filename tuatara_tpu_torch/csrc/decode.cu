@@ -11,8 +11,10 @@
 //   cross-attention LN1(x) @ Wq + bq over the memory K/V [S, D] of the crop;
 //   x += ctx @ Wco + bco;  x += gelu_tanh(LN2(x) @ W1 + b1) @ W2 + b2
 //   logits = LN(x) @ Wh + bh  -> out[crop, i, :];  tok_{i+1} = argmax
-// with bf16 operands, fp32 products and sums, fp32 LayerNorm and softmax and
-// the attention probabilities rounded to bf16 before they weight V. A tile
+// with bf16 operands, fp32 LayerNorm and softmax, the attention
+// probabilities rounded to bf16 before they weight V, each attention
+// product (q * k, p * v) rounded to bf16 before its fp32 sum, as the TPU
+// kernel computes them, and the products of the matmuls exact. A tile
 // stops once every crop in it has emitted EOS (id 0); positions it never
 // reaches keep EOS-certain logits (+30 at id 0, -30 elsewhere).
 //
@@ -185,7 +187,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 8 bf16 of a against 8 bf16 of b, 16-byte aligned: fp32 sum of products.
+// The product of two bf16 values (exact in fp32) rounded to bf16, as the
+// TPU kernel's bf16 `q * k` and `p * v` are. __fmul_rn keeps nvcc from
+// contracting the product into the add that follows.
+__device__ __forceinline__ float mul_bf(float a, float b) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(a, b)));
+}
+
+// 8 bf16 of a against 8 bf16 of b, 16-byte aligned: the fp32 sum of the
+// products, each rounded to bf16 first.
 __device__ __forceinline__ float dot8(const bf16* a, const bf16* b) {
   uint4 ua = *reinterpret_cast<const uint4*>(a);
   uint4 ub = *reinterpret_cast<const uint4*>(b);
@@ -196,21 +206,22 @@ __device__ __forceinline__ float dot8(const bf16* a, const bf16* b) {
   for (int k = 0; k < 4; ++k) {
     float2 fx = __bfloat1622float2(x[k]);
     float2 fy = __bfloat1622float2(y[k]);
-    s += fx.x * fy.x;
-    s += fx.y * fy.y;
+    s += mul_bf(fx.x, fy.x);
+    s += mul_bf(fx.y, fy.y);
   }
   return s;
 }
 
-// o[0..8) += w * v[0..8) for 8 bf16 of v, 16-byte aligned.
+// o[0..8) += bf16(w * v[0..8)) for 8 bf16 of v, 16-byte aligned; w is
+// bf16-valued.
 __device__ __forceinline__ void axpy8(float* o, float w, const bf16* v) {
   uint4 u = *reinterpret_cast<const uint4*>(v);
   const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     float2 f = __bfloat1622float2(y[k]);
-    o[2 * k] += w * f.x;
-    o[2 * k + 1] += w * f.y;
+    o[2 * k] += mul_bf(w, f.x);
+    o[2 * k + 1] += mul_bf(w, f.y);
   }
 }
 

@@ -11,13 +11,15 @@ is the next token. Crops run in tiles of `tb`; a tile stops once every
 crop in it has emitted EOS (id 0), and positions it never reached keep
 EOS-certain logits (+30 at id 0, -30 elsewhere).
 
-Numerics: bf16 operands with fp32 products and sums, fp32 LayerNorm and
-softmax, attention probabilities rounded to bf16 before they weight V. The
-TPU kernel's one-hot gather matmul and segment-matmul attention are Mosaic
-workarounds and are not carried over: rows are gathered and per-head dot
-products taken directly, so the exact fp32 products of bf16 operands stand
-where the TPU kernel rounds q*k and p*v products to bf16 (a bf16-class
-difference).
+Numerics, the TPU kernel's: bf16 operands, fp32 LayerNorm and softmax,
+attention probabilities rounded to bf16 before they weight V, and every
+attention product (q*k and p*v, in the self- and the cross-attention)
+rounded to bf16 before it is summed in fp32 (the Pallas body's bf16
+`q * k` and `p_full * v`). The matmuls' products stay exact, summed in
+fp32. The TPU kernel's one-hot gather matmul and segment-matmul attention
+are Mosaic workarounds and are not carried over: rows are gathered and
+each head's rounded products summed directly, so only the fp32 sums'
+order differs from the TPU kernel's.
 """
 
 from __future__ import annotations
@@ -95,6 +97,12 @@ def stack_decode_weights(parseq: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _rounded(prod: torch.Tensor) -> torch.Tensor:
+    """fp32 products of bf16 values (exact) rounded to bf16, widened back
+    for the fp32 sum."""
+    return prod.to(torch.bfloat16).float()
+
+
 def greedy_decode_plain(mem_k: torch.Tensor, mem_v: torch.Tensor,
                         st: Dict[str, torch.Tensor], heads: int, t: int,
                         n_classes: int, bos_id: int, eps: float = 1e-6,
@@ -119,13 +127,13 @@ def greedy_decode_plain(mem_k: torch.Tensor, mem_v: torch.Tensor,
             kk = st["k_tab"][pos[None], toks[:, :i + 1]].float().reshape(b, i + 1, heads, hd)
             vv = st["v_tab"][pos[None], toks[:, :i + 1]].float().reshape(b, i + 1, heads, hd)
             q = st["qh_all"][i].float().reshape(heads, hd)
-            p = torch.softmax((kk * q).sum(-1) * scale, dim=1).to(bf).float()  # [b, i+1, H]
-            attn = (p[..., None] * vv).sum(1).reshape(b, d)
+            p = torch.softmax(_rounded(kk * q).sum(-1) * scale, dim=1).to(bf).float()  # [b, i+1, H]
+            attn = _rounded(p[..., None] * vv).sum(1).reshape(b, d)
             x = st["pos_q"][i] + mm(attn.to(bf), w["o_w"], st["o_b"])
             cn1 = layernorm(x, st["norm1_g"], st["norm1_b"], eps).to(bf)
             qc = mm(cn1, w["cq_w"], st["cq_b"]).to(bf).float().reshape(b, 1, heads, hd)
-            p = torch.softmax((mk * qc).sum(-1) * scale, dim=1).to(bf).float()  # [b, S, H]
-            ctx = (p[..., None] * mv).sum(1).reshape(b, d)
+            p = torch.softmax(_rounded(mk * qc).sum(-1) * scale, dim=1).to(bf).float()  # [b, S, H]
+            ctx = _rounded(p[..., None] * mv).sum(1).reshape(b, d)
             x = x + mm(ctx.to(bf), w["co_w"], st["co_b"])
             h2 = layernorm(x, st["norm2_g"], st["norm2_b"], eps).to(bf)
             hmid = F.gelu(mm(h2, w["f1_w"], st["f1_b"]), approximate="tanh").to(bf)

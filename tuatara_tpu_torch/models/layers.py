@@ -107,10 +107,6 @@ class Linear(nn.Module):
     """y = x @ W^T + b, W stored [out, in]."""
 
     compute_dtype: Optional[torch.dtype] = None  # set by `cast_products`
-    # With a residual at a 16-bit compute dtype: the bias added in fp32 and
-    # never rounded (True), or rounded first, then the residual added
-    # (False: what `Parseq.prestack` sets where the fused kernels run).
-    fp32_residual: bool = True
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -126,8 +122,7 @@ class Linear(nn.Module):
         first, as JAX's `linear` does, and then either the bias is added
         with a second rounding (`add_bias`) or, with a residual, added in
         fp32 and never rounded, as XLA compiles JAX's `x + linear(h)`
-        (`bias_add_f32`); with `fp32_residual` off, rounded, then the
-        residual added."""
+        (`bias_add_f32`)."""
         if act is not None and residual is not None:
             raise ValueError("Linear: an activation and a residual do not go together")
         w, b = _cast(self)
@@ -137,10 +132,9 @@ class Linear(nn.Module):
             if residual is not None:
                 return residual + y
             return gelu(y) if act else y
-        if residual is not None and self.fp32_residual:
+        if residual is not None:
             return bias_add_f32(F.linear(x, w), b, residual)
-        y = add_bias(F.linear(x, w), b, act, dim=-1)
-        return y if residual is None else residual + y
+        return add_bias(F.linear(x, w), b, act, dim=-1)
 
 
 class PaddedLinear(Linear):

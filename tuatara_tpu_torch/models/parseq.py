@@ -12,8 +12,8 @@ three, the greedy and beam steps' three) and `patch_embed + pos_embed`
 goes through the Linear before it (`Linear(x, residual=r)`): at bf16
 XLA's CPU backend adds that Linear's bias in fp32 and never rounds the
 sum to bf16 (`tests/probe_torch_bf16.py hlo` lists these sites from the
-compiled graph), so the port adds `r + (fp32(y) + fp32(b))` in one pass;
-not where K6 or K7 runs (`prestack`).
+compiled graph), so the port adds `r + (fp32(y) + fp32(b))` in one pass,
+beside K6 and K7 too, as the forced-Pallas JAX engine's graph does.
 Every other bias add, the head's included, is rounded, except in the
 training loss, whose log-softmax reads the head's logits in fp32
 (`decode(..., fp32_logits=True)`).
@@ -39,16 +39,18 @@ training loss, whose log-softmax reads the head's logits in fp32
   GNMT length normalisation; it returns that beam's raw log-probability.
   All T steps are issued with no host read (`decode_mode="beam"`).
 
-With `encoder_impl="pallas"` / `decode_impl="pallas"` at bf16 compute (the
-JAX gates that mean something on the card), `prestack` builds the weight
-bundles of the fused kernels K6 (`kernels/vit.py`, the 12 blocks) and K7
-(`kernels/decode.py`, the whole greedy loop) once, and `encode` /
-`greedy_decode` go through them. At float32 the plain lowering stays, as
-in JAX. K7 decodes greedily only: under beam and NAR its bundle is not
-built. `quantize` makes the encoder int8 (JAX `quantize_parseq_encoder`:
-the patch embed and every block's q/k/v/o and fc1/fc2 become `QLinear`s;
-the decoder stays float); a quantized encoder never takes K6, as JAX's
-gate keeps the int8 encoder on XLA.
+With `encoder_impl="pallas"` / `decode_impl="pallas"`, `prestack` builds
+the weight bundles of the fused kernels K6 (`kernels/vit.py`, the 12
+blocks) and K7 (`kernels/decode.py`, the whole greedy loop) once, and
+`encode` / `greedy_decode` go through them exactly where JAX's gates run
+its Pallas kernels: at bf16 compute and a width that is a multiple of
+128, K6 also only on a slab of a multiple of 8 crops (`fused_encoder`).
+Elsewhere, and at float32, the eager lowering runs, as XLA's does in JAX.
+K7 decodes greedily only: under beam and NAR its bundle is not built.
+`quantize` makes the encoder int8 (JAX `quantize_parseq_encoder`: the
+patch embed and every block's q/k/v/o and fc1/fc2 become `QLinear`s; the
+decoder stays float); a quantized encoder never takes K6, as JAX's gate
+keeps the int8 encoder on XLA.
 
 Training (`train/`) differentiates `encode` and `decode(memory, tgt_ids,
 query=..., query_mask=...)` as they are, with fp32 parameters and the
@@ -148,37 +150,35 @@ class Parseq(nn.Module):
                  decode_mode: str = "greedy") -> None:
         """Build the fused kernels' weight bundles from the fp32 parameters
         (before `set_compute_dtype`), as the JAX engine pre-stacks at
-        construction: K6's when encoder_impl == "pallas" and the encoder is
-        not quantized, K7's when decode_impl == "pallas" and the decode is
-        greedy, both only at bf16 compute. For a CUDA `device`, a geometry
-        that K6's kernel does not take (e.g. S outside {64, 128}) raises
-        here, not at the first page; on the CPU the plain version takes
-        any. Once K6's bundle is built, `encode` no longer reads the
-        per-block modules, so they are released rather than kept as a
-        second copy of the encoder.
+        construction, where JAX's gates run its Pallas kernels: K6's when
+        encoder_impl == "pallas" and the encoder is not quantized, K7's when
+        decode_impl == "pallas" and the decode is greedy, both only at bf16
+        compute and at a width that is a multiple of 128. For a CUDA
+        `device`, a geometry that K6's kernel does not take (e.g. S outside
+        {64, 128}) raises here, not at the first page; on the CPU the plain
+        version takes any. Once K6's bundle is built, `encode` reads the
+        per-block modules only for a slab that K6 does not take, so they
+        are released and rebuilt from the bundle if such a slab comes
+        (`eager_blocks`).
 
-        Where a bundle is built, the eager residual sites around the fused
-        kernels (`patch_embed + pos_embed`, the refine's) keep the rounded
-        bias add (`Linear.fp32_residual` off): there JAX's CPU reference
-        runs XLA's eager encoder and decode (exact GELU, products rounded
-        to bf16), not K6 and K7 (tanh GELU, fp32 bias), and the unrounded
-        form moved the `latency()` records' share below its floor on the
-        card (89 of 113 against 92; ROADMAP Queue 3 item 19)."""
-        if compute_dtype != torch.bfloat16:
+        The eager residual sites around the fused kernels (`patch_embed +
+        pos_embed`, the refine's) keep XLA's unrounded bias add, as the
+        graph of the forced-Pallas JAX engine shows (`probe_torch_bf16.py
+        hlo`)."""
+        cfg = self.cfg
+        # JAX's gates (parseq_encode, parseq_greedy_decode): bf16 compute
+        # and a width that tiles to 128 lanes; the encoder's also a float
+        # encoder, and a slab of a multiple of 8 crops (`fused_encoder`).
+        if compute_dtype != torch.bfloat16 or cfg.embed_dim % 128:
             return
-        if self.cfg.encoder_impl == "pallas" and not self.quantized:
-            cfg = self.cfg
+        if cfg.encoder_impl == "pallas" and not self.quantized:
             if device is not None and torch.device(device).type == "cuda":
                 K6.check_geometry(cfg.seq_len, cfg.embed_dim, cfg.enc_heads,
                                   int(cfg.embed_dim * cfg.enc_mlp_ratio))
             self.enc_stacked = Bundle(K6.stack_vit_block_weights(self.enc))
             self.enc = nn.ModuleList()
-        if self.cfg.decode_impl == "pallas" and decode_mode == "greedy":
+        if cfg.decode_impl == "pallas" and decode_mode == "greedy":
             self.dec_stacked = Bundle(K7.stack_decode_weights(self))
-        if self.enc_stacked is not None or self.dec_stacked is not None:
-            for m in self.modules():
-                if isinstance(m, Linear):
-                    m.fp32_residual = False
 
     @property
     def quantized(self) -> bool:
@@ -222,13 +222,52 @@ class Parseq(nn.Module):
         x = images.reshape(n, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(n, gh * gw, ph * pw * c)
         x = self.patch_embed(x, residual=self.pos_embed)
-        if self.enc_stacked is not None:
+        if self.fused_encoder(n):
             x = K6.vit_blocks(x.float().contiguous(), self.enc_stacked, cfg.enc_heads,
                               cfg.layer_norm_eps)
         else:
-            for blk in self.enc:
+            for blk in self.eager_blocks():
                 x = blk(x)
         return self.enc_norm(x)
+
+    def fused_encoder(self, n: int) -> bool:
+        """Whether `encode` runs K6 on a slab of n crops: where JAX's
+        `parseq_encode` runs `vit_blocks_pallas` (K6's bundle built by
+        `prestack`, and n % 8 == 0)."""
+        return self.enc_stacked is not None and n % 8 == 0
+
+    def eager_blocks(self) -> nn.ModuleList:
+        """The encoder's blocks as modules. Once `prestack` has built K6's
+        bundle, it holds their only copy; a slab that K6 does not take
+        (n % 8 != 0, which the engine's slabs never are) then gets the
+        blocks rebuilt from it, once: the bundle holds the bf16 weights
+        and the fp32 biases and LayerNorms from which the compute dtype's
+        modules are cast, so they equal the released ones. That costs the
+        encoder's weights a second time from then on (ViT-S: 21.3 M bf16
+        values, 42.5 MB)."""
+        if len(self.enc) or self.enc_stacked is None:
+            return self.enc
+        cfg, st = self.cfg, self.enc_stacked
+        D = cfg.embed_dim
+        blocks = []
+        with torch.no_grad():
+            for i in range(st["qkv_w"].shape[0]):
+                blk = VitBlock(D, cfg.enc_heads, cfg.enc_mlp_ratio, cfg.layer_norm_eps)
+                lins = [(blk.attn.q, st["qkv_w"][i][:, :D], st["qkv_b"][i][:D]),
+                        (blk.attn.k, st["qkv_w"][i][:, D:2 * D], st["qkv_b"][i][D:2 * D]),
+                        (blk.attn.v, st["qkv_w"][i][:, 2 * D:], st["qkv_b"][i][2 * D:]),
+                        (blk.attn.o, st["o_w"][i], st["o_b"][i]),
+                        (blk.mlp.fc1, st["f1_w"][i], st["f1_b"][i]),
+                        (blk.mlp.fc2, st["f2_w"][i], st["f2_b"][i])]
+                for lin, w, b in lins:
+                    lin.weight.data = w.t().contiguous()
+                    lin.bias.data = b.to(torch.bfloat16)
+                for ln, g, b in ((blk.norm1, st["ln1_g"][i], st["ln1_b"][i]),
+                                 (blk.norm2, st["ln2_g"][i], st["ln2_b"][i])):
+                    ln.weight.data, ln.bias.data = g.clone(), b.clone()
+                blocks.append(blk.eval().requires_grad_(False).to(st["qkv_w"].device))
+        self.enc = nn.ModuleList(blocks)
+        return self.enc
 
     # ---- decoder ----
 
@@ -273,8 +312,10 @@ class Parseq(nn.Module):
         dev = memory.device
 
         if self.dec_stacked is not None:
-            # The memory K/V projections stay outside the kernel, as JAX
-            # computes them outside pallas_call.
+            # JAX's gate: K7's bundle is built where `parseq_greedy_decode`
+            # runs `greedy_decode_pallas` (`prestack`). The memory K/V
+            # projections stay outside the kernel, as JAX computes them
+            # outside pallas_call.
             ca = layer.cross_attn
             mem_k = ca.k(memory).to(torch.bfloat16).contiguous()
             mem_v = ca.v(memory).to(torch.bfloat16).contiguous()
@@ -437,7 +478,12 @@ class Parseq(nn.Module):
         if mode == "beam":
             ids, logp = self.beam_decode(self.encode(images), beam_size)
             return ids, torch.exp(logp)
-        return confidence(self(images, ar=mode != "nar"))
+        logits = self(images, ar=mode != "nar")
+        if self.cfg.refine_iters or mode == "nar":
+            # JAX's logits in the compute dtype (the head's); fp32 after the
+            # greedy decode alone, whose early-exit buffer is fp32.
+            logits = logits.to(self.head.weight.dtype)
+        return confidence(logits)
 
 
 @torch.no_grad()
@@ -479,12 +525,23 @@ def refine_mask(T: int, device=None) -> torch.Tensor:
 
 
 def confidence(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """logits [N, T, C] -> (ids [N, T], conf [N]): conf is the product of
-    the per-position max softmax probability up to and including the first
-    EOS."""
+    """logits [N, T, C] -> (ids [N, T], conf [N] fp32): conf is the product
+    of the per-position max softmax probability up to and including the
+    first EOS. fp32 logits: all in fp32. 16-bit logits: JAX's softmax, max
+    and product at that dtype as XLA's CPU backend compiles them, each of
+    its roundings kept: x - max rounded, its exp summed in fp32, the sum
+    and the exp rounded before the quotient, the quotient rounded, the
+    product taken in fp32 and rounded (returned widened to fp32)."""
     ids = torch.argmax(logits, dim=-1)
-    pmax = torch.softmax(logits, dim=-1).amax(dim=-1)
+    dt = logits.dtype
+    x = logits.float()
+    if dt == torch.float32:
+        pmax = torch.softmax(x, dim=-1).amax(dim=-1)
+    else:
+        e = torch.exp((x - x.amax(dim=-1, keepdim=True)).to(dt).float())
+        total = e.sum(dim=-1, keepdim=True).to(dt).float()
+        pmax = (e.to(dt).float() / total).to(dt).float().amax(dim=-1)
     eos = (ids == 0).to(torch.int32)
     before = (torch.cumsum(eos, dim=-1) - eos) == 0
     conf = torch.where(before, pmax, torch.ones_like(pmax)).prod(dim=-1)
-    return ids, conf
+    return ids, conf.to(dt).float()

@@ -137,7 +137,7 @@ class RowParallelLinear(_ParallelLinear):
         y = reduce_from_tp(y.float(), self.group).to(w.dtype)
         if residual is None:
             return y + b
-        if w.dtype == torch.float32 or not self.fp32_residual:
+        if w.dtype == torch.float32:
             return residual + (y + b)
         return bias_add_f32(y, b, residual)
 
