@@ -339,17 +339,28 @@ line without a CUDA device or outside the repo.
              view; its backward (`_BiasAct`, what the training graph runs)
              against autograd through the plain version, bit for bit;
              timed a call and a page beside its plain version, torch.add
-             then F.relu, and its byte bound, and its host time a call
-             beside torch.add then F.relu (its kernels line entry). Its
+             then F.relu, and its byte bound, traced at the page's largest
+             map beside that map's bound, and its host time a call beside
+             torch.add then F.relu (its kernels line entry); the
+             GELU mode timed on fc1's calls of the first page (events and
+             traced device time a call, its plain version, torch.add then
+             F.gelu, its byte bound; traced device time by shape). Its
              fp32-output mode (`bias_add_f32`, tt_bias_add_f32, r +
              (fp32(y) + fp32(b))) likewise on every distinct residual
              call of the pages (widths 384, from products 384 and 1536
-             wide; residuals of y's shape, [1, S, D] and [1, 1, D]) and on
-             seeded cases of every residual shape, its backward
+             wide; residuals of y's shape, [1, S, D] and [1, 1, D]), along
+             dim 1 of every CRAFT map of the pages in both layouts (the
+             training graph's form), and on seeded cases of every residual
+             shape and of NCHW maps (95 channels, planes not a multiple of
+             8 elements, an unaligned map), its backward
              (`_BiasAddF32`) against autograd through the plain version,
              timed a call over the first page's calls beside the torch
              chain y.float() + b.float(), then + r (the kernels line's
-             library_ms) and its byte bound. Then the default and
+             library_ms) and its byte bound, traced device time by y's
+             shape. A line prints each mode's
+             host time a call beside the two PyTorch calls it replaces
+             (ReLU: torch.add, F.relu; fp32: r + torch.add(y, b); GELU:
+             torch.add, F.gelu). Then the default and
              latency() pages, counts zeroed just before and read just
              after: `bias_act` once for every float conv call that a ReLU
              follows (the trunk's, each decoder level's conv2, the head's
@@ -481,6 +492,22 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """The host's time (us) of one call of fn: n back-to-back calls, no
+    sync between them, after 50 warm ones."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def stress_masks():
@@ -1245,6 +1272,32 @@ def traced_kernels(fn, path, port_only, cats=("kernel",)):
         events = [e for e in events
                   if "(anonymous namespace)::" in e["name"] and "at::" not in e["name"]]
     return sorted(events, key=lambda e: e["ts"])
+
+
+def traced_records_ms(fn, path, expect, tries=3):
+    """The device times (ms), in launch order, of the port's kernel records
+    in a `torch.profiler` trace of fn() that kept all `expect` of them; a
+    trace that lost some is taken again, up to `tries` times. None if none
+    kept them all."""
+    for _ in range(tries):
+        events = traced_kernels(fn, path, True)
+        if len(events) == expect:
+            return [e["dur"] / 1e3 for e in events]
+    return None
+
+
+def traced_device_ms(fn, path, expect, tries=3):
+    """The sum of `traced_records_ms` (ms), or None."""
+    records = traced_records_ms(fn, path, expect, tries)
+    return None if records is None else sum(records)
+
+
+def by_shape(shapes, records):
+    """{shape: [calls, mean ms]} of per-call records (None: {})."""
+    out = {}
+    for shape, ms in zip(shapes, records or []):
+        out.setdefault(str(list(shape)), []).append(ms)
+    return {k: [len(v), sum(v) / len(v)] for k, v in out.items()}
 
 
 def k6_split(x, st, heads, eps, reps=3, gemm_calls=10):
@@ -3039,7 +3092,8 @@ def check_gelu_grad(calls, launches):
     """Phase 7, the GELU backward kernel (`gelu_grad`, csrc/bias_act.cu) on
     every call of the bf16 training steps (fc1's output gradient and
     pre-activation value): bit-equal to its plain version
-    (`gelu_plain_grad`), timed beside it, beside `aten.gelu_backward` (the
+    (`gelu_plain_grad`), timed beside it (events, and device time a call
+    from one trace of the calls), beside `aten.gelu_backward` (the
     exact derivative with other roundings, not the same function) and its
     byte bound (g and v read, the gradient written). -> the kernels line's
     entry."""
@@ -3061,8 +3115,12 @@ def check_gelu_grad(calls, launches):
     n = len(rows)
     mean = {k: sum(r[k] for r in rows) / n for k in rows[0]}
     shapes = sorted({tuple(g.shape) for g, _ in calls})
+    dev = traced_device_ms(lambda: [BA.gelu_grad(g, v) for g, v in calls],
+                           os.path.join(ROOT, "build", "gelu_grad_trace.json"), n)
+    dev = None if dev is None else dev / n
     print(f"kernel gelu_grad: {n} calls of the bf16 training steps bit-equal to the plain "
-          f"version, shapes {shapes}: ms={mean['ms']:.4f} plain_ms={mean['plain_ms']:.4f} "
+          f"version, shapes {shapes}: ms={mean['ms']:.4f} device_ms={dev} "
+          f"plain_ms={mean['plain_ms']:.4f} "
           f"aten_gelu_backward_ms={mean['aten_ms']:.4f} bound_ms={mean['bound_ms']:.6f} "
           f"(means a call)", flush=True)
     return {
@@ -3070,8 +3128,8 @@ def check_gelu_grad(calls, launches):
         "replaces": "tuatara_tpu/models/layers.py:444 (the derivative of jax.nn.gelu in the "
                     "bf16 training step, XLA ops: no TPU kernel)",
         "launches": launches, "equal": True, "max_abs_err": 0.0, "cases": n,
-        "ms": mean["ms"], "plain_ms": mean["plain_ms"], "bound_ms": mean["bound_ms"],
-        "bound_by": "bytes",
+        "ms": mean["ms"], "device_ms": dev, "plain_ms": mean["plain_ms"],
+        "bound_ms": mean["bound_ms"], "bound_by": "bytes",
         # aten.gelu_backward rounds otherwise: not the same function.
         "library_ms": None, "aten_gelu_backward_ms": mean["aten_ms"],
         "shapes": [list(x) for x in shapes],
@@ -3845,19 +3903,22 @@ def bias_act_calls(engine, pages):
     (dim -1) the first of each (width, act, bias or not). -> (those, the
     fp32-output mode's calls (`bias_add_f32`: y, bias, residual), the
     first of each (y's shape past its rows, the residual's shape), the
-    first page's all apart)."""
+    first page's all apart; the first page's GELU calls (fc1), all)."""
     import torch
 
     from tuatara_tpu_torch.models import layers
 
-    calls, f32_calls, f32_first, seen = [], [], [], set()
+    calls, f32_calls, f32_first, gelu_first, seen = [], [], [], [], set()
     saved, saved_f32 = layers.bias_act, layers.bias_add_f32
 
     def record(p, bias, act, keep_pre=False, dim=1):
         key = (p.shape[-1], act, bias is None)
+        call = (p.clone(), None if bias is None else bias.clone(), act, keep_pre, dim)
         if dim == 1 or key not in seen:
             seen.add(key)
-            calls.append((p.clone(), None if bias is None else bias.clone(), act, keep_pre, dim))
+            calls.append(call)
+        if first_page and act == "gelu":
+            gelu_first.append(call)
         return saved(p, bias, act, keep_pre, dim)
 
     def record_f32(y, bias, residual=None):
@@ -3879,7 +3940,7 @@ def bias_act_calls(engine, pages):
     finally:
         layers.bias_act, layers.bias_add_f32 = saved, saved_f32
     torch.cuda.synchronize()
-    return calls, f32_calls, f32_first
+    return calls, f32_calls, f32_first, gelu_first
 
 
 def same_bits(a, b) -> bool:
@@ -3935,11 +3996,10 @@ def check_bias_act(engine, pages, launches):
     and the host's time a call beside those two calls'. -> the kernels
     line's entry."""
     import torch
-    import torch.nn.functional as F
 
     from tuatara_tpu_torch.kernels import bias_act as BA
 
-    calls, f32_calls, f32_first = bias_act_calls(engine, pages)
+    calls, f32_calls, f32_first, gelu_first = bias_act_calls(engine, pages)
     craft_calls = [c for c in calls if c[4] == 1]
     n_checked = 0
     # Beyond the path: fp16, a Linear's 95 columns, and a view 2 bytes into
@@ -3984,73 +4044,146 @@ def check_bias_act(engine, pages, launches):
     backward_cases += [(c[0], c[2], False, -1) for c in calls if c[4] == -1][:1]
     n_backward = check_bias_act_backward(backward_cases)
     torch.cuda.synchronize()
-    first = craft_calls[:len(craft_calls) // len(pages)]
-    rows = []
-    for p, b, act, keep_pre, dim in first:
-        bview = b.reshape(-1, 1, 1)
-        ms = cuda_ms(lambda: BA.bias_act(p, b, act, keep_pre, dim), 20)
-        pms = cuda_ms(lambda: BA.bias_act_plain(p, b, act, keep_pre, dim), 20)
-        lms = cuda_ms(lambda: F.relu(torch.add(p, bview)), 20)
-        nbytes = p.numel() * p.element_size() * (3 if keep_pre else 2) + b.numel() * 2
-        rows.append({"shape": list(p.shape), "act": act, "keep_pre": keep_pre, "ms": ms,
-                     "plain_ms": pms, "add_relu_ms": lms,
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
-        print(f"kernel bias_act {str(list(p.shape)):22s} act={act} keep_pre={keep_pre} "
-              f"channels_last={p.is_contiguous(memory_format=torch.channels_last)} ms={ms:.4f} "
-              f"plain_ms={pms:.4f} add+relu_ms={lms:.4f} bound_ms={rows[-1]['bound_ms']:.6f}",
-              flush=True)
-    # Host time a call at a small map (launch-bound), the wrapper beside
-    # the two calls it replaces.
-    y = torch.randn(1, 128, 24, 24, device="cuda").bfloat16()
-    yb = torch.randn(128, device="cuda").bfloat16()
-    ybv = yb.reshape(-1, 1, 1)
-    host_us = {}
-    for name, fn in (("bias_act", lambda: BA.bias_act(y, yb, "relu")),
-                     ("torch.add+F.relu", lambda: F.relu(torch.add(y, ybv)))):
-        for _ in range(50):
-            fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(2000):
-            fn()
-        host_us[name] = (time.perf_counter() - t) / 2000 * 1e6
-        torch.cuda.synchronize()
-    print(f"kernel bias_act: host us a call at [1, 128, 24, 24] + ReLU {json.dumps(host_us)}",
-          flush=True)
-    events = traced_kernels(lambda: [BA.bias_act(*c) for c in first],
-                            os.path.join(ROOT, "build", "bias_act_trace.json"), True)
-    dev_page = sum(e["dur"] for e in events) / 1e3 if len(events) == len(first) else None
+    relu = time_relu_mode(craft_calls[:len(craft_calls) // len(pages)])
+    gelu = time_gelu_mode(gelu_first)
 
-    def total(key):
-        return sum(r[key] for r in rows)
-
-    f32 = check_bias_add_f32(f32_calls, f32_first)
-    n = len(rows)
+    f32 = check_bias_add_f32(f32_calls, f32_first, [c[0] for c in craft_calls])
+    host = relu["host_us_per_call"]
+    host_all = {"relu": host["bias_act"], "relu pair (torch.add, F.relu)":
+                host["torch.add+F.relu"], "f32": f32["host_us_per_call"]["bias_add_f32"],
+                "f32 pair (r + torch.add(y, b))":
+                f32["host_us_per_call"]["rounded form: r + torch.add(y, b)"],
+                "gelu": gelu["host_us_per_call"]["bias_act"],
+                "gelu pair (torch.add, F.gelu)": gelu["host_us_per_call"]["torch.add+F.gelu"]}
+    print(f"kernel bias_act: host us a call, each mode beside the two PyTorch calls it "
+          f"replaces: {json.dumps(host_all)}", flush=True)
+    n = relu["craft_calls_per_page"]
     print(f"kernel bias_act: {n_checked} cases bit-equal to the plain version, {n_backward} "
           f"backward cases bit-equal to autograd's; CRAFT's {n} calls a page "
-          f"({pages and next(iter(pages))}): ms/page={total('ms'):.4f} device_ms/page={dev_page} "
-          f"plain_ms/page={total('plain_ms'):.4f} add+relu_ms/page={total('add_relu_ms'):.4f} "
-          f"bound_ms/page={total('bound_ms'):.5f}", flush=True)
+          f"({pages and next(iter(pages))}): ms/page={relu['ms_per_page']:.4f} "
+          f"device_ms/page={relu['device_ms_per_page']} "
+          f"plain_ms/page={relu['plain_ms_per_page']:.4f} "
+          f"add+relu_ms/page={relu['add_relu_ms_per_page']:.4f} "
+          f"bound_ms/page={relu['bound_ms_per_page']:.5f}", flush=True)
     return {
         "name": BA.BA, "route": "cuda", "source": "tuatara_tpu_torch/csrc/bias_act.cu",
         "replaces": "tuatara_tpu/models/layers.py:94-95 and :392-393 (conv2d's and linear's "
                     "bias add with the ReLU or GELU after it, XLA ops: no TPU kernel)",
         "launches": launches.get(BA.BA, 0), "equal": True, "max_abs_err": 0.0,
-        "cases": n_checked, "backward_cases": n_backward, "ms": total("ms") / n,
-        "plain_ms": total("plain_ms") / n, "bound_ms": total("bound_ms") / n,
+        "cases": n_checked, "backward_cases": n_backward, "ms": relu["ms_per_page"] / n,
+        "plain_ms": relu["plain_ms_per_page"] / n, "bound_ms": relu["bound_ms_per_page"] / n,
         "bound_by": "bytes",
         # The ReLU and GELU modes have no one PyTorch call (the pair they
         # replace is timed apart); the library time is the fp32-output
         # mode's torch chain, y.float() + b.float(), then + r.
         "library_ms": f32["chain_ms"], "library": "fp32-output mode: torch chain "
                                                   "y.float() + b.float(), then + r",
-        "f32_mode": f32, "add_relu_ms": total("add_relu_ms") / n,
-        "device_ms_per_page": dev_page, "craft_calls_per_page": n,
-        "ms_per_page": total("ms"), "plain_ms_per_page": total("plain_ms"),
-        "add_relu_ms_per_page": total("add_relu_ms"), "bound_ms_per_page": total("bound_ms"),
-        "host_us_per_call": host_us,
+        "f32_mode": f32, "add_relu_ms": relu["add_relu_ms_per_page"] / n, **relu,
+        "host_us_per_call_by_mode": host_all, "gelu_mode": gelu,
         "timed_on": "mean a call over the first page's CRAFT calls (default path)",
     }
+
+
+def time_relu_mode(calls):
+    """Phase 10a, the ReLU mode on CRAFT's calls of the first page (`calls`:
+    (p, bias, "relu", keep_pre, 1) as the path made them): CUDA-event ms a
+    call beside the plain version, the two PyTorch calls it replaces
+    (torch.add, then F.relu) and the byte bound (p read, the output and the
+    pre-ReLU copy written); traced device ms a page and at the largest map;
+    host us a call at [1, 128, 24, 24] beside the pair. -> a summary for
+    the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from tuatara_tpu_torch.kernels import bias_act as BA
+
+    def nbytes(p, b, keep_pre):
+        return p.numel() * p.element_size() * (3 if keep_pre else 2) + b.numel() * 2
+
+    rows = []
+    for p, b, act, keep_pre, dim in calls:
+        bview = b.reshape(-1, 1, 1)
+        ms = cuda_ms(lambda: BA.bias_act(p, b, act, keep_pre, dim), 20)
+        pms = cuda_ms(lambda: BA.bias_act_plain(p, b, act, keep_pre, dim), 20)
+        lms = cuda_ms(lambda: F.relu(torch.add(p, bview)), 20)
+        rows.append((ms, pms, lms, nbytes(p, b, keep_pre) / HBM_BYTES_PER_S * 1e3))
+        print(f"kernel bias_act {str(list(p.shape)):22s} act={act} keep_pre={keep_pre} "
+              f"channels_last={p.is_contiguous(memory_format=torch.channels_last)} ms={ms:.4f} "
+              f"plain_ms={pms:.4f} add+relu_ms={lms:.4f} bound_ms={rows[-1][3]:.6f}",
+              flush=True)
+    # Host time a call at a small map (launch-bound), the wrapper beside
+    # the two calls it replaces.
+    y = torch.randn(1, 128, 24, 24, device="cuda").bfloat16()
+    yb = torch.randn(128, device="cuda").bfloat16()
+    ybv = yb.reshape(-1, 1, 1)
+    host = {"bias_act": host_us(lambda: BA.bias_act(y, yb, "relu")),
+            "torch.add+F.relu": host_us(lambda: F.relu(torch.add(y, ybv)))}
+    print(f"kernel bias_act: host us a call at [1, 128, 24, 24] + ReLU {json.dumps(host)}",
+          flush=True)
+    trace = os.path.join(ROOT, "build", "bias_act_trace.json")
+    dev_page = traced_device_ms(lambda: [BA.bias_act(*c) for c in calls], trace, len(calls))
+    p, b, act, keep, dim = max(calls, key=lambda c: c[0].numel())
+    largest = {"shape": list(p.shape), "keep_pre": keep,
+               "device_ms": traced_device_ms(lambda: BA.bias_act(p, b, act, keep, dim), trace, 1),
+               "bound_ms": nbytes(p, b, keep) / HBM_BYTES_PER_S * 1e3}
+    print(f"kernel bias_act: the largest map {json.dumps(largest)}", flush=True)
+    return {"craft_calls_per_page": len(rows), "device_ms_per_page": dev_page,
+            "ms_per_page": sum(r[0] for r in rows), "plain_ms_per_page": sum(r[1] for r in rows),
+            "add_relu_ms_per_page": sum(r[2] for r in rows),
+            "bound_ms_per_page": sum(r[3] for r in rows), "host_us_per_call": host,
+            "largest": largest}
+
+
+def time_gelu_mode(calls):
+    """Phase 10a, the GELU mode on fc1's calls of the first page (`calls`:
+    (p, bias, "gelu", keep_pre, dim) as the path made them): CUDA-event ms
+    a call, traced device ms a call, the plain version, torch.add then
+    F.gelu (the two PyTorch calls of another GELU), the byte bound (p read,
+    the output written) by shape; host us a call at [4, 128, 1536] beside
+    torch.add then F.gelu. -> a summary for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from tuatara_tpu_torch.kernels import bias_act as BA
+
+    rows = {}
+    for p, b, _, _, dim in calls:
+        ms = cuda_ms(lambda: BA.bias_act(p, b, "gelu", False, dim), 20)
+        pms = cuda_ms(lambda: BA.bias_act_plain(p, b, "gelu", False, dim), 20)
+        lms = cuda_ms(lambda: F.gelu(torch.add(p, b)), 20)
+        bound = (p.numel() * 2 * p.element_size() + b.numel() * 2) / HBM_BYTES_PER_S * 1e3
+        rows.setdefault(tuple(p.shape), []).append((ms, pms, lms, bound))
+    for shape, rr in rows.items():
+        print(f"kernel bias_act gelu {list(shape)} calls/page={len(rr)} "
+              f"ms={sum(r[0] for r in rr) / len(rr):.4f} "
+              f"plain_ms={sum(r[1] for r in rr) / len(rr):.4f} "
+              f"add+gelu_ms={sum(r[2] for r in rr) / len(rr):.4f} bound_ms={rr[0][3]:.6f}",
+              flush=True)
+    recs = traced_records_ms(lambda: [BA.bias_act(p, b, "gelu", False, d)
+                                      for p, b, _, _, d in calls],
+                             os.path.join(ROOT, "build", "bias_act_gelu_trace.json"), len(calls))
+    dev = None if recs is None else sum(recs)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    y = torch.randn(4, 128, 1536, device="cuda", generator=g).bfloat16()
+    yb = torch.randn(1536, device="cuda", generator=g).bfloat16()
+    host = {"bias_act": host_us(lambda: BA.bias_act(y, yb, "gelu", False, -1)),
+            "torch.add+F.gelu": host_us(lambda: F.gelu(torch.add(y, yb)))}
+    flat = [r for rr in rows.values() for r in rr]
+    n = max(len(flat), 1)
+    out = {"calls_first_page": len(flat), "ms": sum(r[0] for r in flat) / n,
+           "plain_ms": sum(r[1] for r in flat) / n, "add_gelu_ms": sum(r[2] for r in flat) / n,
+           "bound_ms": sum(r[3] for r in flat) / n,
+           "device_ms": None if dev is None else dev / n, "host_us_per_call": host,
+           "device_ms_by_shape": by_shape([c[0].shape for c in calls], recs),
+           "by_shape": {str(list(k)): {"calls": len(v), "ms": sum(r[0] for r in v) / len(v),
+                                       "bound_ms": v[0][3]} for k, v in rows.items()}}
+    print(f"kernel bias_act gelu: fc1's {len(flat)} calls of the first page: "
+          f"ms/call={out['ms']:.4f} device_ms/call={out['device_ms']} "
+          f"plain_ms/call={out['plain_ms']:.4f} add+gelu_ms/call={out['add_gelu_ms']:.4f} "
+          f"bound_ms/call={out['bound_ms']:.6f} device_ms_by_shape="
+          f"{json.dumps(out['device_ms_by_shape'])}; host us a call at [4, 128, 1536] "
+          f"{json.dumps(host)}", flush=True)
+    return out
 
 
 def same_f32_bits(a, b) -> bool:
@@ -4060,14 +4193,17 @@ def same_f32_bits(a, b) -> bool:
         a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
-def check_bias_add_f32(path_calls, first_page):
+def check_bias_add_f32(path_calls, first_page, craft_maps=()):
     """Phase 10a, the fp32-output mode (`bias_add_f32`, tt_bias_add_f32):
     against its plain version bit for bit on every distinct call of the
     default path's pages (PARSEQ's residual sites: [.., 384] from products
     384 and 1536 wide, residuals of y's shape, [1, S, D] pos_embed, [1, 1,
-    D] position queries) and on seeded bf16 and fp16 cases (every residual
-    shape and none, 95 columns, an unaligned y); its backward
-    (`_BiasAddF32`) against autograd
+    D] position queries), along dim 1 of every CRAFT map of the pages
+    (`craft_maps`, the training graph's conv5 and trunk form) in both NCHW
+    layouts, and on seeded bf16 and fp16 cases (every residual shape and
+    none, 95 columns, an unaligned y; along dim 1, 95 channels, planes
+    that are not a multiple of 8 elements, an unaligned map); its backward
+    (`_BiasAddF32`, along both dims) against autograd
     through the plain version; timed a call over the first page's calls
     beside its plain version, the torch chain it replaces (y.float() +
     b.float(), then + r) and its byte bound (y and r read, the fp32 sum
@@ -4083,24 +4219,47 @@ def check_bias_add_f32(path_calls, first_page):
     def rand(*shape, dtype=torch.float32):
         return (torch.randn(*shape, device="cuda", generator=gen) * 3).to(dtype)
 
-    cases = list(path_calls)
+    cases = [(y, b, r, -1) for y, b, r in path_calls]
     for dtype in (torch.bfloat16, torch.float16):
         for c in (384, 95):
             y = rand(4, 26, c, dtype=dtype)
             b = rand(c, dtype=dtype)
             for r in (None, rand(4, 26, c), rand(1, 26, c), rand(1, 1, c), rand(c),
                       rand(1, 26, c).expand(4, 26, c)):
-                cases.append((y, b, r))
+                cases.append((y, b, r, -1))
         odd = rand(26 * 384 + 1, dtype=dtype)[1:].view(26, 384)
-        cases.append((odd, rand(384, dtype=dtype), rand(26, 384)))
-    for y, b, r in cases:
-        got, want = BA.bias_add_f32(y, b, r), BA.bias_add_f32_plain(y, b, r)
-        if not same_f32_bits(got, want):
-            fail(f"bias_add_f32 differs from its plain version on {tuple(y.shape)} {y.dtype} "
-                 f"residual {None if r is None else tuple(r.shape)} (max abs err "
+        cases.append((odd, rand(384, dtype=dtype), rand(26, 384), -1))
+        for shape in ((2, 95, 10, 12), (2, 6, 5, 7), (2, 64, 16, 24)):
+            x = rand(*shape, dtype=dtype)
+            b = rand(shape[1], dtype=dtype)
+            cases += [(x, b, None, 1),
+                      (x.contiguous(memory_format=torch.channels_last), b, None, 1)]
+        odd = rand(2 * 6 * 8 * 8 + 1, dtype=dtype)[1:].view(2, 6, 8, 8)
+        cases.append((odd, rand(6, dtype=dtype), None, 1))
+    n_path_f32 = len(path_calls)
+
+    def check(y, b, r, dim):
+        got, want = BA.bias_add_f32(y, b, r, dim), BA.bias_add_f32_plain(y, b, r, dim)
+        if got.stride() != want.stride() or not same_f32_bits(got, want):
+            fail(f"bias_add_f32 differs from its plain version on {tuple(y.shape)} strides "
+                 f"{y.stride()} {y.dtype} dim {dim} residual "
+                 f"{None if r is None else tuple(r.shape)} (max abs err "
                  f"{float((got - want).abs().max())})")
+
+    for case in cases:
+        check(*case)
+    for p in craft_maps:
+        b = rand(p.shape[1], dtype=p.dtype)
+        check(p, b, None, 1)
+        check(p.contiguous() if p.is_contiguous(memory_format=torch.channels_last)
+              and not p.is_contiguous() else p.contiguous(memory_format=torch.channels_last),
+              b, None, 1)
+    n_dim1 = sum(c[3] == 1 for c in cases) + 2 * len(craft_maps)
+    n_cases = len(cases) + 2 * len(craft_maps)
+    seeded = cases[n_path_f32:n_path_f32 + 20]  # bf16's
     n_backward = 0
-    for y0, b0, r0 in cases[len(path_calls):][:6] + cases[-1:] + cases[:2]:
+    dim1 = [c for c in seeded if c[3] == 1]
+    for y0, b0, r0, dim in seeded[:6] + seeded[12:13] + dim1 + cases[:2]:
         got = []
         b0 = b0.detach().float()
         g = rand(*y0.shape)
@@ -4108,7 +4267,7 @@ def check_bias_add_f32(path_calls, first_page):
             y = y0.detach().clone().requires_grad_()
             b32 = b0.clone().requires_grad_()
             r = None if r0 is None else r0.detach().clone().requires_grad_()
-            out = fn(y, b32.to(y.dtype), r)
+            out = fn(y, b32.to(y.dtype), r, dim)
             wrt = [y, b32] + ([r] if r is not None else [])
             got.append([out] + list(torch.autograd.grad(out, wrt, g)))
         for a, w in zip(*got):
@@ -4117,6 +4276,38 @@ def check_bias_add_f32(path_calls, first_page):
                      f"on {tuple(y0.shape)} residual {None if r0 is None else tuple(r0.shape)}")
         n_backward += 1
     torch.cuda.synchronize()
+    out = {"cases": n_cases, "cases_dim1": n_dim1, "backward_cases": n_backward,
+           **time_f32_mode(first_page)}
+    print(f"kernel bias_act f32: {n_cases} cases bit-equal to the plain version ({n_dim1} "
+          f"along dim 1 of NCHW maps), {n_backward} "
+          f"backward cases bit-equal to autograd's; the first page's "
+          f"{out['calls_first_page']} calls: "
+          f"ms/call={out['ms']:.4f} plain_ms/call={out['plain_ms']:.4f} "
+          f"chain_ms/call={out['chain_ms']:.4f} bound_ms/call={out['bound_ms']:.6f} "
+          f"ms/page={out['ms_per_page']:.4f} device_ms/page={out['device_ms_per_page']} "
+          f"chain_ms/page={out['chain_ms_per_page']:.4f} device_ms_by_y_shape="
+          f"{json.dumps(out['device_ms_by_y_shape'])}; host us a call at [32, 128, 384] + "
+          f"[1, 128, 384] {json.dumps(out['host_us_per_call'])}", flush=True)
+    return out
+
+
+def time_f32_mode(first_page):
+    """Phase 10a, the fp32-output mode on the first page's calls
+    (`first_page`: (y, bias, residual) as the path made them): CUDA-event
+    ms a call beside its plain version, the torch chain it replaces
+    (y.float() + b.float(), then + r) and its byte bound (y and r read
+    once, the fp32 sum written), by shape; traced device time a page and
+    by y's shape; host us a call beside the chain's and the rounded form's
+    two launches (r + torch.add(y, b)). -> a summary for the kernels line."""
+    import torch
+
+    from tuatara_tpu_torch.kernels import bias_act as BA
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def rand(*shape, dtype=torch.float32):
+        return (torch.randn(*shape, device="cuda", generator=gen) * 3).to(dtype)
+
     rows = []
     for y, b, r in first_page:
         ms = cuda_ms(lambda: BA.bias_add_f32(y, b, r), 20)
@@ -4130,44 +4321,29 @@ def check_bias_add_f32(path_calls, first_page):
         shapes.setdefault((row[4], row[5]), []).append(row)
     for (ys, rs), rr in shapes.items():
         print(f"kernel bias_act f32 y={list(ys)} residual={list(rs)} calls/page={len(rr)} "
-              f"ms={sum(x[0] for x in rr) / len(rr):.4f} plain_ms="
-              f"{sum(x[1] for x in rr) / len(rr):.4f} chain_ms={sum(x[2] for x in rr) / len(rr):.4f} "
-              f"bound_ms={rr[0][3]:.6f}", flush=True)
+              f"ms={sum(x[0] for x in rr) / len(rr):.4f} "
+              f"plain_ms={sum(x[1] for x in rr) / len(rr):.4f} "
+              f"chain_ms={sum(x[2] for x in rr) / len(rr):.4f} bound_ms={rr[0][3]:.6f}",
+              flush=True)
     # Host time a call at the encoder's patch_embed + pos_embed shape.
     y, b, r = rand(32, 128, 384, dtype=torch.bfloat16), rand(384, dtype=torch.bfloat16), rand(
         1, 128, 384)
-    host_us = {}
-    for name, fn in (("bias_add_f32", lambda: BA.bias_add_f32(y, b, r)),
-                     ("torch chain", lambda: (y.float() + b.float()) + r),
-                     ("rounded form: r + torch.add(y, b)", lambda: r + torch.add(y, b))):
-        for _ in range(50):
-            fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(1000):
-            fn()
-        host_us[name] = (time.perf_counter() - t) / 1000 * 1e6
-        torch.cuda.synchronize()
+    host = {"bias_add_f32": host_us(lambda: BA.bias_add_f32(y, b, r)),
+            "torch chain": host_us(lambda: (y.float() + b.float()) + r),
+            "rounded form: r + torch.add(y, b)": host_us(lambda: r + torch.add(y, b))}
     # Device time a page: one trace of the first page's calls.
-    events = traced_kernels(lambda: [BA.bias_add_f32(y, b, r) for y, b, r in first_page],
-                            os.path.join(ROOT, "build", "bias_add_f32_trace.json"), True)
-    events = [e for e in events if "bias_add_f32_kernel" in e["name"]]
-    dev_page = sum(e["dur"] for e in events) / 1e3 if len(events) == len(first_page) else None
+    recs = traced_records_ms(lambda: [BA.bias_add_f32(y, b, r) for y, b, r in first_page],
+                             os.path.join(ROOT, "build", "bias_add_f32_trace.json"),
+                             len(first_page))
+    dev_page = None if recs is None else sum(recs)
     n = max(len(rows), 1)
-    out = {"cases": len(cases), "backward_cases": n_backward, "calls_first_page": len(rows),
-           "device_ms_per_page": dev_page,
-           "ms": sum(x[0] for x in rows) / n, "plain_ms": sum(x[1] for x in rows) / n,
-           "chain_ms": sum(x[2] for x in rows) / n, "bound_ms": sum(x[3] for x in rows) / n,
-           "ms_per_page": sum(x[0] for x in rows), "chain_ms_per_page": sum(x[2] for x in rows),
-           "bound_ms_per_page": sum(x[3] for x in rows), "host_us_per_call": host_us}
-    print(f"kernel bias_act f32: {len(cases)} cases bit-equal to the plain version, {n_backward} "
-          f"backward cases bit-equal to autograd's; the first page's {len(rows)} calls: "
-          f"ms/call={out['ms']:.4f} plain_ms/call={out['plain_ms']:.4f} "
-          f"chain_ms/call={out['chain_ms']:.4f} bound_ms/call={out['bound_ms']:.6f} "
-          f"ms/page={out['ms_per_page']:.4f} device_ms/page={dev_page} "
-          f"chain_ms/page={out['chain_ms_per_page']:.4f}; "
-          f"host us a call at [32, 128, 384] + [1, 128, 384] {json.dumps(host_us)}", flush=True)
-    return out
+    return {"calls_first_page": len(rows), "device_ms_per_page": dev_page,
+            "device_ms_by_y_shape": by_shape([c[0].shape for c in first_page], recs),
+            "ms": sum(x[0] for x in rows) / n, "plain_ms": sum(x[1] for x in rows) / n,
+            "chain_ms": sum(x[2] for x in rows) / n, "bound_ms": sum(x[3] for x in rows) / n,
+            "ms_per_page": sum(x[0] for x in rows), "chain_ms_per_page": sum(x[2] for x in rows),
+            "bound_ms_per_page": sum(x[3] for x in rows), "host_us_per_call": host}
+
 
 def check_bias_act_launches(pages):
     """Phase 10a, the launches: the default and latency() pages, counts

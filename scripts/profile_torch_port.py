@@ -37,7 +37,9 @@ traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
 * the port's own launch counts a page (`kernels.LAUNCHES`), and how many
   of `bias_act`'s (the bias add and ReLU of a bf16 convolution, or the
   bias add and GELU of a bf16 fc1) fall inside CRAFT and outside it
-  (PARSEQ).
+  (PARSEQ);
+* the port's own kernels by name (`port kernels`: ms and launches a page;
+  BA's `bias_act_*` and `bias_add_f32_*` among them).
 
 Writes the chrome trace to build/profile_torch_port_<config>.json.
 Usage: python3 scripts/profile_torch_port.py [--reps N]
@@ -189,7 +191,7 @@ def main() -> int:
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {ms / n_pages:8.3f} ms/page {cnt / n_pages:7.1f} launches/page "
               f"{ms / total_k * 100:5.1f}%  {name[:110]}")
-    craft_bias = sum("bias_act" in e["name"] for e in craft_kernels)
+    craft_bias = sum("::bias_act_" in e["name"] for e in craft_kernels)
     print(f"port kernel launches/page (wrapper counts): "
           f"{json.dumps({k: v / n_pages for k, v in sorted(LAUNCHES.items())})}; bias_act "
           f"inside CRAFT {craft_bias / n_pages:.1f}/page, outside "
@@ -198,7 +200,7 @@ def main() -> int:
             if any(f"(anonymous namespace)::{k}" in n
                    for k in ("cc_", "area_", "component_stats", "gemm_kernel",
                              "attention", "decode_kernel", "fused_conv_pool",
-                             "lower_chains", "bias_act"))}
+                             "lower_chains", "bias_act", "bias_add_f32", "gelu_grad"))}
     print("port kernels: " + json.dumps(
         {n: {"ms_per_page": v[0] / n_pages, "launches_per_page": v[1] / n_pages}
          for n, v in ours.items()}))

@@ -19,7 +19,7 @@ JAX's gates and the port's run no Pallas kernel):
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/probe_torch_bf16.py
 
-Three more probes, each a word on the command line:
+More probes, each a word on the command line:
 
 * `pages [PACKAGE_DIR] [--preset NAME[,NAME]] [--attribute]`: on the CPU,
   the port (or the `tuatara_tpu_torch` found under PACKAGE_DIR, e.g. a
@@ -52,13 +52,21 @@ Three more probes, each a word on the command line:
   port's counterpart by file:line where `PORT_SITES` lists it (every site
   whose sum is not rounded, and the rounded ones next to K7):
   "rounded" where a convert to bf16 comes first, or "UNROUNDED" and the
-  fp32 op its sum reaches.
+  fp32 op its sum reaches. CRAFT's decoder sum `ya + yb` is followed the
+  same way (`bias_scopes`); `CRAFT_TRAIN_SITES` names CRAFT's training
+  sites as `models/craft._train_conv` does.
+* `craft_grads [tiny|full]`: the CRAFT loss's gradient at bf16 before the
+  optimizer, the port's against JAX's leaf by leaf, with each of
+  `TrainableCraft`'s sums alone in JAX's form and with the forms the port
+  takes (ROADMAP Queue 3 item 19; `craft_grads`).
 * `resample`: table_english's shrinking, antialiased canvas resample at
   fp32 (ROADMAP Queue 3 item 6): `F.interpolate` against JAX's
   `jax.image.resize`, and the two-contraction form (JAX's weight matrix
   per axis, each output's taps fused in index order) beside it.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -622,34 +630,64 @@ class bias_scopes:
     attributes, which its own functions look up at call time) run inside a
     named scope `bias__<file>_<line>__<file>_<line>` naming the two
     innermost frames of the repository's files that called them; `self.sites` maps each scope to
-    those frames [(file, function, line), ...]. The package is not edited."""
+    those frames [(file, function, line), ...]. CRAFT's decoder sum `ya +
+    yb` (`conv1_split`, after its bias-free skip-side conv) is traced in a
+    scope of its own, `bias__sum__...` named by that conv's frames (the
+    function "conv1_split: ya + yb"), from the conv's return to the next
+    call of `batchnorm_train`, `batchnorm`, `linear` or `conv2d` (the
+    sum's BatchNorm, or with folded BatchNorms the next conv). The package
+    is not edited."""
 
     def __enter__(self):
         import jax
 
         from tuatara_tpu.models import layers as JL
 
-        self.sites, self.saved = {}, (JL.linear, JL.conv2d)
+        self.sites = {}
+        self.saved = (JL.linear, JL.conv2d, JL.batchnorm_train, JL.batchnorm)
+        self.open = []
         root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(JL.__file__))))
+
+        def close():
+            while self.open:
+                self.open.pop().__exit__(None, None, None)
 
         def scoped(fn):
             def call(*args, **kwargs):
+                close()
                 frames = [f for f in traceback.extract_stack()[:-1]
                           if os.path.abspath(f.filename).startswith(root + os.sep)][::-1][:2]
                 sites = [(os.path.basename(f.filename), f.name, f.lineno) for f in frames]
-                scope = "bias__" + "__".join(f"{n[:-3]}_{ln}" for n, _, ln in sites)
+                name = "__".join(f"{n[:-3]}_{ln}" for n, _, ln in sites)
+                scope = "bias__" + name
                 self.sites[scope] = sites
                 with jax.named_scope(scope):
-                    return fn(*args, **kwargs)
+                    out = fn(*args, **kwargs)
+                if frames and frames[0].name == "conv1_split" and "b" not in args[0]:
+                    scope = "bias__sum__" + name
+                    self.sites[scope] = [(sites[0][0], "conv1_split: ya + yb", sites[0][2]),
+                                         *sites[1:]]
+                    self.open.append(jax.named_scope(scope))
+                    self.open[-1].__enter__()
+                return out
+            return call
+
+        def closing(fn):
+            def call(*args, **kwargs):
+                close()
+                return fn(*args, **kwargs)
             return call
 
         JL.linear, JL.conv2d = scoped(JL.linear), scoped(JL.conv2d)
+        JL.batchnorm_train, JL.batchnorm = closing(JL.batchnorm_train), closing(JL.batchnorm)
+        self.close = close
         return self
 
     def __exit__(self, *exc):
         from tuatara_tpu.models import layers as JL
 
-        JL.linear, JL.conv2d = self.saved
+        self.close()
+        JL.linear, JL.conv2d, JL.batchnorm_train, JL.batchnorm = self.saved
 
 
 # The JAX call site of a bias add (the frame that called `linear`, and the
@@ -798,6 +836,155 @@ def hlo_sites(training=None):
     return out
 
 
+# `TrainableCraft`'s sums (the sites of models/craft.py `_train_conv`, and
+# `_train_sum`'s "up_sum") in JAX's form, as the `hlo` probe reads the CRAFT
+# loss's gradient; in the forms before any followed it: cuDNN's bias inside
+# every product, ya + yb in bf16; in the forms `TrainableCraft` takes; the
+# `hlo` probe's CRAFT sites (the lines of their two frames) by name.
+JAX_SITES = {"vgg": "fp32", "fc": "rounded", "up_conv1": "rounded", "up_sum": "fp32",
+             "up_conv2": "fp32", "head": "rounded", "head_out": "fp32"}
+FUSED_SITES = {"vgg": "fused", "fc": "fused", "up_conv1": "fused", "up_sum": "rounded",
+               "up_conv2": "fused", "head": "fused", "head_out": "fused"}
+SHIPPED_SITES = {**FUSED_SITES, "head": "rounded", "head_out": "fp32"}
+CRAFT_TRAIN_SITES = {(307, 446): "vgg", (307, 457): "fc", (307, 458): "fc",
+                     (497, 505): "up_conv1", (500, 505): "up_sum", (307, 508): "up_conv2",
+                     (307, 563): "head", (307, 564): "head", (307, 565): "head",
+                     (307, 566): "head", (307, 567): "head_out"}
+# Leaves whose gradient is zero in exact arithmetic (a conv bias whose sum
+# reaches a batch-statistics BatchNorm through linear ops only): rounding
+# noise on both sides, left out as tests/test_torch_train_step.py leaves
+# them out.
+CRAFT_ZERO_GRAD = re.compile(r"(vgg/conv\d_\d/conv|up/upconv\d/conv\d|fc/fc\d)/b$")
+
+
+def craft_grad_inputs(width, seed=0):
+    """(the port's CraftConfig, JAX's CRAFT tree flat, pages, heat) of the
+    training records: "tiny" (tests/test_torch_train_step.py's two 64x64
+    pages at the tiny configs, JAX's init: zero conv biases) or "full"
+    (`evals/production_weights` on chip_smoke phase 7's 128x128 page);
+    another `seed` draws other pages the same way."""
+    sys.path.insert(0, HERE)
+    import gen_torch_train as G
+
+    if width == "tiny":
+        from tuatara_tpu.tokenizer import Tokenizer
+        from tuatara_tpu.utils.data import detection_batch
+
+        from tuatara_tpu_torch.config import CraftConfig, ParseqConfig
+
+        cfg, _ = G.tiny_configs(CraftConfig, ParseqConfig)
+        batch = G.tiny_batch(detection_batch, Tokenizer(), seed)
+        return cfg, G.jax_tiny_params()[0], batch["pages"], batch["heat"]
+    from tuatara_tpu.utils.weights import flatten_tree, load_weights_dir
+
+    from tuatara_tpu_torch.utils import weights as W
+
+    weights = os.path.join(os.path.dirname(HERE), "evals", "production_weights")
+    cfg = W.load_configs(weights)[0]
+    batch = G.fullwidth_batch(seed)
+    return cfg, flatten_tree(load_weights_dir(weights)[0]), batch["pages"], batch["heat"]
+
+
+def jax_craft_grads(cfg, flat, pages, heat):
+    """JAX's CRAFT loss gradient at its shipped bf16, compiled on the CPU:
+    {JAX path: array}."""
+    import jax
+    import jax.numpy as jnp
+
+    from tuatara_tpu.config import CraftConfig as JaxCraftConfig
+    from tuatara_tpu.train.losses import craft_loss
+    from tuatara_tpu.utils.weights import flatten_tree, unflatten_tree
+
+    jcfg = JaxCraftConfig(**dataclasses.asdict(cfg))
+    tree = jax.tree_util.tree_map(jnp.asarray, unflatten_tree(flat))
+    grads = jax.jit(jax.grad(lambda p: craft_loss(p, pages, heat, cfg=jcfg)[0]))(tree)
+    return {k: np.asarray(v, np.float64) for k, v in flatten_tree(grads).items()}
+
+
+@contextlib.contextmanager
+def site_forms(sites):
+    """Inside: `TrainableCraft`'s sums at a 16-bit dtype in the forms
+    `sites` gives ({site: form}, every site; `up_sum` "fp32" is ya + yb
+    summed in fp32), by wrapping models/craft.py `_train_conv` and
+    `_train_sum`."""
+    from tuatara_tpu_torch.models import craft as TC
+
+    conv, add = TC._train_conv, TC._train_sum
+
+    def site_conv(site, *args, form="fused", **kw):
+        return conv(site, *args, form=sites[site], **kw)
+
+    TC._train_conv = site_conv
+    if sites["up_sum"] == "fp32":
+        TC._train_sum = lambda ya, yb: ya.float() + yb.float()
+    try:
+        yield
+    finally:
+        TC._train_conv, TC._train_sum = conv, add
+
+
+def site_configs():
+    """[(name, {site: form})]: the forms before any followed JAX's graph,
+    each site alone in JAX's form, the forms the port takes, all in JAX's."""
+    configs = [("fused (before)", dict(FUSED_SITES))]
+    configs += [(f"{site} -> {form}", {**FUSED_SITES, site: form})
+                for site, form in JAX_SITES.items()]
+    return configs + [("shipped", dict(SHIPPED_SITES)), ("all in JAX's form", dict(JAX_SITES))]
+
+
+def port_craft_grads(cfg, flat, pages, heat, sites):
+    """The port's CRAFT loss gradient at bf16 on the CPU with
+    `TrainableCraft`'s sums in the forms `sites` gives ({JAX path: array},
+    JAX's layout)."""
+    from tuatara_tpu_torch.models import craft as TC
+    from tuatara_tpu_torch.train.losses import craft_loss
+    from tuatara_tpu_torch.weights import load_tree, module_leaves, to_jax
+
+    model = load_tree(TC.TrainableCraft(cfg), flat)
+    with site_forms(sites):
+        loss, _ = craft_loss(model, torch.from_numpy(pages), torch.from_numpy(heat),
+                             compute_dtype=torch.bfloat16)
+        loss.backward()
+    return {p: to_jax(t.grad, layout).astype(np.float64) for p, t, layout in module_leaves(model)
+            if t.grad is not None}
+
+
+def craft_grads(width="full", seeds=(0, 1, 2, 3)):
+    """The `craft_grads` probe (ROADMAP Queue 3 item 19): the CRAFT loss's
+    gradient before the optimizer, at bf16 on the CPU, the port's against
+    JAX's leaf by leaf (relative L2 error; the exactly-zero leaves and the
+    running statistics left out), with `TrainableCraft`'s sums in the
+    forms before any followed JAX's graph (`FUSED_SITES`), each site alone
+    in JAX's form (`JAX_SITES`), the forms the port takes (`SHIPPED_SITES`)
+    and all in JAX's, on the pages of each seed (seed 0: the training
+    records' own). Prints, for each configuration, the median and mean
+    error over the leaves and seeds, and on how many (leaf, seed) pairs it
+    is closer to JAX's than the first. A site keeps JAX's form where alone
+    it is closer on most pairs and its mean error is lower.
+    -> {configuration: [{leaf: error} a seed]}."""
+    configs = site_configs()
+    out = {name: [] for name, _ in configs}
+    for seed in seeds:
+        cfg, flat, pages, heat = craft_grad_inputs(width, seed)
+        want = jax_craft_grads(cfg, flat, pages, heat)
+        keys = sorted(k for k in want if not CRAFT_ZERO_GRAD.search(k)
+                      and not k.endswith(("/mean", "/var")))
+        for name, sites in configs:
+            got = port_craft_grads(cfg, flat, pages, heat, sites)
+            out[name].append({k: float(np.linalg.norm(got[k] - want[k])
+                                       / max(np.linalg.norm(want[k]), 1e-30)) for k in keys})
+    base = out[configs[0][0]]
+    for name, _ in configs:
+        errs = out[name]
+        v = np.array([e for per_seed in errs for e in per_seed.values()])
+        closer = sum(e[k] < b[k] for e, b in zip(errs, base) for k in e)
+        worst = max(((k, e[k]) for e in errs for k in e), key=lambda kv: kv[1])
+        print(f"{width} seeds {list(seeds)} {name:22s} median {np.median(v):.4e} mean "
+              f"{v.mean():.4e}, closer than the first on {closer}/{v.size}; worst "
+              f"{worst[0]} {worst[1]:.4e}", flush=True)
+    return out
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "crop"
     if what == "pages":
@@ -815,5 +1002,8 @@ if __name__ == "__main__":
         hlo_sites()
     elif what == "resample":
         resample_residual()
+    elif what == "craft_grads":
+        for w in sys.argv[2:] or ["tiny", "full"]:
+            craft_grads(w)
     else:
         main()

@@ -66,7 +66,7 @@ from tuatara_tpu_torch.models.craft import Craft
 from tuatara_tpu_torch.utils import weights as W
 from tuatara_tpu_torch.weights import craft_state_dict
 
-from probe_torch_bf16 import compare
+from probe_torch_bf16 import SHIPPED_SITES, compare
 from torch_common import GOLDEN, image, torch_threads  # noqa: F401
 
 BF16 = torch.bfloat16
@@ -921,6 +921,119 @@ def test_plm_loss_head_bf16_equals_jax(small_bf16):
     assert _equal_share(old.numpy(), want) < share - 0.2
 
 
+@pytest.mark.parametrize("channels_last", [False, True], ids=["contiguous", "channels_last"])
+@pytest.mark.parametrize("dtype", [BF16, torch.float16], ids=str)
+def test_bias_add_f32_along_channels_is_the_formula(dtype, channels_last):
+    """The fp32-output mode along dim 1 of an NCHW map (CRAFT's training
+    sites), contiguous (`div` = H * W) or in channels_last memory (`div` =
+    1): fp32(y) + fp32(dtype(b)) per channel, in y's memory format; its
+    backward (`bias_add_f32_grads` with the bias as it broadcasts) equals
+    autograd's through the plain version; a residual needs channels
+    innermost."""
+    rng = np.random.default_rng(23)
+    y = torch.from_numpy(rng.standard_normal((2, 6, 5, 8)).astype(np.float32) * 4).to(dtype)
+    if channels_last:
+        y = y.contiguous(memory_format=torch.channels_last)
+    assert BA._channel_divisor(y, 1) == (1 if channels_last else 40)
+    b32 = torch.from_numpy(rng.standard_normal(6).astype(np.float32)).requires_grad_()
+    yg = y.clone().requires_grad_()
+    got = BA.bias_add_f32(yg, b32, dim=1)
+    want = y.float() + b32.detach().to(dtype).float().reshape(-1, 1, 1)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert got.stride() == y.stride()
+    g = torch.from_numpy(rng.standard_normal(y.shape).astype(np.float32))
+    gy, gb = torch.autograd.grad(got, [yg, b32], g)
+    b = b32.to(dtype)
+    gy2, gb2, gr2 = BA.bias_add_f32_grads(g, dtype, BA.bias_view(b, y, 1).shape, b.dtype, None)
+    assert torch.equal(gy, gy2) and torch.equal(gb, gb2.to(torch.float32)) and gr2 is None
+
+
+def _craft_site(site, x, w, b, k, form):
+    """`TrainableCraft`'s conv at `site` at bf16 on x (NCHW), in `form`."""
+    with torch.no_grad():
+        return tcraft._train_conv(site, x, w, b, BF16, form=form, padding=(k - 1) // 2,
+                                  relu=site == "head")
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["contiguous", "channels_last"])
+@pytest.mark.parametrize("site,cin,cout,k", [("head", 32, 32, 3), ("head_out", 16, 2, 1),
+                                             ("trunk", 32, 64, 3)])
+def test_craft_training_sites_bf16_equal_jax(site, cin, cout, k, channels_last):
+    """Each CRAFT training site that follows JAX's graph (the forms
+    `TrainableCraft` takes, `probe_torch_bf16.SHIPPED_SITES`: the head's
+    conv1-4 with their ReLU, conv5 into the loss), and the fp32
+    mode along dim 1 at a trunk conv's shape (JAX's form of the trunk's
+    sums into their BatchNorms, which `TrainableCraft` does not take: ROADMAP
+    Queue 3 item 19), fed the same input in both NCHW layouts as JAX's
+    compiled `conv2d` on seeded weights with nonzero biases: the fp32
+    forms (`bias_add_f32` along dim 1) against `conv2d(...)` taken as fp32
+    inside the jit, where XLA drops the bias add's rounding as it does into
+    a BatchNorm or the loss (`probe_torch_bf16.py hlo`), at least
+    RESIDUAL_MIN_EQUAL equal; the head against relu(conv2d) in bf16, two
+    roundings, at least MIN_EQUAL; the conv's own bias on the CPU (one
+    rounding, oneDNN) parts from JAX on more than 5% (half the head's
+    values are ReLU's zeros on both sides)."""
+    rng = np.random.default_rng(cin + cout + k)
+    w, b = _conv_pair(rng, cin, cout, k)
+    x = _bf16(rng.standard_normal((2, 16, 24, cin)).astype(np.float32))
+    trunk = site == "trunk"
+    site = "vgg" if trunk else site
+    form = "fp32" if trunk else SHIPPED_SITES[site]
+    fp32 = form == "fp32"
+    assert form == ("rounded" if site == "head" else "fp32")
+
+    def jax_site(p, v):
+        y = JL.conv2d(p, v, compute_dtype=jnp.bfloat16)
+        return y.astype(jnp.float32) if fp32 else jax.nn.relu(y)
+
+    want = np.asarray(jax.jit(jax_site)({"w": w, "b": b}, x).astype(jnp.float32))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    if not channels_last:
+        xt = xt.contiguous()
+    wt, bt = torch.from_numpy(w).permute(3, 2, 0, 1), torch.from_numpy(b)
+    got = _craft_site(site, xt, wt, bt, k, form=form)
+    assert got.dtype == (torch.float32 if fp32 else BF16)
+    share = _equal_share(got.float().permute(0, 2, 3, 1).numpy(), want)
+    assert share >= (RESIDUAL_MIN_EQUAL if fp32 else MIN_EQUAL), share
+    fused = _craft_site(site, xt, wt, bt, k, form="fused")
+    assert _equal_share(fused.float().permute(0, 2, 3, 1).numpy(), want) < 0.95
+
+
+@pytest.mark.parametrize("other", ["fused", "jax"])
+def test_craft_shipped_sites_are_the_models(other, torch_threads):
+    """`probe_torch_bf16.SHIPPED_SITES` is what `TrainableCraft` takes at
+    bf16 (a tiny model, seeded weights and biases, batch statistics): its
+    scores, features and gradients under the probe's
+    `site_forms(SHIPPED_SITES)` are bit-equal to the model's own, and under
+    `site_forms` of the forms before (`FUSED_SITES`) or of JAX's
+    (`JAX_SITES`) they are not, so the probe's wrapper reaches the sites."""
+    import probe_torch_bf16 as probe
+    from tuatara_tpu_torch.config import CraftConfig
+
+    torch.manual_seed(0)
+    model = tcraft.TrainableCraft(CraftConfig(
+        stage_channels=(8, 16, 16, 16, 16), fc_channels=16,
+        up_channels=((16, 16), (16, 16), (16, 8), (8, 8)), head_channels=(8, 8, 8, 8)))
+    for conv in model.convs():
+        conv.weight.data.normal_(std=conv.weight[0].numel() ** -0.5)
+        conv.bias.data.normal_(std=0.1)
+    x = torch.rand(2, 64, 64, 3)
+
+    def run():
+        model.zero_grad()
+        y, feat = model(x)
+        (y.square().sum() + feat.sum()).backward()
+        return [y, feat] + [p.grad.clone() for p in model.parameters()]
+
+    own = run()
+    with probe.site_forms(probe.SHIPPED_SITES):
+        shipped = run()
+    with probe.site_forms(probe.FUSED_SITES if other == "fused" else probe.JAX_SITES):
+        changed = run()
+    assert all(torch.equal(a, b) for a, b in zip(own, shipped))
+    assert not torch.equal(own[0], changed[0]) and own[0].std() > 0
+
+
 def test_hlo_probe_tells_rounded_from_unrounded():
     """The `hlo` probe's reading of XLA's optimised graph, on functions
     whose answer is known: a bf16 Linear into an fp32 residual add (bias
@@ -962,9 +1075,9 @@ HLO_UNROUNDED = {
                 ("parseq.py", 442)],
     "serving_pallas": [("layers.py", 558), ("layers.py", 558), ("parseq.py", 112),
                        ("parseq.py", 245)],
-    "training": [("craft.py", 307), ("craft.py", 307), ("craft.py", 307), ("layers.py", 445),
-                 ("layers.py", 558), ("layers.py", 558), ("layers.py", 558), ("parseq.py", 112),
-                 ("parseq.py", 245), ("parseq.py", 318)],
+    "training": [("craft.py", 307), ("craft.py", 307), ("craft.py", 307), ("craft.py", 500),
+                 ("layers.py", 445), ("layers.py", 558), ("layers.py", 558), ("layers.py", 558),
+                 ("parseq.py", 112), ("parseq.py", 245), ("parseq.py", 318)],
 }
 
 
@@ -976,9 +1089,10 @@ def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
     unrounded, and each of PARSEQ's has its counterpart in the port
     (`probe_torch_bf16.PORT_SITES`): the residual Linears and
     `patch_embed`, in training also the PLM loss's head. CRAFT's training
-    convs before a BatchNorm or the loss are listed and left as they are
-    (the bf16 training parity on the card moved out of its bounds with
-    them). The serving heads stay rounded. With the Pallas recognizer
+    sums (its convs' bias adds and the decoder's ya + yb) each read as
+    `probe_torch_bf16.JAX_SITES` says, and `TrainableCraft` takes at each
+    either JAX's form or the one before (`probe_torch_bf16.SHIPPED_SITES`;
+    ROADMAP Queue 3 item 19). The serving heads stay rounded. With the Pallas recognizer
     kernels forced (`latency()`'s lowering at D = 128, random weights),
     the sites around K6 and K7: `patch_embed` and the refine's residuals
     unrounded, K7's memory K/V and the head rounded."""
@@ -997,13 +1111,19 @@ def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
     found = probe.hlo_sites()
     unrounded = [site for site, o in found if any(x.startswith("fp32") for x in o)]
     assert sorted((s[0][0], s[0][2]) for s in unrounded) == HLO_UNROUNDED[graph]
+    if graph == "training":
+        craft = [(site, o) for site, o in found if site[0][0] == "craft.py"]
+        assert len(craft) == len(probe.CRAFT_TRAIN_SITES)
+        for site, o in craft:
+            key = probe.CRAFT_TRAIN_SITES[(site[0][2], site[1][2])]
+            form = "fp32" if any(x.startswith("fp32") for x in o) else "rounded"
+            assert probe.JAX_SITES[key] == form, (site, o)
+            shipped = probe.SHIPPED_SITES[key]
+            assert shipped in (form, probe.FUSED_SITES[key]), (key, shipped)
     for site in unrounded:
-        where = probe.port_line(site)
         if site[0][0] == "craft.py":
-            # CRAFT's training convs before a BatchNorm or the loss: not
-            # routed (ROADMAP Queue 3 item 19).
-            assert where == "-", (site, where)
             continue
+        where = probe.port_line(site)
         assert any(k in _source_line(where) for k in ("residual", "fp32_logits")), (site, where)
     if graph == "serving":
         heads = [o for site, o in found if site[0][2] in (318, 450)]

@@ -5,12 +5,13 @@ compute dtype (`csrc/bias_act.cu`).
 `bias_act_plain` for CPU tensors. It replaces no TPU kernel. JAX's
 `conv2d` and `linear` (`tuatara_tpu/models/layers.py:84-95, 387-393`)
 round a bf16 product to bf16 and then add the bias cast to bf16, with a
-second rounding; a library call that takes the bias (cuDNN's convolution,
-cuBLAS's addmm) adds it in fp32 before the one rounding. So the port takes
-the product without its bias and adds the bias afterwards. Where an
-activation follows, this kernel does both in one pass: CRAFT's ReLU (and,
-for the trunk convs that feed a skip, the pre-ReLU value as a second
-output), or PARSEQ's exact GELU rounded as XLA's CPU backend rounds
+second rounding; a library call that takes the bias adds it in fp32
+before its one rounding (cuBLAS's addmm; oneDNN's convolution on the CPU)
+or, for PyTorch's cuDNN convolution, in a second op of its own. So the
+port takes the product without its bias and adds the bias afterwards.
+Where an activation follows, this kernel does both in one pass: CRAFT's
+ReLU (and, for the trunk convs that feed a skip, the pre-ReLU value as a
+second output), or PARSEQ's exact GELU rounded as XLA's CPU backend rounds
 `jax.nn.gelu(approximate=False)` (`gelu_plain`). A bias add that no
 activation follows is one `torch.add` (`models/layers.add_bias`), which
 rounds the same way.
@@ -22,12 +23,23 @@ the same ops in PyTorch, so on the card the kernel equals it bit for bit.
 
 `bias_add_f32` is the fp32-output mode (`tt_bias_add_f32`): where a
 Linear's sum goes straight into an fp32 op (PARSEQ's residual adds,
-`patch_embed + pos_embed`, in training the head before the PLM loss),
-XLA's CPU backend adds the bias in fp32 and never rounds the sum to the
-dtype, so the port computes `r + (fp32(y) + fp32(b))` in fp32, that
-order, the residual r folded into the same pass, bit-equal to its plain
-version (`bias_add_f32_plain`) on the card. A bias add whose sum is
-rounded stays `torch.add` (`models/layers.add_bias`).
+`patch_embed + pos_embed`, in training the head before the PLM loss and
+CRAFT's conv5 before its loss, along dim 1 of NCHW), XLA's CPU backend
+adds the bias in fp32 and never rounds the sum to the dtype, so the port
+computes `r + (fp32(y) + fp32(b))` in fp32, that order, the residual r
+folded into the same pass, bit-equal to its plain version
+(`bias_add_f32_plain`) on the card. A bias add whose sum is rounded stays
+`torch.add` (`models/layers.add_bias`).
+
+The launch path is kept thin, since a call's host time is as long as its
+device time on most of the path's calls: the C entries are bound at their
+first launch into module variables, the memory layout is the tensor's
+stride along the channel dimension (`_channel_divisor`), the stream is the
+current stream's raw handle, and the outputs are `torch.empty_like`. The
+checks stay (dtype, device, shape, contiguity raise), and nothing catches a
+failed build or launch. The kernel picks its own work assignment from the
+layout and the pointers' alignment (`csrc/bias_act.cu` `plan`;
+`tests/test_torch_bias_act_model.py` models it on the CPU).
 
 The kernel is differentiable (`_BiasAct`, `_BiasAddF32`), so the training
 graph launches it too. Its backward (`bias_act_grads`) is the one PyTorch's
@@ -52,8 +64,15 @@ from tuatara_tpu_torch.kernels.cc import _raise_on
 BA = "bias_act"
 GG = "gelu_grad"
 ACTS = ("relu", "gelu")
-_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+_ACT_CODES = {act: i for i, act in enumerate(ACTS)}
 _ERFC_GRAD = -2.0 / math.sqrt(math.pi)  # d erfc(a) / da = this * exp(-a^2)
+_SQRT_HALF = {dt: torch.tensor(math.sqrt(0.5), dtype=dt).item()
+              for dt in (torch.bfloat16, torch.float16)}
+# dtype -> (the C entries' dtype code, sqrt(1/2) rounded to it).
+_DTYPES = {torch.bfloat16: (0, _SQRT_HALF[torch.bfloat16]),
+           torch.float16: (1, _SQRT_HALF[torch.float16])}
+# The C entries, bound at their first launch.
+_BIAS_ACT = _BIAS_ADD_F32 = _GELU_GRAD = None
 
 
 def sqrt_half(dtype: torch.dtype) -> float:
@@ -61,7 +80,9 @@ def sqrt_half(dtype: torch.dtype) -> float:
     return _SQRT_HALF.get(dtype) or torch.tensor(math.sqrt(0.5), dtype=dtype).item()
 
 
-_SQRT_HALF = {dt: torch.tensor(math.sqrt(0.5), dtype=dt).item() for dt in _DTYPES}
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on t's card (no Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def gelu_plain(v: torch.Tensor) -> torch.Tensor:
@@ -91,6 +112,7 @@ def gelu_grad(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """`gelu_plain_grad(g, v)`: one `tt_gelu_grad` launch for CUDA tensors
     (g and v of one 16-bit dtype and shape, contiguous), the plain version
     for CPU tensors."""
+    global _GELU_GRAD
     if not g.is_cuda:
         return gelu_plain_grad(g, v)
     if g.dtype not in _DTYPES or v.dtype != g.dtype or v.shape != g.shape:
@@ -99,10 +121,11 @@ def gelu_grad(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     g, v = g.contiguous(), v.contiguous()
     out = torch.empty_like(g)
     if g.numel():
-        fn = entry("bias_act", "tt_gelu_grad", 3, 1, n_float=2, n_i64=1)
-        err = fn(g.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[g.dtype], g.numel(),
-                 sqrt_half(g.dtype), _ERFC_GRAD, torch.cuda.current_stream(g.device).cuda_stream)
-        _raise_on(err, "tt_gelu_grad")
+        if _GELU_GRAD is None:
+            _GELU_GRAD = entry("bias_act", "tt_gelu_grad", 3, 1, n_float=2, n_i64=1)
+        code, s = _DTYPES[g.dtype]
+        _raise_on(_GELU_GRAD(g.data_ptr(), v.data_ptr(), out.data_ptr(), code, g.numel(), s,
+                             _ERFC_GRAD, _stream(g)), "tt_gelu_grad")
         LAUNCHES[GG] += 1
     return out
 
@@ -147,43 +170,47 @@ def bias_act_grads(gy: Optional[torch.Tensor], gpre: Optional[torch.Tensor],
 
 
 def _channel_divisor(p: torch.Tensor, dim: int) -> int:
-    """Memory order -> the step in elements between channels: 1 where the
-    channel is the innermost dimension (a Linear's [..., C], an NCHW
-    tensor in channels_last memory), H * W for a contiguous NCHW tensor."""
-    dim %= p.dim()
-    if dim == p.dim() - 1 and p.is_contiguous():
-        return 1
-    if p.dim() == 4 and dim == 1:
-        if p.is_contiguous(memory_format=torch.channels_last):
-            return 1
-        if p.is_contiguous():
-            return p.shape[2] * p.shape[3]
+    """Memory order -> the step in elements between channels, p's stride
+    along `dim`: 1 where the channel is the innermost dimension (a
+    Linear's [..., C], an NCHW tensor in channels_last memory), H * W for a
+    contiguous NCHW tensor. The channel of element i is then (i / step) % C."""
+    if p.is_contiguous() or (p.dim() == 4 and dim % 4 == 1
+                             and p.is_contiguous(memory_format=torch.channels_last)):
+        return p.stride(dim)
     raise ValueError(f"bias_act: expected a contiguous tensor with channels along dim {dim}, "
                      f"or an NCHW one in channels_last memory; got {tuple(p.shape)} strides "
                      f"{p.stride()}")
+
+
+def _check_bias(bias: torch.Tensor, p: torch.Tensor, c: int) -> None:
+    if (bias.shape != (c,) or not bias.is_contiguous() or bias.device != p.device
+            or bias.dtype != p.dtype):
+        raise ValueError(f"bias: expected a contiguous [{c}] {p.dtype} tensor on {p.device}, "
+                         f"got {tuple(bias.shape)} {bias.dtype} on {bias.device}")
 
 
 def _launch(p: torch.Tensor, bias: Optional[torch.Tensor], act: str, keep_pre: bool,
             dim: int):
     """One `tt_bias_act` launch -> (the activation, the pre-activation
     value or None)."""
-    if p.dtype not in _DTYPES:
+    global _BIAS_ACT
+    dt = _DTYPES.get(p.dtype)
+    if dt is None:
         raise ValueError(f"bias_act: expected a bfloat16 or float16 tensor, got {p.dtype}")
     div = _channel_divisor(p, dim)
     c = p.shape[dim]
-    if bias is not None and (tuple(bias.shape) != (c,) or not bias.is_contiguous()
-                             or bias.device != p.device or bias.dtype != p.dtype):
-        raise ValueError(f"bias: expected a contiguous [{c}] {p.dtype} tensor on {p.device}, "
-                         f"got {tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    if bias is not None:
+        _check_bias(bias, p, c)
     y = torch.empty_like(p)
     pre = torch.empty_like(p) if keep_pre else None
-    if p.numel():
-        fn = entry("bias_act", "tt_bias_act", 4, 2, n_float=1, n_i64=2)
-        err = fn(p.data_ptr(), 0 if bias is None else bias.data_ptr(), y.data_ptr(),
-                 0 if pre is None else pre.data_ptr(), c, _DTYPES[p.dtype] * 4 + ACTS.index(act),
-                 p.numel(), div, sqrt_half(p.dtype),
-                 torch.cuda.current_stream(p.device).cuda_stream)
-        _raise_on(err, "tt_bias_act")
+    n = p.numel()
+    if n:
+        if _BIAS_ACT is None:
+            _BIAS_ACT = entry("bias_act", "tt_bias_act", 4, 2, n_float=1, n_i64=2)
+        _raise_on(_BIAS_ACT(p.data_ptr(), None if bias is None else bias.data_ptr(),
+                            y.data_ptr(), None if pre is None else pre.data_ptr(), c,
+                            dt[0] * 4 + _ACT_CODES[act], n, div, dt[1], _stream(p)),
+                  "tt_bias_act")
         LAUNCHES[BA] += 1
     return y, pre
 
@@ -230,12 +257,12 @@ def bias_act(p: torch.Tensor, bias: Optional[torch.Tensor], act: str, keep_pre: 
 
 
 def bias_add_f32_plain(y: torch.Tensor, bias: torch.Tensor,
-                       residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The fp32-output mode's plain version: y [..., C] (bf16 or fp16) plus
-    the bias [C] rounded to y's dtype, both widened to fp32, never rounded;
-    then residual + that sum (residual fp32, of y's shape or broadcast over
-    its leading dimensions)."""
-    s = y.float() + bias.to(y.dtype).float()
+                       residual: Optional[torch.Tensor] = None, dim: int = -1) -> torch.Tensor:
+    """The fp32-output mode's plain version: y (bf16 or fp16) plus the bias
+    [C] along `dim` rounded to y's dtype, both widened to fp32, never
+    rounded; then residual + that sum (residual fp32, of y's shape or
+    broadcast over its leading dimensions)."""
+    s = y.float() + bias_view(bias.to(y.dtype).float(), y, dim)
     return s if residual is None else residual + s
 
 
@@ -244,11 +271,12 @@ def bias_add_f32_grads(g: Optional[torch.Tensor], y_dtype: torch.dtype,
                        residual_shape: Optional[torch.Size]):
     """The backward of `bias_add_f32_plain` as autograd takes it, for the
     output's gradient g (fp32) -> (y's gradient, g cast to y's dtype; the
-    bias's, g summed to its shape and cast to its dtype; the residual's, g
+    bias's, g summed to `bias_shape` (the bias as it broadcasts against y,
+    `bias_view`), flattened and cast to its dtype; the residual's, g
     summed to its shape, None without a residual); all None without g."""
     if g is None:
         return None, None, None
-    gb = g.sum_to_size(bias_shape).to(bias_dtype)
+    gb = g.sum_to_size(bias_shape).reshape(-1).to(bias_dtype)
     gr = None if residual_shape is None else g.sum_to_size(residual_shape)
     return g.to(y_dtype), gb, gr
 
@@ -256,9 +284,18 @@ def bias_add_f32_grads(g: Optional[torch.Tensor], y_dtype: torch.dtype,
 def residual_period(residual: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     """A residual that broadcasts to `shape` (y's) over leading dimensions
     only -> a contiguous tensor whose flat values, repeated, are the
-    broadcast residual's: the residual without the leading dimensions that
-    broadcast (size 1 against more, or stride 0 in an expanded view).
-    Raises if it broadcasts elsewhere."""
+    broadcast residual's: the residual itself where it is contiguous and
+    y's trailing dimensions behind size-1 ones (the path's: y's shape,
+    [1, S, D], [1, 1, D]; no copy), else the residual without the leading
+    dimensions that broadcast (size 1 against more, or stride 0 in an
+    expanded view). Raises if it broadcasts elsewhere."""
+    lead_ones = 0
+    while lead_ones < residual.dim() - 1 and residual.shape[lead_ones] == 1:
+        lead_ones += 1
+    tail = residual.shape[lead_ones:]
+    if (residual.is_contiguous() and len(tail) <= len(shape)
+            and tail == shape[len(shape) - len(tail):]):
+        return residual
     rs = (1,) * (len(shape) - residual.dim()) + tuple(residual.shape)
     if len(rs) != len(shape) or any(a != b and a != 1 for a, b in zip(rs, shape)):
         raise ValueError(f"bias_add_f32: residual {tuple(residual.shape)} does not broadcast to "
@@ -274,31 +311,33 @@ def residual_period(residual: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     return r.contiguous()
 
 
-def _launch_f32(y: torch.Tensor, bias: torch.Tensor,
-                residual: Optional[torch.Tensor]) -> torch.Tensor:
-    """One `tt_bias_add_f32` launch -> the fp32 output, y's shape."""
-    if y.dtype not in _DTYPES or not y.is_contiguous():
-        raise ValueError(f"bias_add_f32: expected a contiguous bfloat16 or float16 tensor, got "
-                         f"{y.dtype} strides {y.stride()}")
-    c = y.shape[-1]
-    if (tuple(bias.shape) != (c,) or not bias.is_contiguous() or bias.device != y.device
-            or bias.dtype != y.dtype):
-        raise ValueError(f"bias: expected a contiguous [{c}] {y.dtype} tensor on {y.device}, "
-                         f"got {tuple(bias.shape)} {bias.dtype} on {bias.device}")
+def _launch_f32(y: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor],
+                dim: int) -> torch.Tensor:
+    """One `tt_bias_add_f32` launch -> the fp32 output, y's shape and
+    memory format."""
+    global _BIAS_ADD_F32
+    dt = _DTYPES.get(y.dtype)
+    if dt is None:
+        raise ValueError(f"bias_add_f32: expected a bfloat16 or float16 tensor, got {y.dtype}")
+    div = _channel_divisor(y, dim)
+    c = y.shape[dim]
+    _check_bias(bias, y, c)
     r = None
     if residual is not None:
-        if residual.dtype != torch.float32 or residual.device != y.device:
-            raise ValueError(f"bias_add_f32: expected an fp32 residual on {y.device}, got "
-                             f"{residual.dtype} on {residual.device}")
+        if residual.dtype != torch.float32 or residual.device != y.device or div != 1:
+            raise ValueError(f"bias_add_f32: expected an fp32 residual on {y.device} and "
+                             f"channels innermost, got {residual.dtype} on {residual.device}, "
+                             f"channels along dim {dim} of strides {y.stride()}")
         r = residual_period(residual, y.shape)
-    out = torch.empty(y.shape, dtype=torch.float32, device=y.device)
-    if y.numel():
-        fn = entry("bias_act", "tt_bias_add_f32", 4, 2, n_i64=2)
-        err = fn(y.data_ptr(), bias.data_ptr(), 0 if r is None else r.data_ptr(),
-                 out.data_ptr(), c, _DTYPES[y.dtype],
-                 y.numel(), 1 if r is None else r.numel(),
-                 torch.cuda.current_stream(y.device).cuda_stream)
-        _raise_on(err, "tt_bias_add_f32")
+    out = torch.empty_like(y, dtype=torch.float32)
+    n = y.numel()
+    if n:
+        if _BIAS_ADD_F32 is None:
+            _BIAS_ADD_F32 = entry("bias_act", "tt_bias_add_f32", 4, 2, n_i64=3)
+        _raise_on(_BIAS_ADD_F32(y.data_ptr(), bias.data_ptr(),
+                                None if r is None else r.data_ptr(), out.data_ptr(), c, dt[0],
+                                n, div, 1 if r is None else r.numel(), _stream(y)),
+                  "tt_bias_add_f32")
         LAUNCHES[BA] += 1
     return out
 
@@ -308,31 +347,34 @@ class _BiasAddF32(torch.autograd.Function):
     (`bias_add_f32_grads`)."""
 
     @staticmethod
-    def forward(ctx, y, bias, residual):
+    def forward(ctx, y, bias, residual, dim):
         ctx.set_materialize_grads(False)
-        ctx.y_dtype, ctx.bias_shape, ctx.bias_dtype = y.dtype, bias.shape, bias.dtype
+        ctx.y_dtype, ctx.bias_dtype = y.dtype, bias.dtype
+        ctx.bias_shape = bias_view(bias, y, dim).shape
         ctx.residual_shape = None if residual is None else residual.shape
-        return _launch_f32(y, bias, residual)
+        return _launch_f32(y, bias, residual, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return bias_add_f32_grads(g, ctx.y_dtype, ctx.bias_shape, ctx.bias_dtype,
-                                  ctx.residual_shape)
+        return (*bias_add_f32_grads(g, ctx.y_dtype, ctx.bias_shape, ctx.bias_dtype,
+                                    ctx.residual_shape), None)
 
 
-def bias_add_f32(y: torch.Tensor, bias: torch.Tensor,
-                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y [..., C] bf16 or fp16, a Linear's product without its bias; bias
-    [C] (rounded to y's dtype); residual fp32 of y's shape or
-    broadcast over its leading dimensions ([1, S, D] against [N, S, D]),
-    or None -> residual + (fp32(y) + fp32(bias)) in fp32, y's shape, never
+def bias_add_f32(y: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                 dim: int = -1) -> torch.Tensor:
+    """y bf16 or fp16, a product without its bias, its channels along
+    `dim` (-1: a Linear's [..., C]; 1: a CRAFT conv's NCHW, contiguous or in
+    channels_last memory); bias [C] (rounded to y's dtype); residual fp32
+    of y's shape or broadcast over its leading dimensions ([1, S, D]
+    against [N, S, D]; channels innermost only), or None -> residual +
+    (fp32(y) + fp32(bias)) in fp32, y's shape and memory format, never
     rounded to y's dtype. One `tt_bias_add_f32` launch for CUDA tensors,
     differentiable (`_BiasAddF32`); the plain version for CPU tensors."""
     if not y.is_cuda:
-        return bias_add_f32_plain(y, bias, residual)
+        return bias_add_f32_plain(y, bias, residual, dim)
     if bias.dtype != y.dtype:
         bias = bias.to(y.dtype)
     if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad or (
             residual is not None and residual.requires_grad)):
-        return _BiasAddF32.apply(y, bias, residual)
-    return _launch_f32(y, bias, residual)
+        return _BiasAddF32.apply(y, bias, residual, dim)
+    return _launch_f32(y, bias, residual, dim)

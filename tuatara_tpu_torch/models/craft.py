@@ -49,9 +49,13 @@ with the running statistics when `train_bn` is off. The forward follows
 JAX's training graph: products in the compute dtype with fp32 parameters,
 BatchNorm outputs (and so the skips) in fp32, the decoder's trunk side
 upsampled before its 1x1 conv at fp32 and after it otherwise, the head
-unpacked. Its 2x upsamples are sums of shifted copies
-(`upsample2x_train`), whose backward is deterministic on the card, where
-`F.interpolate`'s is not. `fold()` gives the serving `Craft` through the
+unpacked. At a 16-bit dtype the head's conv1-4 round their bias add
+twice before the ReLU and conv5 adds its bias in fp32, as XLA compiles
+JAX's loss gradient (`tests/probe_torch_bf16.py hlo`); the other sums keep
+cuDNN's bias (ROADMAP Queue 3 item 19: JAX's form there moved phase 7's
+bf16 parity out of its bounds or the gradients no closer). Its 2x
+upsamples are sums of shifted copies (`upsample2x_train`), whose backward
+is deterministic on the card, where `F.interpolate`'s is not. `fold()` gives the serving `Craft` through the
 loader's own fold. None of the serving transforms (K8's packed weights,
 the head's XLA rounding, int8) touches it.
 
@@ -72,6 +76,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tuatara_tpu_torch.config import CraftConfig
+from tuatara_tpu_torch.kernels.bias_act import bias_add_f32
 from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool, pack_conv_pool_weights
 from tuatara_tpu_torch.models.layers import BatchNorm, Conv, QConv, add_bias, dequant, init_conv
 from tuatara_tpu_torch.ops.minarearect import fma
@@ -417,9 +422,41 @@ def upsample2x_train(x: torch.Tensor) -> torch.Tensor:
     return _upsample2x_axis(y, 3, fused=False).to(x.dtype)
 
 
-def _conv_dt(conv: Conv, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    return F.conv2d(h.to(dt), conv.weight.to(dt), conv.bias.to(dt),
-                    padding=conv.padding, dilation=conv.dilation)
+def _train_conv(site: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                dt: torch.dtype, *, form: str = "fused", padding: int = 0,
+                dilation: int = 1, relu: bool = False) -> torch.Tensor:
+    """A training conv at compute dtype dt (w and b fp32 parameters), then
+    its ReLU with `relu`. At a 16-bit dt the bias is added in `form`:
+    "fused", the conv's own bias (on the card PyTorch adds it to cuDNN's
+    rounded output in a second op, so two roundings; on the CPU oneDNN adds
+    it inside the product, one); "rounded", the product rounded, then the
+    bias with a second rounding (`add_bias`: with the ReLU, one `bias_act`
+    pass); "fp32", fp32(product) + fp32(bias), never rounded
+    (`bias_add_f32`). `site` names the sum (JAX `craft.py`: "vgg" :446,
+    "fc" :457-458, "up_conv1" :497, "up_conv2" :508, "head" :563-566,
+    "head_out" :567), for probes that wrap this function to try another
+    form at a site."""
+    if dt == torch.float32:
+        form = "fused"
+    y = F.conv2d(x.to(dt), w.to(dt), b.to(dt) if form == "fused" else None, padding=padding,
+                 dilation=dilation)
+    if form == "rounded":
+        return add_bias(y, b, "relu" if relu else None)
+    if form == "fp32":
+        y = bias_add_f32(y, b, dim=1)
+    return F.relu(y) if relu else y
+
+
+def _train_sum(ya: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
+    """A decoder level's ya + yb into bn1 (JAX `craft.py:501`), at the
+    compute dtype; a probe wraps it to try JAX's unrounded fp32 sum."""
+    return ya + yb
+
+
+def _conv_dt(conv: Conv, h: torch.Tensor, dt: torch.dtype, site: str, form: str = "fused",
+             relu: bool = False) -> torch.Tensor:
+    return _train_conv(site, h, conv.weight, conv.bias, dt, form=form, padding=conv.padding,
+                       dilation=conv.dilation, relu=relu)
 
 
 class TrainableCraft(nn.Module):
@@ -477,12 +514,12 @@ class TrainableCraft(nn.Module):
             y, up = upsample2x_train(y), False
         c1 = blk["conv1"]
         ca = y.shape[1]
-        ya = F.conv2d(y.to(dt), c1.weight[:, :ca].to(dt), c1.bias.to(dt))
+        ya = _train_conv("up_conv1", y, c1.weight[:, :ca], c1.bias, dt)
         if up:
             ya = upsample2x_train(ya)
         yb = F.conv2d(skip.to(dt), c1.weight[:, ca:].to(dt))
-        y = F.relu(blk["bn1"](ya + yb, train_bn, momentum))
-        return F.relu(blk["bn2"](_conv_dt(blk["conv2"], y, dt), train_bn, momentum))
+        y = F.relu(blk["bn1"](_train_sum(ya, yb), train_bn, momentum))
+        return F.relu(blk["bn2"](_conv_dt(blk["conv2"], y, dt, "up_conv2"), train_bn, momentum))
 
     def forward(self, x: torch.Tensor, train_bn: bool = True,
                 compute_dtype: torch.dtype = torch.bfloat16, momentum: float = 0.1
@@ -502,21 +539,21 @@ class TrainableCraft(nn.Module):
             if pool_before:
                 h = F.max_pool2d(h, 2, 2)
             blk = self.vgg[name]
-            h = blk["bn"](_conv_dt(blk["conv"], h, dt), train_bn, momentum)
+            h = blk["bn"](_conv_dt(blk["conv"], h, dt, "vgg"), train_bn, momentum)
             if skip is not None:
                 skips[skip] = h  # pre-ReLU, fp32
             h = F.relu(h)
         h = F.max_pool2d(h, 3, 1, padding=1)
-        h = _conv_dt(self.fc["fc7"], _conv_dt(self.fc["fc6"], h, dt), dt)
+        h = _conv_dt(self.fc["fc7"], _conv_dt(self.fc["fc6"], h, dt, "fc"), dt, "fc")
         y = self._level("upconv1", h, skips["f5"], dt, train_bn, momentum)
         y = self._level("upconv2", y, skips["f4"], dt, train_bn, momentum)
         y = self._level("upconv3", y, skips["f3"], dt, train_bn, momentum)
         feat = self._level("upconv4", y, skips["f2"], dt, train_bn, momentum)
         hd = self.head
-        y = F.relu(_conv_dt(hd["conv1"], feat, dt))
-        y = F.relu(_conv_dt(hd["conv2"], y, dt))
-        y = F.relu(_conv_dt(hd["conv3"], y, dt))
-        y = _conv_dt(hd["conv5"], F.relu(_conv_dt(hd["conv4"], y, dt)), dt)
+        y = feat
+        for name in ("conv1", "conv2", "conv3", "conv4"):
+            y = _conv_dt(hd[name], y, dt, "head", "rounded", relu=True)
+        y = _conv_dt(hd["conv5"], y, dt, "head_out", "fp32")
         return (y.float().permute(0, 2, 3, 1).contiguous(),
                 feat.float().permute(0, 2, 3, 1).contiguous())
 
