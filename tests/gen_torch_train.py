@@ -1,7 +1,8 @@
 """Write the JAX records that the port's training tests and chip_smoke.py's
 phase 7 read, and the uint8 word pool phase 7 trains on.
 
-    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/gen_torch_train.py [--part tiny|fullwidth|words]
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/gen_torch_train.py \
+        [--part tiny|fullwidth|words|craft_grads]
 
 * `tests/fixtures/torch_train_tiny.npz` (--part tiny, ~1 min): two JAX
   `train_step`s at the test configs `TINY_CRAFT` / `TINY_PARSEQ` from
@@ -19,6 +20,16 @@ phase 7 read, and the uint8 word pool phase 7 trains on.
   statistics, the gradients' global norms.
 * `tests/fixtures/torch_train_words.npz` (--part words): 256 TrueType word
   crops rendered by the port's own `word_pool` (so the card needs no PIL).
+* `tests/fixtures/torch_train_craft_grads.npz` (--part craft_grads, ~1
+  min): JAX's bf16 CRAFT loss gradient before AdamW from
+  `evals/production_weights` on the full-width record's detection page
+  (train_bn, as phase 7's first step takes it), leaf by leaf (the leaves
+  whose gradient is zero in exact arithmetic, and the running statistics,
+  left out): each leaf's L2 norm and its sketch (`chip_smoke.grad_sketch`:
+  the leaf itself up to 1024 elements, else a count sketch of 1024 signed
+  bucket sums, from which a relative L2 error against JAX's is estimated
+  within ~2.2%, one standard deviation). Phase 7 and
+  `scripts/train_sites_torch_port.py` hold the port's gradient to it.
 
 JAX's losses run their models at bf16 (`craft_forward_train` and PARSEQ's
 encoder and decoder at their default compute dtype). For the fp32 records
@@ -41,6 +52,7 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 TINY = os.path.join(FIXTURES, "torch_train_tiny.npz")
 FULLWIDTH = os.path.join(FIXTURES, "torch_train_fullwidth.npz")
 WORDS = os.path.join(FIXTURES, "torch_train_words.npz")
+CRAFT_GRADS = os.path.join(FIXTURES, "torch_train_craft_grads.npz")
 TINY_MAX_LEN = 7
 K_PERMS = 6
 
@@ -256,6 +268,42 @@ def gen_fullwidth():
     print(f"wrote {FULLWIDTH}: {os.path.getsize(FULLWIDTH)} bytes")
 
 
+def craft_grad_record(grads, keys, buckets=None):
+    """{JAX path: gradient} -> the record's arrays for `keys`: each leaf's
+    norm (float64) and sketch (float32; `chip_smoke.SKETCH_BUCKETS` buckets
+    unless `buckets`)."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from chip_smoke import SKETCH_BUCKETS, grad_sketch
+
+    out = {}
+    for k in keys:
+        g = np.asarray(grads[k], np.float64)
+        out[f"norm/{k}"] = np.float64(np.linalg.norm(g.ravel()))
+        out[f"sketch/{k}"] = grad_sketch(torch.from_numpy(g), k, buckets or SKETCH_BUCKETS
+                                        ).numpy().astype(np.float32)
+    return out
+
+
+def gen_craft_grads():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import probe_torch_bf16 as probe
+    from tuatara_tpu.utils.weights import flatten_tree, load_configs, load_weights_dir
+
+    weights = os.path.join(ROOT, "evals", "production_weights")
+    cfg = load_configs(weights)[0]
+    with np.load(FULLWIDTH) as z:
+        rec = {k: z[k] for k in ("pages", "heat")}
+    grads = probe.jax_craft_grads(cfg, flatten_tree(load_weights_dir(weights)[0]),
+                                  rec["pages"], rec["heat"])
+    keys = sorted(k for k in grads if not probe.CRAFT_ZERO_GRAD.search(k)
+                  and not k.endswith(("/mean", "/var")))
+    out = craft_grad_record(grads, keys)
+    np.savez_compressed(CRAFT_GRADS, **out)
+    print(f"wrote {CRAFT_GRADS}: {len(keys)} leaves, {os.path.getsize(CRAFT_GRADS)} bytes")
+
+
 def gen_words(n=256, seed=0):
     sys.path.insert(0, ROOT)
     from tuatara_tpu_torch.tokenizer import Tokenizer
@@ -268,7 +316,8 @@ def gen_words(n=256, seed=0):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--part", choices=("tiny", "fullwidth", "words", "all"), default="all")
+    ap.add_argument("--part", choices=("tiny", "fullwidth", "words", "craft_grads", "all"),
+                    default="all")
     part = ap.parse_args().part
     if part in ("tiny", "all"):
         gen_tiny()
@@ -276,6 +325,8 @@ def main():
         gen_words()
     if part in ("fullwidth", "all"):
         gen_fullwidth()
+    if part in ("craft_grads", "all"):
+        gen_craft_grads()
 
 
 if __name__ == "__main__":

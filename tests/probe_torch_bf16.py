@@ -33,7 +33,11 @@ More probes, each a word on the command line:
   not 1. With `--attribute`, a line for each JAX record the port does not
   give: where the two first part (`first_parting`: heatmap pixels across
   a threshold near the box, or the first greedy step or refined position
-  whose argmax differs, with both packages' logits).
+  whose argmax differs, with both packages' logits), and under int8 CRAFT
+  the first quantized layer whose dynamic scale differs from JAX's on that
+  page, with both scales and abs-maxes (`first_scale_parting`); the
+  preset's line then counts the missed records that part first at
+  detection and at recognition.
 * `residual`: a bf16 Linear whose output feeds an fp32 add (a residual,
   PARSEQ's `x + linear(h)`): the share of JAX's compiled values that each
   form gives (XLA drops the rounding of the bias add there), the port's
@@ -54,7 +58,14 @@ More probes, each a word on the command line:
   "rounded" where a convert to bf16 comes first, or "UNROUNDED" and the
   fp32 op its sum reaches. CRAFT's decoder sum `ya + yb` is followed the
   same way (`bias_scopes`); `CRAFT_TRAIN_SITES` names CRAFT's training
-  sites as `models/craft._train_conv` does.
+  sites as `models/craft._train_conv` does. Then the int8 graph
+  (`int8_sites`): JAX's int8 `craft_forward` at bf16 as the forced-Pallas
+  `production()` engine jits it, on the golden weights and on
+  `evals/production_weights`; each layer's dequant, each decoder sum and
+  each float conv's bias add followed past its bf16 rounding to every op
+  that reads it (the next abs-max and x * xs, the sum, the upsample, the
+  head's convs), "rounded" or "UNROUNDED", and the opcode of each scale
+  division (127 / amax, sw / xs).
 * `craft_grads [tiny|full]`: the CRAFT loss's gradient at bf16 before the
   optimizer, the port's against JAX's leaf by leaf, with each of
   `TrainableCraft`'s sums alone in JAX's form and with the forms the port
@@ -267,6 +278,7 @@ def pages_share(package=None, attribute=False, presets=("default", "latency")):
         jax_engine = None
         hit = total = 0
         per_page = {}
+        kinds = {"detection": 0, "recognition": 0}
         for page in PAGES:
             want = ref[preset]["pages"][page]["words"]
             img = load_image(os.path.join(root, "images", f"{page}.png"))
@@ -280,10 +292,92 @@ def pages_share(package=None, attribute=False, presets=("default", "latency")):
                     from tuatara_tpu.api import OcrEngine as JaxEngine
 
                     jax_engine = JaxEngine(jax_config(preset), weights_dir=weights)
+                scale = ""
+                if engine.craft.quantized:
+                    scale = "; " + first_scale_parting(engine, jax_engine, img)
                 for line in first_parting(engine, jax_engine, img, want, got):
-                    print(f"  {preset} {page}: {line}", flush=True)
+                    kinds["detection" if "; detection:" in line else "recognition"] += 1
+                    print(f"  {preset} {page}: {line}{scale}", flush=True)
         print(f"{preset}: {hit} of {total} JAX bf16 records ({hit / total:.4f}); per page "
-              f"{json.dumps(per_page)}", flush=True)
+              f"{json.dumps(per_page)}"
+              + (f"; the missed part first at {json.dumps(kinds)}" if attribute else ""),
+              flush=True)
+
+
+def jax_int8_scales(jax_engine, img):
+    """JAX's int8 CRAFT on a page as its engine jits it (canvas prep and
+    CRAFT in one graph) -> ([(amax, xs)] of each quantized layer in the
+    order their inputs are quantized, whether the scores equal those of
+    the same graph without the extra outputs). The jit returns only those
+    fp32 scalars beside the scores: a bf16 intermediate returned from it
+    would be materialized, and keep a rounding the whole graph may drop."""
+    import jax
+    import jax.numpy as jnp
+
+    from tuatara_tpu.api import _canvas_prep
+    from tuatara_tpu.models import layers as JL
+    from tuatara_tpu.models.craft import craft_forward
+
+    cfg, ccfg = jax_engine.config, jax_engine.craft_config
+    saved, taps = JL.quantize_act_q, []
+
+    def quantize(qp, x):
+        xq, xs = saved(qp, x)
+        taps.append((jnp.max(jnp.abs(x.astype(jnp.float32))), xs))
+        return xq, xs
+
+    def forward(p, im):
+        taps.clear()
+        canvases = jax.vmap(lambda i: _canvas_prep(i, cfg))(im)
+        return (craft_forward(p, canvases, ccfg, compute_dtype=jnp.dtype(cfg.compute_dtype))[0],
+                list(taps))
+
+    page = jnp.asarray(np.asarray(img)[None])
+    plain, _ = jax.jit(forward)(jax_engine.craft_params, page)
+    JL.quantize_act_q = quantize
+    try:
+        scores, scales = jax.jit(lambda p, im: forward(p, im))(jax_engine.craft_params, page)
+    finally:
+        JL.quantize_act_q = saved
+    same = bool(np.array_equal(np.asarray(plain), np.asarray(scores)))
+    return [(float(a), float(x)) for a, x in scales], same
+
+
+def port_int8_scales(engine, img):
+    """The port's int8 CRAFT on a page (`engine.detect`) -> [(layer, amax,
+    xs)] in `Craft.qconvs()` order, the order their inputs are quantized."""
+    from tuatara_tpu_torch.models.layers import QConv, _abs_max
+
+    names = {id(m): n for n, m in engine.craft.qconvs()}
+    rows, orig = [], QConv.quantize_input
+
+    def quantize_input(self, x):
+        xq, xs = orig(self, x)
+        rows.append((names[id(self)], float(_abs_max(x)), float(xs)))
+        return xq, xs
+
+    images = engine._to_device(engine._batch_geometry(img)[0])
+    QConv.quantize_input = quantize_input
+    try:
+        with torch.no_grad():
+            engine.detect(images)
+    finally:
+        QConv.quantize_input = orig
+    return rows
+
+
+def first_scale_parting(engine, jax_engine, img):
+    """-> a line: the first int8 layer of the page (module order) whose
+    dynamic scale xs differs from JAX's, with both xs and both abs-maxes,
+    or that every one is equal."""
+    want, same = jax_int8_scales(jax_engine, img)
+    got = port_int8_scales(engine, img)
+    tail = "" if same else " (JAX's observed graph scored otherwise than its plain one)"
+    for (layer, amax, xs), (jamax, jxs) in zip(got, want):
+        if xs != jxs:
+            return (f"first int8 scale that parts: {layer} xs JAX {jxs!r}, port {xs!r} (amax "
+                    f"JAX {jamax!r}, port {amax!r}){tail}")
+    return f"every int8 scale equal to JAX's ({len(got)} layers){tail}"
 
 
 def _unmatched(want, got):
@@ -552,15 +646,11 @@ def parse_hlo(text):
     return comps, entry
 
 
-def bias_add_outcomes(text):
-    """Each bias add of the optimised HLO (an `add` named `<scope>/add`
-    directly under a `bias__...` scope) -> {scope: set of outcomes}:
-    "rounded" where a convert to a 16-bit type comes first on a path,
-    "rounded (bf16 add)" where the add itself is bf16, else "fp32 <op> (<op
-    name>)" for the first op that computes on the unrounded fp32 sum, or
-    "fp32 output". Paths are followed through fusions, calls, while loops
-    (the body's result back into the body and out of the loop), tuples and
-    the ops in _MOVES."""
+def hlo_graph(text):
+    """Optimised HLO text -> (computations, the entry's name, {computation:
+    {instruction: [(user, operand position)]}}, {computation: [(caller's
+    computation, calling instruction)]}, param(computation, k) -> the name
+    of its parameter k)."""
     comps, entry = parse_hlo(text)
     users, callers = {}, {}
     for cname, instrs in comps.items():
@@ -576,8 +666,24 @@ def bias_add_outcomes(text):
         return next(n for n, i in comps[comp].items() if i["op"] == "parameter"
                     and i["param"] == str(k))
 
-    def short(op_name):
-        return "/".join(op_name.split("/")[-2:])
+    return comps, entry, users, callers, param
+
+
+def _short(op_name):
+    """An op name's last two scopes."""
+    return "/".join(op_name.split("/")[-2:])
+
+
+def bias_add_outcomes(text):
+    """Each bias add of the optimised HLO (an `add` named `<scope>/add`
+    directly under a `bias__...` scope) -> {scope: set of outcomes}:
+    "rounded" where a convert to a 16-bit type comes first on a path,
+    "rounded (bf16 add)" where the add itself is bf16, else "fp32 <op> (<op
+    name>)" for the first op that computes on the unrounded fp32 sum, or
+    "fp32 output". Paths are followed through fusions, calls, while loops
+    (the body's result back into the body and out of the loop), tuples and
+    the ops in _MOVES."""
+    comps, entry, users, callers, param = hlo_graph(text)
 
     found = {}
     for cname, instrs in comps.items():
@@ -606,7 +712,7 @@ def bias_add_outcomes(text):
                     u = comps[c][un]
                     if u["op"] == "convert" and not path:
                         out.add("rounded" if u["type"].startswith(("bf16", "f16")) else
-                                f"fp32 convert ({short(u['op_name'])})")
+                                f"fp32 convert ({_short(u['op_name'])})")
                     elif u["op"] == "tuple":
                         work.append((c, un, (pos,) + path))
                     elif u["op"] == "get-tuple-element":
@@ -621,8 +727,18 @@ def bias_add_outcomes(text):
                     elif u["op"] == "while":
                         work += [(u[k], param(u[k], 0), path) for k in ("body", "cond")]
                     else:
-                        out.add(f"fp32 {u['op']} ({short(u['op_name'])})")
+                        out.add(f"fp32 {u['op']} ({_short(u['op_name'])})")
     return found
+
+
+def _call_site(root):
+    """The two innermost frames of the repository's files (under `root`)
+    on the stack, without the caller's own -> ([(file, function, line)],
+    a scope name "<file>_<line>__<file>_<line>")."""
+    frames = [f for f in traceback.extract_stack()[:-2]
+              if os.path.abspath(f.filename).startswith(root + os.sep)][::-1][:2]
+    sites = [(os.path.basename(f.filename), f.name, f.lineno) for f in frames]
+    return sites, "__".join(f"{n[:-3]}_{ln}" for n, _, ln in sites)
 
 
 class bias_scopes:
@@ -655,15 +771,12 @@ class bias_scopes:
         def scoped(fn):
             def call(*args, **kwargs):
                 close()
-                frames = [f for f in traceback.extract_stack()[:-1]
-                          if os.path.abspath(f.filename).startswith(root + os.sep)][::-1][:2]
-                sites = [(os.path.basename(f.filename), f.name, f.lineno) for f in frames]
-                name = "__".join(f"{n[:-3]}_{ln}" for n, _, ln in sites)
+                sites, name = _call_site(root)
                 scope = "bias__" + name
                 self.sites[scope] = sites
                 with jax.named_scope(scope):
                     out = fn(*args, **kwargs)
-                if frames and frames[0].name == "conv1_split" and "b" not in args[0]:
+                if sites and sites[0][1] == "conv1_split" and "b" not in args[0]:
                     scope = "bias__sum__" + name
                     self.sites[scope] = [(sites[0][0], "conv1_split: ya + yb", sites[0][2]),
                                          *sites[1:]]
@@ -836,6 +949,264 @@ def hlo_sites(training=None):
     return out
 
 
+# ---- the `hlo` probe's int8 graph -----------------------------------------
+
+# Ops that pass a dequant output on to a consumer without computing a new
+# value from it: moves, conversions (a bf16 one marks the path rounded),
+# the ReLU (`maximum` with 0), the max-pools and the abs before an abs-max.
+_PASS = _MOVES | {"convert", "maximum", "reduce-window", "select", "abs"}
+_INT8_SCOPE = re.compile(r"((?:deq|sum|bias)__[A-Za-z0-9_]+)\)*/(add|mul)$")
+
+
+def int8_layer_order(qtree):
+    """The quantized layers of a `quantize_craft_trunk` tree in the order
+    JAX's int8 forward quantizes their inputs (the port's `Craft.qconvs()`
+    order): the trunk after conv1_1, fc6, fc7, each decoder level's conv1a,
+    conv1b and conv2, the head's conv1-3."""
+    out = [f"vgg/{n}/conv" for n in sorted(qtree["vgg"]) if "wq" in qtree["vgg"][n]["conv"]]
+    out += [f"fc/{n}" for n in sorted(qtree["fc"])]
+    for lvl in sorted(qtree["up"]):
+        out += [f"up/{lvl}/{n}" for n in ("conv1a", "conv1b", "conv2")]
+    return out + [f"head/{n}" for n in sorted(qtree["head"]) if "wq" in qtree["head"][n]]
+
+
+class int8_scopes:
+    """While open, the JAX package's int8 layer functions (module attributes,
+    which its functions look up at call time) run inside named scopes that
+    name the layer (`layers`, the layers in the order their inputs are
+    quantized, `int8_layer_order`): `quant__<layer>` around
+    `quantize_act_q` (the abs-max, 127 / amax, x * xs and its rounding),
+    `deq__<layer>` around `conv2d_q_pre` (the int32 conv, sw / xs, the
+    dequant y * (sw / xs) + b and its cast), `sum__<level>` from conv1b's
+    dequant to the next layer call (the decoder's `ya + yb` and its ReLU),
+    and the float `conv2d` calls (conv1_1, the head's 1x1s) in `bias__`
+    scopes named by their frames, as `bias_scopes` names them
+    (`self.sites`). The package is not edited."""
+
+    def __init__(self, layers):
+        self.layers = list(layers)
+
+    def __enter__(self):
+        import jax
+
+        from tuatara_tpu.models import layers as JL
+
+        self.saved = (JL.quantize_act_q, JL.conv2d_q_pre, JL.conv2d)
+        self.sites, self.open, self.calls, self.current = {}, [], 0, None
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(JL.__file__))))
+
+        def close():
+            while self.open:
+                self.open.pop().__exit__(None, None, None)
+
+        def tag(name):
+            return re.sub(r"\W", "_", name)
+
+        def quantize(qp, x):
+            close()
+            self.current = self.layers[self.calls % len(self.layers)]
+            self.calls += 1
+            with jax.named_scope("quant__" + tag(self.current)):
+                return self.saved[0](qp, x)
+
+        def dequant(*args, **kwargs):
+            close()
+            with jax.named_scope("deq__" + tag(self.current)):
+                out = self.saved[1](*args, **kwargs)
+            if self.current.endswith("/conv1b"):
+                self.open.append(jax.named_scope("sum__" + tag(self.current[:-7])))
+                self.open[-1].__enter__()
+            return out
+
+        def conv(*args, **kwargs):
+            close()
+            sites, name = _call_site(root)
+            scope = "bias__" + name
+            self.sites[scope] = sites
+            with jax.named_scope(scope):
+                return self.saved[2](*args, **kwargs)
+
+        JL.quantize_act_q, JL.conv2d_q_pre, JL.conv2d = quantize, dequant, conv
+        self.close = close
+        return self
+
+    def __exit__(self, *exc):
+        from tuatara_tpu.models import layers as JL
+
+        self.close()
+        JL.quantize_act_q, JL.conv2d_q_pre, JL.conv2d = self.saved
+
+
+def int8_outcomes(text):
+    """The optimised HLO of an int8 forward traced under `int8_scopes` ->
+    ({scope: set of consumers}, {scope: set of opcodes of its "div"}).
+    A scope's value is its last op (`deq__`: the dequant's `+ b`, or its
+    `* (sw / xs)` without a bias; `sum__`: `ya + yb`; `bias__`: the float
+    conv's bias add), followed through fusions, tuples and the ops of
+    `_PASS` to each op that computes on it: "rounded <op> (<op name>)" where
+    a convert to a 16-bit type lies on the way, "UNROUNDED ..." where none
+    does, "output" at the graph's result."""
+    comps, entry, users, callers, param = hlo_graph(text)
+
+    starts, divs = {}, {}
+    for cname, instrs in comps.items():
+        for iname, ins in instrs.items():
+            name = ins["op_name"]
+            m = re.search(r"((?:quant|deq)__[A-Za-z0-9_]+)\)*/div$", name)
+            if m and ins["op"] in ("divide", "multiply"):
+                divs.setdefault(m[1], set()).add(ins["op"])
+            m = _INT8_SCOPE.search(name)
+            if m and ins["op"] == {"add": "add", "mul": "multiply"}[m[2]]:
+                starts.setdefault(m[1], {}).setdefault(m[2], []).append((cname, iname))
+    found = {}
+    for scope, ops in starts.items():
+        out = found.setdefault(scope, set())
+        work, seen = [], set()
+        for c, n in ops.get("add") or ops["mul"]:
+            work.append((c, n, (), not comps[c][n]["type"].startswith("f32")))
+        while work:
+            c, n, path, rounded = work.pop()
+            if (c, n, path, rounded) in seen:
+                continue
+            seen.add((c, n, path, rounded))
+            if comps[c][n]["root"]:
+                if c == entry:
+                    out.add(("rounded" if rounded else "UNROUNDED") + " output")
+                for cc, ci in callers.get(c, []):
+                    work.append((cc, ci, path, rounded))
+            for un, pos in users[c].get(n, []):
+                u = comps[c][un]
+                if u["op"] == "tuple":
+                    work.append((c, un, (pos,) + path, rounded))
+                elif u["op"] == "get-tuple-element":
+                    if path and str(path[0]) == u["index"]:
+                        work.append((c, un, path[1:], rounded))
+                elif u["op"] in ("fusion", "call"):
+                    work.append((u["calls"], param(u["calls"], pos), path, rounded))
+                elif u["op"] == "convert" and not path:
+                    if u["type"].startswith(("bf16", "f16")):
+                        work.append((c, un, path, True))
+                    elif u["type"].startswith("f32"):
+                        work.append((c, un, path, rounded))
+                    else:
+                        out.add(f"{'rounded' if rounded else 'UNROUNDED'} convert to "
+                                f"{u['type'].split('[')[0]} ({_short(u['op_name'])})")
+                elif u["op"] in _PASS and not path:
+                    if pos == 0 or u["op"] not in ("dynamic-slice", "dynamic-update-slice"):
+                        work.append((c, un, path, rounded))
+                else:
+                    out.add(f"{'rounded' if rounded else 'UNROUNDED'} {u['op']} "
+                            f"({_short(u['op_name'])})")
+    return found, divs
+
+
+def int8_graphs(full=True):
+    """[(name, function, args, layer order)]: JAX's int8 `craft_forward` at
+    bf16 as the forced-Pallas `production()` engine (`production_pallas`)
+    jits it, the canvas prep and CRAFT in one graph, on the engine's
+    quantized, BN-folded tree: the golden weights on the probe's 200x300
+    crop of resume_example, and with `full` also `evals/production_weights`
+    on funsd_0001129658 (canvas 1024x768); dynamic scales; the packed head
+    (the canvases' widths allow it)."""
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, HERE)
+    from torch_common import GOLDEN, image
+
+    from tuatara_tpu.api import OcrEngine as JaxEngine, _canvas_prep
+    from tuatara_tpu.models.craft import craft_forward
+
+    cases = [(GOLDEN, "golden", image("resume_example")[:200, :300].copy())]
+    if full:
+        cases.append((os.path.join(os.path.dirname(HERE), "evals", "production_weights"),
+                      "production_weights", image("funsd_0001129658")))
+    graphs = []
+    for weights, tag, page in cases:
+        eng = JaxEngine(jax_config("production_pallas"), weights_dir=weights)
+        cfg, ccfg = eng.config, eng.craft_config
+
+        def fn(p, im, cfg=cfg, ccfg=ccfg):
+            canvases = jax.vmap(lambda i: _canvas_prep(i, cfg))(im)
+            return craft_forward(p, canvases, ccfg,
+                                 compute_dtype=jnp.dtype(cfg.compute_dtype))[0]
+
+        graphs.append((f"int8 craft_forward (production_pallas, {tag}, page {page.shape[:2]})",
+                       fn, (eng.craft_params, page[None]), int8_layer_order(eng.craft_params)))
+    return graphs
+
+
+# The port's counterpart of each int8 site kind: (module, function, a text
+# on the line).
+INT8_PORT = {"deq": ("models.layers", "QConv.forward",
+                     "dequant(acc, scale, self.bias, self.out_dtype)"),
+             "sum": ("models.craft", "Craft._double_conv_q", "y = ya + blk[\"conv1b\"](skip)"),
+             "div_xs": ("models.layers", "quantize_act",
+                        "xs = torch.full_like(amax, 127.0) / amax"),
+             "div_scale": ("models.layers", "QConv.sums", "self.sw / xs")}
+# The float convs' bias adds of the int8 graph, by the lines of their two
+# JAX frames: conv1_1 (kernel SC), the packed head's conv4 and conv5.
+INT8_BIAS_PORT = {(307, 446): ("models.craft", "Craft.forward", "stem.stem_conv(h"),
+                  (551, 557): ("models.craft", "Craft.forward", 'hd["conv5"](_conv_relu('),
+                  (551, 558): ("models.craft", "Craft.forward", 'hd["conv5"](_conv_relu(')}
+
+
+def source_line(module, qualname, text):
+    """-> "tuatara_tpu_torch/<module path>:<line> <qualname>" of the line
+    of `qualname` holding `text`."""
+    import importlib
+    import inspect
+
+    obj = importlib.import_module(f"tuatara_tpu_torch.{module}")
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    lines, start = inspect.getsourcelines(obj)
+    k = next(i for i, ln in enumerate(lines) if text in ln and i > 0)
+    return f"tuatara_tpu_torch/{module.replace('.', '/')}.py:{start + k} {qualname}"
+
+
+def int8_sites(graphs=None):
+    """The `hlo` probe's int8 part: for each graph of `int8_graphs()`, each
+    layer's dequant, each decoder sum and each float conv's bias add, with
+    the consumers its value reaches and whether a bf16 rounding comes
+    first ("rounded") or not ("UNROUNDED"), the opcode of each scale
+    division (`127 / amax`, `sw / xs`: "divide" unless XLA rewrote it), and
+    the port's counterpart. -> [(graph name, {scope: consumers}, {scope:
+    opcodes}, {scope: frames of a bias__ scope})]."""
+    import jax
+
+    out = []
+    for name, fn, args, layers in graphs if graphs is not None else int8_graphs():
+        with int8_scopes(layers) as scopes:
+            text = jax.jit(fn).lower(*args).compile().as_text()
+        found, divs = int8_outcomes(text)
+        n = {k: sum(s.startswith(k) for s in found) for k in ("deq", "sum", "bias")}
+        print(f"{name}: {n['deq']} dequant sites, {n['sum']} decoder sums, {n['bias']} float "
+              f"bias adds")
+        port = {k: source_line(*v) for k, v in INT8_PORT.items()}
+        order = {"deq__" + re.sub(r"\W", "_", lay): i for i, lay in enumerate(layers)}
+        for scope in sorted(found, key=lambda k: (order.get(k, len(order)), k)):
+            cons = sorted(found[scope])
+            verdict = "UNROUNDED" if any(c.startswith("UNROUNDED") for c in cons) else "rounded"
+            kind = scope.split("__")[0]
+            if kind in port:
+                where = port[kind]
+            else:
+                site = scopes.sites[scope]
+                hit = INT8_BIAS_PORT.get(tuple(ln for _, _, ln in site))
+                where = ((source_line(*hit) if hit else "-") + "  JAX "
+                         + " < ".join(f"{f}:{ln} {fn}" for f, fn, ln in site))
+            print(f"  {verdict:9s} {scope}  port {where}  [{'; '.join(cons)}]")
+        for scope in sorted(divs, key=lambda k: (order.get("deq__" + k.split("__", 1)[1],
+                                                            len(order)), k)):
+            what = "xs = 127 / amax" if scope.startswith("quant") else "scale = sw / xs"
+            key = "div_xs" if scope.startswith("quant") else "div_scale"
+            print(f"  scale     {scope}: {what} is {'/'.join(sorted(divs[scope]))}  port "
+                  f"{port[key]}")
+        out.append((name, found, divs, dict(scopes.sites)))
+    return out
+
+
 # `TrainableCraft`'s sums (the sites of models/craft.py `_train_conv`, and
 # `_train_sum`'s "up_sum") in JAX's form, as the `hlo` probe reads the CRAFT
 # loss's gradient; in the forms before any followed it: cuDNN's bias inside
@@ -1000,6 +1371,7 @@ if __name__ == "__main__":
         residual_rounding()
     elif what == "hlo":
         hlo_sites()
+        int8_sites()
     elif what == "resample":
         resample_residual()
     elif what == "craft_grads":

@@ -42,7 +42,10 @@ points (`models/layers.add_bias`, `kernels/bias_act.py`,
   pos_embed`), the port's `Linear(x, residual=r)` against JAX's compiled
   sites, the fp32-output mode of `bias_act` (its plain version and
   backward), and the `hlo` probe that lists those sites from XLA's graph,
-  also of the forced-Pallas engine (the sites beside K6 and K7).
+  also of the forced-Pallas engine (the sites beside K6 and K7) and of
+  int8 CRAFT (every dequant, decoder sum and float bias add rounded to
+  bf16 before anything reads it, every scale a division, as the port
+  computes them).
 """
 
 import dataclasses
@@ -1081,7 +1084,7 @@ HLO_UNROUNDED = {
 }
 
 
-@pytest.mark.parametrize("graph", ["serving", "serving_pallas", "training"])
+@pytest.mark.parametrize("graph", ["serving", "serving_pallas", "training", "int8"])
 def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
     """On the golden weights, XLA's graph of the greedy `_recognize_body`
     (the eager encoder, the greedy decode, the refine, the confidence), or
@@ -1100,6 +1103,9 @@ def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
     from tuatara_tpu.api import OcrEngine as JaxEngine
     from tuatara_tpu.config import ParseqConfig as JaxParseqConfig
 
+    if graph == "int8":
+        _int8_sites_are_the_ports(probe)
+        return
     if graph == "serving_pallas":
         keep = [probe.pallas_graph(JaxEngine(probe.jax_config("latency_pallas"),
                                              parseq_config=JaxParseqConfig(**PALLAS_D128),
@@ -1136,6 +1142,32 @@ def test_hlo_sites_are_the_ports_sites(graph, monkeypatch):
         assert len(kv) == 2 and all(dict(found)[site] == {"rounded"} for site in kv)
         for site in kv:
             assert ".to(torch.bfloat16)" in _source_line(probe.port_line(site)), site
+
+
+def _int8_sites_are_the_ports(probe):
+    """The int8 case of `test_hlo_sites_are_the_ports_sites`: XLA's graph
+    of JAX's int8 CRAFT at bf16 as the forced-Pallas `production()` engine
+    jits it (golden weights, the probe's crop: the packed head) rounds
+    every value the port rounds: each of the 28 dequant outputs, the 4
+    decoder sums and the float convs' bias adds (conv1_1, the head's 1x1s)
+    reach every consumer (the next abs-max and x * xs, the decoder sum, the
+    upsample's dot, the head's convs, the output) after a bf16 rounding, as
+    the port's `QConv` (out_dtype bf16), `_double_conv_q`'s bf16 sum, SC
+    and `Conv` compute them; every 127 / amax and sw / xs stays a division,
+    as the port divides."""
+    (_, found, divs, _), = probe.int8_sites(probe.int8_graphs(full=False))
+    kinds = [s.split("__")[0] for s in found]
+    assert (kinds.count("deq"), kinds.count("sum"), kinds.count("bias")) == (28, 4, 3)
+    for scope, consumers in found.items():
+        assert consumers and all(c.startswith("rounded") for c in consumers), (scope, consumers)
+        if scope.startswith("deq__") and not scope.endswith(("conv1a", "conv1b", "head_conv3")):
+            assert any("/reduce_max)" in c for c in consumers), (scope, consumers)
+            assert any("/mul)" in c for c in consumers), (scope, consumers)
+    assert len(divs) == 56 and all(ops == {"divide"} for ops in divs.values()), divs
+    for kind, (module, qualname, text) in probe.INT8_PORT.items():
+        assert text in _source_line(probe.source_line(module, qualname, text)), kind
+    for module, qualname, text in probe.INT8_BIAS_PORT.values():
+        assert text in _source_line(probe.source_line(module, qualname, text))
 
 
 def _source_line(where):

@@ -236,7 +236,10 @@ class OcrEngine:
             logger.warning("no weights_dir given: engine initialized with RANDOM weights "
                            "(transcripts will be meaningless; throughput is unaffected)")
         self.craft = Craft(self.craft_config)
-        self.craft.load_state_dict(craft_state_dict(craft_tree, self.craft_config.bn_eps))
+        # int8 CRAFT folds its BatchNorms bit for bit as JAX does: its
+        # weight scales and dynamic activation scales hang on those bits.
+        self.craft.load_state_dict(craft_state_dict(craft_tree, self.craft_config.bn_eps,
+                                                    xla_fold=config.quantized_serving))
         self.parseq = Parseq(self.parseq_config)
         self.parseq.load_state_dict(parseq_state_dict(parseq_tree))
         if config.quantized_serving:

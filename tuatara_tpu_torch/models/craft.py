@@ -26,7 +26,16 @@ any non-fp32) compute dtype conv1a runs on the low-resolution trunk and its
 output is upsampled, as JAX orders it (`tuatara_tpu/models/craft.py:
 476-491`); at fp32 the trunk is upsampled first. JAX packs the head's
 width for the TPU; the packed int8 conv is bit-equal to the unpacked one,
-so the head runs unpacked here.
+so the head runs unpacked here. At bf16 the int8 layers already round
+where XLA's CPU backend rounds JAX's graph (`tests/probe_torch_bf16.py
+hlo`: every dequant output is rounded to bf16 before its ReLU, pool,
+abs-max, sum or the next quantization, and the scales are the divisions
+JAX writes), so given one folded tree each layer's dynamic scale and int8
+input equal JAX's when its input does. The float conv1_1 before them runs
+as `kernels/stem.stem_conv` (kernel SC), which sums each output in XLA's
+order: another order rounds a few outputs to other bf16 values, and the
+int8 trunk turns those into other int8 values and, layers later, other
+scales.
 
 At a 16-bit compute dtype (bf16 by default) the port rounds where XLA's
 CPU backend rounds JAX's compiled forward: each float conv's product is
@@ -76,6 +85,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tuatara_tpu_torch.config import CraftConfig
+from tuatara_tpu_torch.kernels import stem
 from tuatara_tpu_torch.kernels.bias_act import bias_add_f32
 from tuatara_tpu_torch.kernels.stage1 import fused_conv_pool, pack_conv_pool_weights
 from tuatara_tpu_torch.models.layers import BatchNorm, Conv, QConv, add_bias, dequant, init_conv
@@ -362,6 +372,14 @@ class Craft(nn.Module):
             return ok
         return ok and x.is_cuda
 
+    def _stem_ok(self) -> bool:
+        """conv1_1 through `stem_conv` (XLA's summation order): int8 CRAFT
+        at bf16, a 3x3 conv1_1 within the kernel's limits."""
+        w = self.vgg["conv1_1"]["conv"].weight
+        return (self.quantized and w.dtype == torch.bfloat16 and w.shape[2:] == (3, 3)
+                and w.shape[1] <= stem.MAX_CIN and w.shape[0] % 8 == 0
+                and w.shape[0] <= stem.MAX_COUT)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, H, W, C] float in [0, 1], C = 3 or 1 (gray is broadcast to
         conv1_1's input channels). Returns (scores [B, H/2, W/2, 2] fp32 —
@@ -386,6 +404,9 @@ class Craft(nn.Module):
                 h = F.max_pool2d(h, 2, 2)
             if skip is not None:
                 h, skips[skip] = _conv_relu(self.vgg[name]["conv"], h, keep_pre=True)
+            elif idx == 0 and self._stem_ok():
+                c11 = self.vgg[name]["conv"]
+                h = stem.stem_conv(h, c11.weight, c11.bias)
             else:
                 h = _conv_relu(self.vgg[name]["conv"], h)
 

@@ -268,14 +268,15 @@ def dequant(acc: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor]
     rounding, as XLA compiles JAX's dequant (it contracts the two into a
     fused multiply-add), then cast to out_dtype. On the card one
     `torch.addcmul` (an fma there) reading the int32 sums and writing
-    out_dtype; on the CPU in float64, where the product is exact (|acc| <
-    2^28, scale 24 bits), then rounded to fp32."""
+    out_dtype; on the CPU in float64 after the sums' rounding to fp32
+    (JAX's `astype(float32)`, and the card's type promotion), where the
+    product of two fp32 values is exact, then rounded to fp32."""
     if acc.is_cuda:
         out = torch.empty(acc.shape, dtype=out_dtype, device=acc.device)
         if bias is None:
             return torch.mul(acc, scale, out=out)
         return torch.addcmul(bias, acc, scale, out=out)
-    y = acc.double() * scale.double()
+    y = acc.float().double() * scale.double()
     if bias is not None:
         y = y + bias.double()
     return y.float().to(out_dtype)

@@ -19,6 +19,7 @@ one array between the layouts, e.g. Adam's moments.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -26,21 +27,68 @@ import torch
 from torch import nn
 
 
-def fold_batchnorms(tree: Dict[str, Any], eps: float) -> Dict[str, Any]:
+RSQRTPS_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                             "rsqrtps_table.npy")
+_rsqrtps: List[np.ndarray] = []
+
+
+def _fma32(a: np.ndarray, b: np.ndarray, c) -> np.ndarray:
+    """fp32 a * b + c rounded once (the fp64 product of two fp32 values is
+    exact; the fp64 sum can round onto a midpoint of fp32 in ~2^-29 of
+    the cases, `ops.minarearect.fma`)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def xla_rsqrt(x: np.ndarray) -> np.ndarray:
+    """fp32 1/sqrt(x) for positive normal x, as XLA's CPU backend computes
+    `jax.lax.rsqrt` on x86: the `rsqrtps` estimate (`tests/gen_rsqrt_table.py`:
+    a table of 2 x 1024 values, read by the exponent's parity and the top
+    10 bits of the significand, read off an Intel CPU) and two Newton
+    steps, y = fma(-y/2, fma(fp32(x * y), y, -1), y). Not correctly
+    rounded (an ulp off on some inputs); bit-equal to XLA's on Intel x86
+    hosts, whichever host computes it."""
+    if not _rsqrtps:
+        _rsqrtps.append(np.load(RSQRTPS_TABLE))
+    x = np.asarray(x, np.float32)
+    bits = x.view(np.uint32)
+    e = (bits >> np.uint32(23)).astype(np.int64) - 127
+    odd = e & 1
+    y = _rsqrtps[0][odd * 1024 + ((bits >> np.uint32(13)) & np.uint32(1023))]
+    y = np.ldexp(y.astype(np.float64), -((e - odd) // 2)).astype(np.float32)
+    for _ in range(2):
+        y = _fma32(y * np.float32(-0.5), _fma32(x * y, y, -1.0), y)
+    return y
+
+
+def fold_batchnorms(tree: Dict[str, Any], eps: float, xla: bool = False) -> Dict[str, Any]:
     """Fold every inference BatchNorm into its conv, as
-    `tuatara_tpu/models/craft.py fold_batchnorms` does: w' = w * g and
-    b' = (b - mean) * g + bias with g = scale / sqrt(var + eps), in fp32.
-    Trees that are already folded come back unchanged."""
+    `tuatara_tpu/models/craft.py fold_batchnorms` does: w' = w * g and b' =
+    (b - mean) * g + bias, in fp32. With `xla`, bit for bit as JAX folds on
+    the CPU: g = scale * rsqrt(var + eps) by `xla_rsqrt`, and b' one fused
+    multiply-add as XLA compiles it. int8 serving takes that fold: every
+    int8 weight scale and every dynamic activation scale after it hangs on
+    these bits (ROADMAP Queue 3 item 19). Without, g = scale / sqrt(var +
+    eps) and b' two roundings, an ulp from JAX's on many channels; the
+    float engines keep it (their bf16 casts drop most of that ulp, and the
+    card's convolutions sum in other orders than XLA's anyway). Trees that
+    are already folded come back unchanged."""
     if "bn" not in next(iter(tree["vgg"].values())):
         return tree
 
     def fold(conv, bn):
-        g = (np.asarray(bn["scale"], np.float32)
-             / np.sqrt(np.asarray(bn["var"], np.float32) + np.float32(eps)))
-        w = np.asarray(conv["w"], np.float32) * g[None, None, None, :]
-        b = np.asarray(conv.get("b", np.float32(0)), np.float32)
-        b = (b - np.asarray(bn["mean"], np.float32)) * g + np.asarray(bn["bias"], np.float32)
-        return {"w": w.astype(np.float32), "b": b.astype(np.float32)}
+        scale, var = np.asarray(bn["scale"], np.float32), np.asarray(bn["var"], np.float32)
+        w = np.asarray(conv["w"], np.float32)
+        b = np.asarray(conv.get("b", np.float32(0)), np.float32) - np.asarray(bn["mean"],
+                                                                             np.float32)
+        shift = np.asarray(bn["bias"], np.float32)
+        if xla:
+            g = scale * xla_rsqrt(var + np.float32(eps))
+            b = _fma32(b, g, shift)
+        else:
+            g = scale / np.sqrt(var + np.float32(eps))
+            b = b * g + shift
+        return {"w": (w * g[None, None, None, :]).astype(np.float32), "b": b.astype(np.float32)}
 
     out = {"fc": tree["fc"], "head": tree["head"], "vgg": {}, "up": {}}
     for name, blk in tree["vgg"].items():
@@ -72,9 +120,11 @@ def _state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def craft_state_dict(tree: Dict[str, Any], eps: float = 1e-5) -> Dict[str, torch.Tensor]:
-    """CRAFT tree (BN folded or not) -> `Craft` state dict."""
-    return _state_dict(fold_batchnorms(tree, eps))
+def craft_state_dict(tree: Dict[str, Any], eps: float = 1e-5,
+                     xla_fold: bool = False) -> Dict[str, torch.Tensor]:
+    """CRAFT tree (BN folded or not) -> `Craft` state dict; `xla_fold`: fold
+    as XLA does (`fold_batchnorms(xla=True)`, what int8 serving takes)."""
+    return _state_dict(fold_batchnorms(tree, eps, xla_fold))
 
 
 def parseq_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
