@@ -155,8 +155,12 @@ line without a CUDA device or outside the repo.
              rotated exact engine builds on 3f's five pages, seeded random
              profiles at K = 256 and degenerate ones (nothing valid, one
              row, one column, H = 1, K = 1, chains of 194 vertices, past
-             the budget of 192);
-             at most 2 records a call (the kernel and the stacks' memset);
+             the budget of 192), and `hull_edge_profiles` at the edges of
+             its warps and rounds (K = 37 over H = 300: nothing valid, one
+             row, one column, valid rows split by gaps, random; H = 1;
+             K = 1), also against the plain version on the CPU;
+             at most 1 record a call (the kernel writes every entry: no
+             memset);
              ms, device ms, plain ms and the byte bound, and the edge
              sweep's (`sweep_chains`) device ms a page, its corners equal
              to the CPU's within 1e-4 (the same edge wins). Its entry
@@ -214,7 +218,10 @@ line without a CUDA device or outside the repo.
              timed (CUDA events, traced device time or, where a trace
              loses records, events) beside the plain version and cuDNN's
              bf16 conv2d with its bias (the library call), with its bound
-             (operations: 9 cin fp32 fma an output).
+             (operations: 9 cin fp32 fma an output). Then, bit for bit on
+             the card and the CPU, seeded inputs at STEM_EDGE_SHAPES (1, 2,
+             tile - 1 and tile + 1 rows and columns of its 8 x 32 tile, odd
+             widths near 600, gray and RGB, cout 8, 64 and 256).
 5. parity:   the same pages at compute_dtype float32 (TF32 off for convs
              and matmuls) against the JAX package's float32 result
              (tests/fixtures/torch_reference_production.json): at least
@@ -1183,18 +1190,19 @@ def check_int8_conv(prod, pages):
 
 
 def stem_inputs(prod, pages):
-    """{page: (x, weight, bias)} of conv1_1's `stem_conv` call in the
-    production() engine's detection of each page (its module attribute
-    wrapped while the pages run)."""
+    """{page: args} of conv1_1's `stem_conv` call in the production()
+    engine's detection of each page (its module attribute wrapped while the
+    pages run): (x, weight, bias), and the packed weights where the tree's
+    CRAFT passes them."""
     import torch
 
     from tuatara_tpu_torch.kernels import stem
 
     seen, orig = {}, stem.stem_conv
 
-    def record(x, w, b):
-        seen[page] = (x, w, b)
-        return orig(x, w, b)
+    def record(*args):
+        seen[page] = args
+        return orig(*args)
 
     stem.stem_conv = record
     try:
@@ -1204,6 +1212,39 @@ def stem_inputs(prod, pages):
     finally:
         stem.stem_conv = orig
     return seen
+
+
+# SC's edge shapes (H, W, canvas channels, cout) around its 8 x 32 output
+# tile: 1, 2, tile - 1, tile + 1 rows and columns, one whole tile, and odd
+# widths near 600 over two tile rows; gray (1 channel, broadcast to the
+# conv's 3) and RGB canvases; cout 8, 64 and 256.
+STEM_EDGE_SHAPES = ((1, 1, 3, 64), (2, 33, 1, 8), (7, 31, 3, 256), (9, 601, 1, 64),
+                    (8, 32, 3, 8), (9, 2, 3, 64), (1, 601, 3, 8), (16, 599, 1, 256))
+
+
+def stem_edge_case(h, w, ch, cout, seed=0):
+    """Seeded numpy inputs of SC at one edge shape: (canvas [1, h, w, ch]
+    fp32 in [0, 1], weight [cout, 3, 3, 3] fp32, bias [cout] fp32), the
+    weights at conv1_1's scale so that the ReLU cuts about half."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1000 * h + w + cout)
+    canvas = rng.random((1, h, w, ch), dtype=np.float32)
+    weight = (rng.standard_normal((cout, 3, 3, 3)) * 0.2).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    return canvas, weight, bias
+
+
+def stem_edge_tensors(canvas, weight, bias, device):
+    """SC's arguments as the int8 CRAFT forward gives them: x [1, 3, H, W]
+    an NCHW view of the NHWC canvas (a gray canvas expanded, stride 0 along
+    channels), the weight and bias in bf16."""
+    import torch
+
+    x = torch.from_numpy(canvas).to(device).permute(0, 3, 1, 2)
+    x = x.expand(-1, 3, -1, -1) if x.shape[1] == 1 else x
+    return (x, torch.from_numpy(weight).to(device, torch.bfloat16),
+            torch.from_numpy(bias).to(device, torch.bfloat16))
 
 
 def stem_bound_ms(x, w):
@@ -1227,23 +1268,30 @@ def check_stem(prod, pages, launches):
     for bit; timed beside the plain version and cuDNN's bf16 conv2d with
     its bias (the library call, which sums in its own order and leaves the
     ReLU out); traced device time with the CUDA-event time where a trace
-    loses records. -> the kernels line's entry."""
+    loses records. Then the same check on STEM_EDGE_SHAPES (the weights
+    packed by the call). -> the kernels line's entry."""
     import torch
     import torch.nn.functional as F
 
     from tuatara_tpu_torch.kernels import stem
 
-    rows = []
-    for page, (x, w, b) in stem_inputs(prod, pages).items():
-        got = stem.stem_conv(x, w, b)
+    def equal_to_plain(label, args):
+        x, w, b = args[:3]
+        got = stem.stem_conv(*args)
         ref = stem.stem_conv_plain(x, w, b)
         cpu = stem.stem_conv_plain(x.cpu(), w.cpu(), b.cpu())
         torch.cuda.synchronize()
         err = float((got.float() - ref.float()).abs().max())
         if not (torch.equal(got, ref) and torch.equal(got.cpu(), cpu)):
-            fail(f"{stem.SC} on {page}: differs from its plain version (max abs err {err}; the "
-                 f"CPU's plain version equal: {torch.equal(got.cpu(), cpu)})")
-        fn = lambda: stem.stem_conv(x, w, b)  # noqa: E731
+            fail(f"{stem.SC} on {label}: differs from its plain version (max abs err {err}; "
+                 f"the CPU's plain version equal: {torch.equal(got.cpu(), cpu)})")
+        return err
+
+    rows = []
+    for page, args in stem_inputs(prod, pages).items():
+        x, w, b = args[:3]
+        err = equal_to_plain(page, args)
+        fn = lambda: stem.stem_conv(*args)  # noqa: E731
         xb, wb, bb = x.to(torch.bfloat16), w.to(torch.bfloat16), b.to(torch.bfloat16)
         dev, route = device_ms_or_events(fn, os.path.join(ROOT, "build", "stem_trace.json"), 1)
         bound, by = stem_bound_ms(x, w)
@@ -1257,6 +1305,13 @@ def check_stem(prod, pages, launches):
               f"version (card and CPU) ms={row['ms']:.4f} device_ms={dev:.4f} ({route}) "
               f"plain_ms={row['plain_ms']:.3f} library_ms={row['library_ms']:.4f} "
               f"bound_ms={bound:.5f} ({by})", flush=True)
+    edges = []
+    for shape in STEM_EDGE_SHAPES:
+        label = "edge{}x{}c{}->{}".format(*shape)
+        err = equal_to_plain(label, stem_edge_tensors(*stem_edge_case(*shape), "cuda"))
+        edges.append(label)
+        print(f"kernel {stem.SC:24s} {label:18s} equal to its plain version (card and CPU), "
+              f"max abs err {err}", flush=True)
 
     def mean(key):
         return mean_of([r[key] for r in rows])
@@ -1272,7 +1327,8 @@ def check_stem(prod, pages, launches):
             "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": rows[0]["bound_by"], "library_ms": mean("library_ms"),
             "library": "F.conv2d bf16 with its bias (cuDNN; no ReLU)",
-            "timed_on": "mean over the four pages' production() canvases", "per_page": rows}
+            "timed_on": "mean over the four pages' production() canvases", "per_page": rows,
+            "edge_shapes_equal": edges}
 
 
 def word_share(ref_words, got_words) -> float:
@@ -2241,6 +2297,36 @@ def check_detect_sync_free(engines, pages):
         fail(f"detect reads the host on {sorted(bad)}, the default path does not")
 
 
+def hull_edge_profiles():
+    """[(label, dmin, dmax, dval)] numpy [H, K] profiles at the edges of H1's
+    warps and rounds (a warp a chain, 4 chains a block, 32 rows a ballot,
+    256 rows a round): K = 37 (not a multiple of 32 or 4) over H = 300 rows
+    (a round and part of one) with nothing valid, one valid row (in the
+    second round), one column of equal x (every middle point popped), a
+    component whose valid rows are split by gaps across ballots and
+    rounds, rows valid at random; H = 1; K = 1. Coordinates are integers,
+    as the dilated profiles' are."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    h, k = 300, 37
+    x = np.zeros((h, k), np.float32)
+    none = np.zeros((h, k), bool)
+    one = none.copy()
+    one[257] = True
+    bands = none.copy()
+    for lo, hi in ((10, 41), (100, 181), (250, 262), (290, 300)):
+        bands[lo:hi] = True
+    bands &= rng.random((h, k)) < 0.9
+    x0 = rng.integers(0, 380, (h, k)).astype(np.float32)
+    x1 = x0 + rng.integers(0, 40, (h, k)).astype(np.float32)
+    return [("empty300x37", x, x, none), ("one_row300x37", x + 5, x + 9, one),
+            ("column300x37", x + 7, x + 7, ~none), ("gaps300x37", x0, x1, bands),
+            ("random300x37", x0, x1, rng.random((h, k)) < 0.3),
+            ("h1x37", x[:1] + 3, x[:1] + 4, ~none[:1]),
+            ("k1x300", x0[:, :1], x1[:, :1], rng.random((h, 1)) < 0.5)]
+
+
 def hull_cases(engine, pages):
     """(label, dmin, dmax, dval) on the card for H1: the dilated profiles
     the rotated exact engine hands it on each page (captured by wrapping
@@ -2248,7 +2334,7 @@ def hull_cases(engine, pages):
     main path's K = 256 (rows valid at random, x at random: many pops),
     and degenerate ones: nothing valid, one valid row, one column of equal
     x (every middle point popped), H = 1, K = 1, and convex chains of 194
-    vertices, past the budget of 192."""
+    vertices, past the budget of 192; and `hull_edge_profiles`."""
     import numpy as np
     import torch
 
@@ -2301,13 +2387,16 @@ def hull_cases(engine, pages):
     rows = np.zeros((512, 256), bool)
     rows[:194] = True
     case("convex194x256", curve + 5000, 9000 - curve, rows)
+    for edge in hull_edge_profiles():
+        case(*edge)
     torch.cuda.synchronize()
     return cases
 
 
-def check_hull(engine, pages, launches):
+def check_hull(engine, pages, launches, max_records=1):
     """Phase 4f: H1 against its plain version on `hull_cases`, bit for bit
-    (hx, hy and cnt), at most 1 traced record a call; ms, device ms and
+    (hx, hy and cnt) on the card and on the CPU, at most `max_records`
+    traced records a call (None: not held); ms, device ms and
     the byte bound a call; beside it the edge sweep's device ms a page
     (`sweep_chains` on each page's chains, held to the CPU's corners
     within SWEEP_MAX_DIFF: the same edge must win). -> the kernels line's
@@ -2323,14 +2412,17 @@ def check_hull(engine, pages, launches):
         h, k = dmin.shape
         got = hull.lower_chains(dmin, dmax, dval)
         ref = hull.lower_chains_plain(dmin, dmax, dval)
+        cpu = hull.lower_chains_plain(dmin.cpu(), dmax.cpu(), dval.cpu())
         torch.cuda.synchronize()
         err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
-        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-            fail(f"{hull.H1} differs from its plain version on {label} (max abs err {err})")
+        if not all(torch.equal(a, b) and torch.equal(a.cpu(), c) for a, b, c in
+                   zip(got, ref, cpu)):
+            fail(f"{hull.H1} differs from its plain version on {label} (max abs err {err}; the "
+                 f"CPU's equal: {all(torch.equal(a.cpu(), c) for a, c in zip(got, cpu))})")
         kfn = lambda: hull.lower_chains(dmin, dmax, dval)  # noqa: E731
         ms = cuda_ms(kfn, 30)
         dev_ms, per_call = traced_per_call(kfn)
-        if per_call is not None and per_call > 2:  # the kernel and the stacks' memset
+        if max_records is not None and per_call is not None and per_call > max_records:
             fail(f"{hull.H1} took {per_call} records a call on {label}")
         pms = cuda_ms(lambda: hull.lower_chains_plain(dmin, dmax, dval), 2, warmup=1)
         nbytes = h * k * (4 + 4 + 1) + 2 * k * h * 4 * 2 + 2 * k * 4

@@ -39,7 +39,7 @@ traces `--reps` passes with `torch.profiler` (CPU + CUDA activity). Prints:
   bias add and GELU of a bf16 fc1) fall inside CRAFT and outside it
   (PARSEQ);
 * the port's own kernels by name (`port kernels`: ms and launches a page;
-  BA's `bias_act_*` and `bias_add_f32_*` among them).
+  SC's `stem_kernel`, BA's `bias_act_*` and `bias_add_f32_*` among them).
 
 Writes the chrome trace to build/profile_torch_port_<config>.json.
 Usage: python3 scripts/profile_torch_port.py [--reps N]
@@ -200,7 +200,8 @@ def main() -> int:
             if any(f"(anonymous namespace)::{k}" in n
                    for k in ("cc_", "area_", "component_stats", "gemm_kernel",
                              "attention", "decode_kernel", "fused_conv_pool",
-                             "lower_chains", "bias_act", "bias_add_f32", "gelu_grad"))}
+                             "lower_chains", "bias_act", "bias_add_f32", "gelu_grad",
+                             "stem_kernel"))}
     print("port kernels: " + json.dumps(
         {n: {"ms_per_page": v[0] / n_pages, "launches_per_page": v[1] / n_pages}
          for n, v in ours.items()}))

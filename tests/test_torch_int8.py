@@ -73,7 +73,7 @@ from tuatara_tpu_torch.utils import weights as W
 from tuatara_tpu_torch.utils.image import load_image
 from tuatara_tpu_torch.weights import craft_state_dict
 
-from chip_smoke import word_share
+from chip_smoke import STEM_EDGE_SHAPES, stem_edge_case, stem_edge_tensors, word_share
 from torch_common import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -594,6 +594,94 @@ def test_stem_conv_equals_xla_bf16_conv(page):
     other = torch.relu(torch.nn.functional.conv2d(x.to(torch.bfloat16), w, b.to(torch.bfloat16),
                                                   padding=1))
     assert (other.float().permute(0, 2, 3, 1).numpy() != want).sum() > 0
+
+
+def test_stem_packed_weights_follow_the_served_weights(folded):
+    """The weights and bias SC reads, packed once by `Craft.quantize` from
+    the fp32 folded tree, equal the packing of the bf16 weights the engine
+    serves after `set_compute_dtype` (the cast rounds as the packing
+    does); a state dict loaded into the quantized model packs them again."""
+    from tuatara_tpu_torch.kernels.stem import pack_stem_weights
+
+    _, jfold, _, ccfg = folded
+    m = _port_craft(jfold, ccfg, torch.bfloat16)
+    c11 = m.vgg["conv1_1"]["conv"]
+    assert c11.weight.dtype == torch.bfloat16
+    for got, want in zip((m.conv1_1_packed_w, m.conv1_1_packed_b),
+                         pack_stem_weights(c11.weight, c11.bias)):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    sd = m.state_dict()
+    sd["vgg.conv1_1.conv.bias"] = sd["vgg.conv1_1.conv.bias"] + 1
+    m.load_state_dict(sd)
+    assert torch.equal(m.conv1_1_packed_b, pack_stem_weights(c11.weight, c11.bias)[1])
+
+
+def stem_edge_id(shape):
+    return "{}x{}c{}-{}".format(*shape)
+
+
+@pytest.mark.parametrize("shape", STEM_EDGE_SHAPES, ids=stem_edge_id)
+def test_stem_conv_edge_shapes_equal_xla_bf16_conv(shape):
+    """SC's plain version on seeded canvases whose H and W fall on and just
+    off the kernel's 8 x 32 tile (1, 2, tile - 1, tile + 1, odd widths
+    near 600), gray and RGB, cout 8, 64 and 256: bit-equal to JAX's
+    compiled bf16 conv2d + ReLU (`chip_smoke.STEM_EDGE_SHAPES`, the inputs
+    phase 4g gives the kernel on the card)."""
+    from tuatara_tpu_torch.kernels.stem import stem_conv
+
+    canvas, weight, bias = stem_edge_case(*shape)
+    p = {"w": jnp.asarray(weight.transpose(2, 3, 1, 0)), "b": jnp.asarray(bias)}
+    want = np.asarray(jax.jit(lambda x: jax.nn.relu(JL.conv2d(
+        p, jnp.broadcast_to(x, x.shape[:-1] + (3,)), compute_dtype=jnp.bfloat16)))(canvas)
+        .astype(jnp.float32))
+    got = stem_conv(*stem_edge_tensors(canvas, weight, bias, "cpu"))
+    assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(got.float().permute(0, 2, 3, 1).numpy(), want)
+
+
+def stem_tile_model(x, weight, bias, tile=(8, 32)):
+    """A model of csrc/stem.cu's tiles: each 8 x 32 output tile computed
+    from its own slab of the canvas (the tile and a one-pixel halo, zero
+    outside the image, rounded to bf16 once), each output's 27 taps in
+    (kh, kw, ci) order, the ReLU taken on the fp32 sum of the rounded
+    product and the bias before its rounding; outputs past H or W dropped.
+    x [B, C, H, W] (read through its strides, a gray canvas once), weight
+    [O, C, 3, 3], bias [O] -> bf16 [B, O, H, W]."""
+    b, c, h, w = x.shape
+    th, tw = tile
+    xb = x.to(torch.bfloat16).float()
+    wb = weight.to(torch.bfloat16).float()
+    bb = bias.to(torch.bfloat16).float()
+    out = torch.zeros((b, wb.shape[0], h, w), dtype=torch.bfloat16)
+    for ty in range(0, h, th):
+        for tx in range(0, w, tw):
+            slab = torch.zeros((b, c, th + 2, tw + 2))
+            ys, xs = slice(max(ty - 1, 0), min(ty + th + 1, h)), slice(max(tx - 1, 0),
+                                                                      min(tx + tw + 1, w))
+            slab[:, :, ys.start - ty + 1:ys.stop - ty + 1, xs.start - tx + 1:xs.stop - tx + 1] = \
+                xb[:, :, ys, xs]
+            acc = torch.zeros((b, wb.shape[0], th, tw))
+            for kh in range(3):
+                for kw in range(3):
+                    for ci in range(c):
+                        acc += slab[:, ci:ci + 1, kh:kh + th, kw:kw + tw] * \
+                            wb[:, ci, kh, kw].view(1, -1, 1, 1)
+            s = acc.to(torch.bfloat16).float() + bb.view(1, -1, 1, 1)
+            v = torch.clamp_min(s, 0).to(torch.bfloat16)
+            hh, ww = min(th, h - ty), min(tw, w - tx)
+            out[:, :, ty:ty + hh, tx:tx + ww] = v[:, :, :hh, :ww]
+    return out
+
+
+@pytest.mark.parametrize("shape", STEM_EDGE_SHAPES, ids=stem_edge_id)
+def test_stem_tile_model_equals_plain(shape):
+    """The kernel's tiling and epilogue, modelled in PyTorch, equal SC's
+    plain version bit for bit at the edge shapes."""
+    from tuatara_tpu_torch.kernels.stem import stem_conv_plain
+
+    x, w, b = stem_edge_tensors(*stem_edge_case(*shape), "cpu")
+    want = stem_conv_plain(x, w, b)
+    assert torch.equal(stem_tile_model(x, w, b), want)
 
 
 def test_xla_rsqrt_equals_jax():

@@ -6,6 +6,11 @@ small jitted functions) and `tuatara_tpu_torch`:
 * `row_profiles`, `_dilate_profiles` and the hull chains (`_lower_chains`
   against the plain version of H1, `kernels/hull.lower_chains_plain`) are
   bit-equal: integers held in fp32, min/max and exact cross products;
+  also on the profiles at the edges of H1's warps and rounds
+  (`chip_smoke.hull_edge_profiles`), where a numpy model of the kernel's
+  warp walk (`warp_walk`: ballots of 32 rows, the top two points in
+  registers, the stack array written out to its highest position, zeros
+  past it) equals the plain version too;
 * `min_area_rect_from_profiles` gives the same corners IN ORDER within
   1e-4 (a tie broken another way starts the corners at another vertex,
   a whole pixel or more away) and the same exact_ok, on random rotated
@@ -44,6 +49,7 @@ from tuatara_tpu_torch.ops import boxes as tboxes
 from tuatara_tpu_torch.ops import minarearect as tmar
 from tuatara_tpu_torch.ops import warp as twarp
 
+from chip_smoke import hull_edge_profiles
 from torch_common import GOLDEN, ROOT, assert_same_words, image, torch_threads, words  # noqa: F401
 
 RECORD = os.path.join(ROOT, "tests", "fixtures", "torch_geometry_golden.json")
@@ -130,6 +136,77 @@ def test_chains_past_the_budget_bit_equal():
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     assert int(got[2].max()) == 194
+
+
+HULL_EDGE = {c[0]: c[1:] for c in hull_edge_profiles()}
+
+
+@pytest.mark.parametrize("case", list(HULL_EDGE))
+def test_chains_edge_profiles_bit_equal(case):
+    """The plain version of H1 against JAX's `_lower_chains` on the
+    profiles that sit at the edges of the kernel's warps and rounds:
+    stacks (stale entries past each count included) and counts."""
+    dmin, dmax, dval = HULL_EDGE[case]
+    px = jnp.concatenate([jnp.asarray(dmin).T, -jnp.asarray(dmax).T])
+    pv = jnp.concatenate([jnp.asarray(dval).T, jnp.asarray(dval).T])
+    want = jax.jit(jmar._lower_chains)(px, pv)
+    got = lower_chains_plain(t(dmin), t(dmax), t(dval))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def warp_walk(dmin, dmax, dval):
+    """A numpy model of csrc/hull.cu's walk of one chain a warp: the valid
+    rows found 32 at a time (a ballot), the top two points held apart from
+    the stack array, a pop re-reading only the point below them; each
+    chain's row written out as the stack array up to the highest position
+    ever written, zeros past it. -> (hx, hy [2K, H], cnt [2K])."""
+    h, k = dmin.shape
+    f = np.float32
+    hx, hy = np.zeros((2, 2 * k, h), f)
+    cnt = np.zeros(2 * k, np.int32)
+    for b in range(2 * k):
+        right, col = b >= k, b % k
+        xs = -dmax[:, col] if right else dmin[:, col]
+        sx, sy = np.full(h, np.nan, f), np.full(h, np.nan, f)
+        n = top = 0
+        ax = ay = ox = oy = f(0)
+        for y0 in range(0, h, 32):
+            ballot = [lane for lane in range(32) if y0 + lane < h and dval[y0 + lane, col]]
+            for lane in ballot:
+                px, py = f(xs[y0 + lane]), f(y0 + lane)
+                while n >= 2 and f(f(f(ax - ox) * f(py - oy)) - f(f(ay - oy) * f(px - ox))) >= 0:
+                    n -= 1
+                    ax, ay = ox, oy
+                    if n >= 2:
+                        ox, oy = sx[n - 2], sy[n - 2]
+                sx[n], sy[n] = px, py
+                ox, oy, ax, ay = ax, ay, px, py
+                n += 1
+                top = max(top, n)
+        hx[b, :top], hy[b, :top] = sx[:top], sy[:top]
+        cnt[b] = n
+    return hx, hy, cnt
+
+
+@pytest.mark.parametrize("case", list(HULL_EDGE) + ["blobs0", "blobs1"])
+def test_chains_warp_walk_model_equals_plain(case):
+    """The kernel's warp walk, modelled in numpy, equals the plain version
+    bit for bit (stale entries, zeros and counts) on the edge profiles and
+    on two pages of random blobs' dilated profiles."""
+    if case.startswith("blobs"):
+        seed = int(case[5:])
+        lab, roots, keep, _ = blobs(seed)
+        k = len(roots)
+        glt = np.full(k, 2, np.int32)
+        td = tmar._dilate_profiles(*port_profiles(lab, roots, keep), t(glt), t(glt + 1),
+                                   t(np.int32(lab.shape[1])), t(np.int32(lab.shape[0])))
+        dmin, dmax, dval = (a.numpy() for a in td[:3])
+    else:
+        dmin, dmax, dval = HULL_EDGE[case]
+    want = lower_chains_plain(t(dmin), t(dmax), t(dval))
+    for a, b in zip(warp_walk(dmin, dmax, dval), want):
+        np.testing.assert_array_equal(a, b.numpy())
 
 
 def degenerate_cases():

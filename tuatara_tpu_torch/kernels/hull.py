@@ -5,7 +5,9 @@
 the chains outside Pallas, as a `lax.scan` over rows with a data-dependent
 `while_loop` of pops (`tuatara_tpu/ops/minarearect.py:117 _lower_chains`).
 Eager PyTorch would need a host read per pop test there, so on the card
-one thread walks one chain's rows serially instead.
+one warp walks one chain: its lanes find the valid rows 32 at a time, the
+walk visits those alone with the stack in shared memory, and the warp then
+writes the chain's whole output rows itself (one launch a call, no memset).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from tuatara_tpu_torch.kernels import LAUNCHES
 from tuatara_tpu_torch.kernels._build import entry
 
 H1 = "lower_chains"
+MAX_SMEM = 227 * 1024  # a block's shared memory on the H100
+ROUND = 256  # rows a warp reads at once: a chain takes 8 B a row and 8 B a round's row
 
 
 def _chain_inputs(dmin, dmax, dval):
@@ -78,10 +82,14 @@ def lower_chains(dmin: torch.Tensor, dmax: torch.Tensor, dval: torch.Tensor
         if t.shape != (H, K) or t.dtype != dt or not t.is_contiguous() or t.device != dmin.device:
             raise ValueError(f"{what}: expected a contiguous [{H}, {K}] {dt} tensor on "
                              f"{dmin.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    hx, hy = torch.zeros((2, 2 * K, H), dtype=torch.float32, device=dmin.device)  # one memset
-    cnt = torch.empty(2 * K, dtype=torch.int32, device=dmin.device)
     if K == 0 or H == 0:
-        return hx, hy, cnt.zero_()
+        hx, hy = torch.zeros((2, 2 * K, H), dtype=torch.float32, device=dmin.device)
+        return hx, hy, torch.zeros(2 * K, dtype=torch.int32, device=dmin.device)
+    if (H + ROUND) * 8 > MAX_SMEM:
+        raise ValueError(f"lower_chains: H = {H} rows, more than a chain's stack in shared "
+                         f"memory holds ({MAX_SMEM // 8 - ROUND})")
+    hx, hy = torch.empty((2, 2 * K, H), dtype=torch.float32, device=dmin.device)
+    cnt = torch.empty(2 * K, dtype=torch.int32, device=dmin.device)
     fn = entry("hull", "tt_lower_chains", 6, 2)
     err = fn(dmin.data_ptr(), dmax.data_ptr(), dval.data_ptr(), hx.data_ptr(),
              hy.data_ptr(), cnt.data_ptr(), H, K,

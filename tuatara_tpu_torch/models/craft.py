@@ -73,7 +73,9 @@ its ReLU and pool1 as one pass, as the JAX package's gate of the same name
 does (`tuatara_tpu/models/craft.py:279-298`). K8 reads conv1_2's weights
 packed for its wgmma B operand: the module holds them as the buffer
 `conv1_2_packed`, packed when the weights are loaded (and moved with the
-module by `.to`), so no call packs them again.
+module by `.to`), so no call packs them again; likewise int8 CRAFT's SC
+reads conv1_1's weights and bias packed by `quantize` (`conv1_1_packed_w`,
+`conv1_1_packed_b`).
 """
 
 from __future__ import annotations
@@ -269,12 +271,25 @@ class Craft(nn.Module):
             "conv5": Conv(hc[3], cfg.num_classes, 1),
         })
         self.register_buffer("conv1_2_packed", None, persistent=False)
+        self.register_buffer("conv1_1_packed_w", None, persistent=False)
+        self.register_buffer("conv1_1_packed_b", None, persistent=False)
         self._pack_conv1_2()
         self.register_load_state_dict_post_hook(Craft._pack_conv1_2)
 
     def _pack_conv1_2(self, _incompatible_keys=None) -> None:
-        """Pack conv1_2's weights for K8; also the load_state_dict post-hook."""
-        self.conv1_2_packed = pack_conv_pool_weights(self.vgg["conv1_2"]["conv"].weight)
+        """Pack conv1_2's weights for K8 (conv1_1's for SC once quantized);
+        also the load_state_dict post-hook."""
+        if self.quantized:
+            self._pack_conv1_1()
+        else:
+            self.conv1_2_packed = pack_conv_pool_weights(self.vgg["conv1_2"]["conv"].weight)
+
+    def _pack_conv1_1(self) -> None:
+        """Pack conv1_1's weights and bias for SC (`stem.pack_stem_weights`:
+        their bf16 values, which a later cast to bf16 keeps)."""
+        c11 = self.vgg["conv1_1"]["conv"]
+        self.conv1_1_packed_w, self.conv1_1_packed_b = stem.pack_stem_weights(c11.weight,
+                                                                              c11.bias)
 
     @property
     def quantized(self) -> bool:
@@ -307,6 +322,7 @@ class Craft(nn.Module):
         for name in ("conv1", "conv2", "conv3"):
             self.head[name] = _qconv(self.head[name])
         self.conv1_2_packed = None  # K8 never runs with an int8 conv1_2
+        self._pack_conv1_1()
         return self
 
     def _double_conv(self, block: str, y: torch.Tensor, skip: torch.Tensor
@@ -406,7 +422,8 @@ class Craft(nn.Module):
                 h, skips[skip] = _conv_relu(self.vgg[name]["conv"], h, keep_pre=True)
             elif idx == 0 and self._stem_ok():
                 c11 = self.vgg[name]["conv"]
-                h = stem.stem_conv(h, c11.weight, c11.bias)
+                h = stem.stem_conv(h, c11.weight, c11.bias,
+                                   (self.conv1_1_packed_w, self.conv1_1_packed_b))
             else:
                 h = _conv_relu(self.vgg[name]["conv"], h)
 
