@@ -264,7 +264,11 @@ line without a CUDA device or outside the repo.
              `gelu_grad` (the recognizer's fc1 bias + GELU and its
              backward) must have run, and `gelu_grad` on each of those
              calls equal bit for bit to its plain version, timed beside
-             it (its kernels line entry); resume: a child
+             it (its kernels line entry), also on all 65,536 bit patterns
+             of v in bf16 and fp16 under four seeded g draws
+             (`gelu_grad_draws`) and at fit_recognizer's [256, 128, 1536]
+             on seeded values at fc1's scale (events, traced device time,
+             its plain version, the byte and operation bounds); resume: a child
              process with deterministic algorithms
              (CUBLAS_WORKSPACE_CONFIG=:4096:8) saves after step 1, loads
              into a fresh state and takes step 2, equal bit for bit to two
@@ -358,7 +362,8 @@ line without a CUDA device or outside the repo.
              other (channels_last / contiguous), with ReLU, and ReLU with
              the pre-ReLU output; PARSEQ's fc1 widths with their GELU;
              seeded fp16 and bf16 tensors, 95 channels and an unaligned
-             view; its backward (`_BiasAct`, what the training graph runs)
+             view; the GELU mode on every finite bf16 and fp16 value
+             (`finite_values`); its backward (`_BiasAct`, what the training graph runs)
              against autograd through the plain version, bit for bit;
              timed a call and a page beside its plain version, torch.add
              then F.relu, and its byte bound, traced at the page's largest
@@ -3419,51 +3424,134 @@ def check_training(pages, results, lat_results, post, card):
     return {**rates, "craft_grads_bf16": grads}, gelu_entry
 
 
-def check_gelu_grad(calls, launches):
+# fit_recognizer's GELU backward calls: 256 crops of 128 tokens, fc1 1536
+# wide (`train_rates`).
+GELU_GRAD_FIT_SHAPE = (256, 128, 1536)
+# fp32 operations an element of the GELU gradient in JAX's form (7 products,
+# 1 difference; its roundings and table reads not counted), at the card's
+# fp32 rate outside the tensor cores.
+GELU_GRAD_OPS = 8
+FP32_OPS_PER_S = 67e12
+
+
+def bit_patterns(dtype):
+    """All 65,536 values of a 16-bit dtype on the card, in bit order (NaN
+    and Inf included)."""
+    import torch
+
+    return torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32, device="cuda").to(
+        torch.int16).view(dtype)
+
+
+def finite_values(dtype):
+    """Every finite value of a 16-bit dtype on the card (`bit_patterns`
+    without NaN and Inf), as rows of 256."""
+    import torch
+
+    v = bit_patterns(dtype)
+    return v[torch.isfinite(v)].view(-1, 256)
+
+
+def gelu_grad_draws(n, seed=0):
+    """{name: fp32 numpy [n]}: four seeded draws of the GELU gradient's g:
+    at fc1's scale (N(0, 0.01)), unit scale, tiny values near 2^-126
+    (denormal in bf16 below it) and magnitudes from 2^-40 to 2^10, each of
+    either sign."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sign = rng.choice([-1.0, 1.0], n)
+    return {"fc1": rng.normal(0, 0.01, n).astype(np.float32),
+            "unit": rng.normal(0, 1, n).astype(np.float32),
+            "tiny": (sign * 2.0 ** -126 * rng.uniform(0.25, 4, n)).astype(np.float32),
+            "mixed": (sign * 2.0 ** rng.uniform(-40, 10, n)).astype(np.float32)}
+
+
+def check_gelu_grad(calls, launches, exhaustive=True):
     """Phase 7, the GELU backward kernel (`gelu_grad`, csrc/bias_act.cu) on
     every call of the bf16 training steps (fc1's output gradient and
-    pre-activation value): bit-equal to its plain version
-    (`gelu_plain_grad`), timed beside it (events, and device time a call
-    from one trace of the calls), beside `aten.gelu_backward` (the
-    exact derivative with other roundings, not the same function) and its
-    byte bound (g and v read, the gradient written). -> the kernels line's
-    entry."""
+    pre-activation value), on all 65,536 bit patterns of v in bf16 and
+    fp16 under the four draws of `gelu_grad_draws`, and at fit_recognizer's
+    shape on seeded values at fc1's scale (the bit patterns skipped without
+    `exhaustive`): bit-equal to its plain version (`gelu_plain_grad`)
+    everywhere, timed beside it (events, and device time
+    a call from one trace of the calls), beside `aten.gelu_backward` (the
+    exact derivative with other roundings, not the same function), its byte
+    bound (g and v read, the gradient written) and its operation bound
+    (`GELU_GRAD_OPS`). -> the kernels line's entry."""
     import torch
 
     from tuatara_tpu_torch.kernels import bias_act as BA
 
-    rows = []
-    for g, v in calls:
+    def check(g, v, what):
         got, want = BA.gelu_grad(g, v), BA.gelu_plain_grad(g, v)
         if not same_bits(got, want):
-            fail(f"gelu_grad differs from its plain version on {tuple(g.shape)} (max abs err "
-                 f"{float((got.float() - want.float()).abs().max())})")
-        nbytes = 3 * g.numel() * g.element_size()
+            bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            fail(f"gelu_grad differs from its plain version on {what}: {bad} of {g.numel()} "
+                 f"elements")
+
+    def bounds(numel):
+        return {"bytes": 3 * numel * 2 / HBM_BYTES_PER_S * 1e3,
+                "operations": GELU_GRAD_OPS * numel / FP32_OPS_PER_S * 1e3}
+
+    rows = []
+    for g, v in calls:
+        check(g, v, f"a training call {tuple(g.shape)}")
         rows.append({"ms": cuda_ms(lambda: BA.gelu_grad(g, v), 20),
                      "plain_ms": cuda_ms(lambda: BA.gelu_plain_grad(g, v), 20),
                      "aten_ms": cuda_ms(lambda: torch.ops.aten.gelu_backward(g, v), 20),
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+                     **{f"{k}_bound_ms": b for k, b in bounds(g.numel()).items()}})
     n = len(rows)
     mean = {k: sum(r[k] for r in rows) / n for k in rows[0]}
     shapes = sorted({tuple(g.shape) for g, _ in calls})
     dev = traced_device_ms(lambda: [BA.gelu_grad(g, v) for g, v in calls],
                            os.path.join(ROOT, "build", "gelu_grad_trace.json"), n)
     dev = None if dev is None else dev / n
+    bound_by = max(("bytes", "operations"), key=lambda k: mean[f"{k}_bound_ms"])
     print(f"kernel gelu_grad: {n} calls of the bf16 training steps bit-equal to the plain "
-          f"version, shapes {shapes}: ms={mean['ms']:.4f} device_ms={dev} "
+          f"version, shapes {shapes}: ms={mean['ms']:.5f} device_ms={dev} "
           f"plain_ms={mean['plain_ms']:.4f} "
-          f"aten_gelu_backward_ms={mean['aten_ms']:.4f} bound_ms={mean['bound_ms']:.6f} "
-          f"(means a call)", flush=True)
+          f"aten_gelu_backward_ms={mean['aten_ms']:.4f} "
+          f"bound_ms bytes={mean['bytes_bound_ms']:.6f} "
+          f"operations={mean['operations_bound_ms']:.6f} (means a call)", flush=True)
+
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float16) if exhaustive else ():
+        v = bit_patterns(dtype)
+        for name, draw in gelu_grad_draws(v.numel()).items():
+            check(torch.from_numpy(draw).to("cuda").to(dtype), v,
+                  f"every {dtype} bit pattern of v, g {name}")
+            cases += 1
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape = GELU_GRAD_FIT_SHAPE
+    v = (torch.randn(shape, device="cuda", generator=gen) * 0.7).to(torch.bfloat16)
+    g = (torch.randn(shape, device="cuda", generator=gen) * 0.01).to(torch.bfloat16)
+    check(g, v, f"fit_recognizer's {list(shape)}")
+    fit = {"shape": list(shape), "ms": cuda_ms(lambda: BA.gelu_grad(g, v), 20),
+           "plain_ms": cuda_ms(lambda: BA.gelu_plain_grad(g, v), 3),
+           "aten_gelu_backward_ms": cuda_ms(lambda: torch.ops.aten.gelu_backward(g, v), 20)}
+    fit_dev = traced_device_ms(lambda: [BA.gelu_grad(g, v) for _ in range(5)],
+                               os.path.join(ROOT, "build", "gelu_grad_fit_trace.json"), 5)
+    fit["device_ms"] = None if fit_dev is None else fit_dev / 5
+    fit.update({f"{k}_bound_ms": b for k, b in bounds(g.numel()).items()})
+    fit["bound_by"] = max(("bytes", "operations"), key=lambda k: fit[f"{k}_bound_ms"])
+    if fit["device_ms"]:
+        fit["share_of_bound"] = fit[f"{fit['bound_by']}_bound_ms"] / fit["device_ms"]
+    del g, v
+    print(f"kernel gelu_grad: every bit pattern of v in bf16 and fp16 ({cases} draws of g) "
+          f"bit-equal to the plain version; fit_recognizer {json.dumps(fit)}", flush=True)
     return {
         "name": BA.GG, "route": "cuda", "source": "tuatara_tpu_torch/csrc/bias_act.cu",
         "replaces": "tuatara_tpu/models/layers.py:444 (the derivative of jax.nn.gelu in the "
                     "bf16 training step, XLA ops: no TPU kernel)",
         "launches": launches, "equal": True, "max_abs_err": 0.0, "cases": n,
-        "ms": mean["ms"], "device_ms": dev, "plain_ms": mean["plain_ms"],
-        "bound_ms": mean["bound_ms"], "bound_by": "bytes",
+        "exhaustive_cases": cases, "ms": mean["ms"], "device_ms": dev,
+        "plain_ms": mean["plain_ms"], "bound_ms": mean[f"{bound_by}_bound_ms"],
+        "bound_by": bound_by, "byte_bound_ms": mean["bytes_bound_ms"],
+        "operation_bound_ms": mean["operations_bound_ms"],
         # aten.gelu_backward rounds otherwise: not the same function.
         "library_ms": None, "aten_gelu_backward_ms": mean["aten_ms"],
-        "shapes": [list(x) for x in shapes],
+        "shapes": [list(x) for x in shapes], "fit_recognizer": fit,
         "timed_on": "mean a call over the bf16 training steps' calls (phase 7)",
     }
 
@@ -4348,6 +4436,7 @@ def check_bias_act(engine, pages, launches):
                 calls.append((p, bias, "gelu", True, dim))
             for act in BA.ACTS:
                 backward_cases += [(p, act, False, dim), (p, act, True, dim)]
+        calls.append((finite_values(dtype), None, "gelu", False, -1))
     for p, b, act, keep_pre, dim in calls:
         layouts = [p]
         if dim == 1:

@@ -65,7 +65,12 @@ More probes, each a word on the command line:
   each float conv's bias add followed past its bf16 rounding to every op
   that reads it (the next abs-max and x * xs, the sum, the upsample, the
   head's convs), "rounded" or "UNROUNDED", and the opcode of each scale
-  division (127 / amax, sw / xs).
+  division (127 / amax, sw / xs). Last the GELU's backward inside the
+  gradient of the JAX package's bf16 `mlp` (`gelu_vjp_form`): the
+  expression XLA's graph computes for the gradient at the GELU's input,
+  read from the optimised HLO, with every rounding to bf16 written T(.),
+  beside the form the port computes (`GELU_GRAD_FORM`,
+  `kernels/bias_act.gelu_plain_grad` and the `gelu_grad` kernel).
 * `craft_grads [tiny|full]`: the CRAFT loss's gradient at bf16 before the
   optimizer, the port's against JAX's leaf by leaf, with each of
   `TrainableCraft`'s sums alone in JAX's form and with the forms the port
@@ -642,7 +647,8 @@ def parse_hlo(text):
                      "op_name": attr(r'op_name="([^"]*)"') or "",
                      "calls": attr(r"calls=%([\w.\-]+)"), "body": attr(r"body=%([\w.\-]+)"),
                      "cond": attr(r"condition=%([\w.\-]+)"), "index": attr(r"index=(\d+)"),
-                     "param": rest[:i] if m[4] == "parameter" else None}
+                     "param": rest[:i] if m[4] == "parameter" else None,
+                     "literal": rest[:i] if m[4] == "constant" else None}
     return comps, entry
 
 
@@ -946,6 +952,132 @@ def hlo_sites(training=None):
                   + " < ".join(f"{f}:{ln} {fn}" for f, fn, ln in site)
                   + f"  port {port_line(site)}  "
                   + f"[{'; '.join(sorted(outcome))}]")
+    return out
+
+
+# ---- the `hlo` probe's GELU backward ---------------------------------------
+
+# The gradient at a bf16 GELU's input x for the output gradient g, as
+# `kernels/bias_act.gelu_plain_grad` (and the `gelu_grad` kernel) computes
+# it, in `gelu_vjp_form`'s notation: T(.) rounds to bf16, erfc's argument is
+# not rounded, every constant is bf16's.
+_A = "T(-x)·0.70703125"
+GELU_GRAD_FORM = (f"T(T(-T(T(T(T(T(x·0.5)·g)·-1.125)·T(exp(T(-T(T({_A})·T({_A}))))))"
+                  f"·0.70703125)) + T(T(g·T(erfc({_A})))·0.5))")
+_BINARY = {"multiply": "·", "add": " + ", "subtract": " - ", "divide": " / "}
+
+
+def gelu_vjp_form(dtype="bfloat16"):
+    """The expression XLA's optimised graph computes for the gradient at
+    the GELU's input in the gradient of the JAX package's `mlp` (layers.py
+    `mlp`, whose `jax.nn.gelu` runs inside a named scope while tracing; the
+    package is not edited): followed back from the backward's last add
+    through fusions, converts and broadcasts to the GELU's input x and the
+    output gradient g. A convert to the 16-bit dtype is T(.) (a negation of
+    a value already rounded is written without it: it is exact), XLA's
+    erfc polynomial is erfc(.) of its one argument."""
+    import jax
+    import jax.numpy as jnp
+
+    from tuatara_tpu.models import layers as JL
+
+    dt = jnp.dtype(dtype)
+    saved = jax.nn.gelu
+
+    def scoped(*args, **kwargs):
+        with jax.named_scope("gelu_site"):
+            return saved(*args, **kwargs)
+
+    params = JL.init_mlp(jax.random.PRNGKey(0), 32, 64)
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((2, 5, 32)).astype(np.float32))
+    jax.nn.gelu = scoped
+    try:
+        text = jax.jit(jax.grad(lambda p, x: jnp.sum(
+            JL.mlp(p, x, compute_dtype=dt).astype(jnp.float32) ** 2))).lower(
+                params, x).compile().as_text()
+    finally:
+        jax.nn.gelu = saved
+    comps, entry, users, callers, param = hlo_graph(text)
+    short = {"bfloat16": "bf16", "float16": "f16"}[dtype]
+
+    def caller_operand(comp, name):
+        cc, ci = callers[comp][0]
+        return cc, comps[cc][ci]["operands"][int(comps[comp][name]["param"].split(")")[0]
+                                                 .split("(")[-1])]
+
+    def erfc_argument(comp, name):
+        """The one op of the GELU that feeds the erfc polynomial at (comp,
+        name) (its other inputs are XLA's own constants and selects)."""
+        work, seen, args = [(comp, name)], set(), set()
+        while work:
+            c, n = work.pop()
+            if (c, n) in seen:
+                continue
+            seen.add((c, n))
+            ins = comps[c][n]
+            if ins["op"] == "parameter" and c != entry:
+                work.append(caller_operand(c, n))
+            elif ins["op_name"].endswith("/erfc") or ins["op"] in ("constant", "broadcast"):
+                work += [(c, o) for o in ins["operands"]]
+            else:
+                args.add((c, n))
+        (arg,) = [a for a in args if "gelu_site" in comps[a[0]][a[1]]["op_name"]]
+        return arg
+
+    def bare(ex):
+        return ex[1:-1] if ex.startswith("(") else ex
+
+    def rounded(ex):
+        return ex if ex in ("x", "g") else f"T({bare(ex)})"
+
+    def expr(comp, name):
+        """-> the value at (comp, name) as text; a product, sum or
+        difference in parentheses."""
+        ins = comps[comp][name]
+        op = ins["op"]
+        if op == "parameter":
+            if comp == entry:
+                return ins["op_name"] or name
+            return expr(*caller_operand(comp, name))
+        if op == "constant":
+            return ins["literal"]
+        if op == "fusion":
+            return expr(ins["calls"], next(n for n, i in comps[ins["calls"]].items()
+                                           if i["root"]))
+        if op == "get-tuple-element":
+            tup = comps[comp][ins["operands"][0]]
+            if tup["op"] == "fusion":
+                body = tup["calls"]
+                root = next(n for n, i in comps[body].items() if i["root"])
+                return expr(body, comps[body][root]["operands"][int(ins["index"])])
+            return expr(comp, tup["operands"][int(ins["index"])])
+        if op in ("bitcast", "broadcast", "reshape", "copy"):
+            return expr(comp, ins["operands"][0])
+        if op == "convert":
+            arg = expr(comp, ins["operands"][0])
+            return rounded(arg) if ins["type"].startswith(short) else arg
+        if "gelu_site" not in ins["op_name"]:
+            return "g" if "transpose(" in ins["op_name"] else "x"
+        if ins["op_name"].endswith("/erfc"):
+            return f"erfc({bare(expr(*erfc_argument(comp, name)))})"
+        args = [expr(comp, o) for o in ins["operands"]]
+        if op == "negate":
+            out = f"-{args[0]}"
+        elif op == "exponential":
+            out = f"exp({bare(args[0])})"
+        else:
+            out = "(" + _BINARY[op].join(args) + ")"
+        # An op of the 16-bit type itself rounds its result.
+        return rounded(out) if ins["type"].startswith(short) else out
+
+    root = next((c, n) for c, instrs in comps.items() for n, i in instrs.items()
+                if "transpose(jvp(gelu_site))/add_any" in i["op_name"] and i["op"] == "add")
+    out = expr(*root)
+    # The add is rounded by its consumer (a convert to the dtype).
+    c, n = root
+    if any(comps[c][u]["op"] == "convert" and comps[c][u]["type"].startswith(short)
+           for u, _ in users[c].get(n, [])):
+        out = rounded(out)
     return out
 
 
@@ -1372,6 +1504,9 @@ if __name__ == "__main__":
     elif what == "hlo":
         hlo_sites()
         int8_sites()
+        form = gelu_vjp_form()
+        print(f"GELU backward in mlp's gradient (bf16):\n  XLA:  {form}\n  port: "
+              f"{GELU_GRAD_FORM}\n  {'same' if form == GELU_GRAD_FORM else 'DIFFERENT'}")
     elif what == "resample":
         resample_residual()
     elif what == "craft_grads":

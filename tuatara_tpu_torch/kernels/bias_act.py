@@ -17,9 +17,11 @@ activation follows is one `torch.add` (`models/layers.add_bias`), which
 rounds the same way.
 
 Numerics, per element, in the tensor's dtype T (bf16 or fp16): v =
-T(float(p) + float(b)), then ReLU(v), or T(0.5 * float(v) * float(T(erfc(
--float(v) * T(sqrt(0.5)))))); with no bias v = p. The plain version runs
-the same ops in PyTorch, so on the card the kernel equals it bit for bit.
+T(float(p) + float(b)), then ReLU(v), or T(T(0.5 * float(v)) *
+float(T(erfc(a)))) with a = -float(v) * T(sqrt(0.5)) (rounded to T for
+fp16, as XLA's fp16 graph keeps it) and denormals flushed as XLA's CPU
+backend flushes them; with no bias v = p. The plain version runs the same
+ops in PyTorch, so on the card the kernel equals it bit for bit.
 
 `bias_add_f32` is the fp32-output mode (`tt_bias_add_f32`): where a
 Linear's sum goes straight into an fp32 op (PARSEQ's residual adds,
@@ -43,17 +45,25 @@ layout and the pointers' alignment (`csrc/bias_act.cu` `plan`;
 
 The kernel is differentiable (`_BiasAct`, `_BiasAddF32`), so the training
 graph launches it too. Its backward (`bias_act_grads`) is the one PyTorch's
-autograd takes through the plain version, op for op: ReLU's is one
-`threshold_backward`, the bias's a sum, and GELU's, ~20 elementwise ops
-in autograd, one pass of a second kernel, `gelu_grad` (`tt_gelu_grad`,
-plain version `gelu_plain_grad`), bit-equal to them.
+autograd takes through the plain version: ReLU's is one
+`threshold_backward`, the bias's a sum, and GELU's JAX's: XLA's CPU graph
+of the gradient of `jax.nn.gelu(approximate=False)` rounds every product
+to the dtype and takes -2/sqrt(pi) as the dtype's, so `gelu_plain_grad`
+computes it that way, its terms that depend on v alone (e, ex) read from a
+table XLA wrote (`tests/gen_torch_gelu_table.py`, `gelu_window`), and the
+plain version's GELU carries it as its backward (`_GeluPlain`). On the
+card it is one pass of a second kernel, `gelu_grad` (GG, `tt_gelu_grad`),
+bit-equal to `gelu_plain_grad`.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -65,14 +75,26 @@ BA = "bias_act"
 GG = "gelu_grad"
 ACTS = ("relu", "gelu")
 _ACT_CODES = {act: i for i, act in enumerate(ACTS)}
-_ERFC_GRAD = -2.0 / math.sqrt(math.pi)  # d erfc(a) / da = this * exp(-a^2)
+_FP32_TINY = 2.0 ** -126  # the least normal fp32 magnitude
 _SQRT_HALF = {dt: torch.tensor(math.sqrt(0.5), dtype=dt).item()
+              for dt in (torch.bfloat16, torch.float16)}
+# d erfc(a) / da = k * exp(-a^2), k = -2/sqrt(pi) rounded to the dtype as
+# JAX's jvp of erfc takes it.
+_ERFC_GRAD = {dt: torch.tensor(-2.0 / math.sqrt(math.pi), dtype=dt).item()
               for dt in (torch.bfloat16, torch.float16)}
 # dtype -> (the C entries' dtype code, sqrt(1/2) rounded to it).
 _DTYPES = {torch.bfloat16: (0, _SQRT_HALF[torch.bfloat16]),
            torch.float16: (1, _SQRT_HALF[torch.float16])}
 # The C entries, bound at their first launch.
 _BIAS_ACT = _BIAS_ADD_F32 = _GELU_GRAD = None
+# The GELU gradient's tables (`gelu_window`), by dtype and by (dtype, device).
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
+_SHORT = {"bfloat16": "bf16", "float16": "fp16"}
+# name -> (exponent bias, significand bits, bit magnitude of +Inf)
+_FORMATS = {"bfloat16": (127, 7, 0x7F80), "float16": (15, 10, 0x7C00)}
+_TABLES: dict = {}
+_ON_DEVICE: dict = {}
 
 
 def sqrt_half(dtype: torch.dtype) -> float:
@@ -80,32 +102,98 @@ def sqrt_half(dtype: torch.dtype) -> float:
     return _SQRT_HALF.get(dtype) or torch.tensor(math.sqrt(0.5), dtype=dtype).item()
 
 
+def erfc_grad(dtype: torch.dtype) -> float:
+    """-2/sqrt(pi) rounded to `dtype` (bf16: -1.125)."""
+    return _ERFC_GRAD[dtype]
+
+
 def _stream(t: torch.Tensor) -> int:
     """The raw handle of the current stream on t's card (no Stream object)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x with its denormals flushed to zero of the same sign, as XLA's
+    CPU backend computes (flush-to-zero and denormals-are-zero)."""
+    return torch.where(x.abs() < _FP32_TINY, x * 0, x)
+
+
+def _rnd(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """One op's fp32 result as XLA's CPU backend keeps it: flushed, rounded
+    to the 16-bit dtype, widened again."""
+    return _ftz(x).to(dt).float()
+
+
 def gelu_plain(v: torch.Tensor) -> torch.Tensor:
     """Exact GELU of a 16-bit tensor as XLA's CPU backend computes JAX's
-    `0.5 * x * erfc(-x * sqrt_half)`: erfc in fp32 of the unrounded
-    product, rounded to the dtype, then the product 0.5 * x * e in fp32,
-    rounded once."""
-    f = v.float()
-    e = torch.erfc(f * -sqrt_half(v.dtype)).to(v.dtype).float()
-    return (0.5 * f * e).to(v.dtype)
+    `0.5 * x * erfc(-x * sqrt_half)`: erfc in fp32 of the product (bf16:
+    unrounded; fp16: rounded to the dtype, as XLA's fp16 graph keeps it),
+    rounded to the dtype, then T(0.5 * x) * e rounded once; denormals
+    flushed at the input, at the product, at erfc and at the output."""
+    dt = v.dtype
+    f = _ftz(v.float())
+    a = _ftz(f * -sqrt_half(dt))
+    if dt == torch.float16:
+        a = a.to(dt).float()
+    e = _rnd(torch.erfc(a), dt)
+    return _ftz(_rnd(0.5 * f, dt) * e).to(dt)
+
+
+def gelu_window(dtype: torch.dtype):
+    """-> (the table as uint32 [65536] numpy, the bit magnitudes (lo, hi)
+    of its window) for a 16-bit dtype: entry b holds the GELU gradient's
+    terms e (low half) and ex (high half) for the value of bit pattern b
+    (`tests/gen_torch_gelu_table.py`); every magnitude below lo shares lo's
+    entry and every finite one above hi hi's, for each sign. Read once;
+    raises if a file is missing or the table is not the 65,536 entries the
+    window describes."""
+    hit = _TABLES.get(dtype)
+    if hit is None:
+        name = _DTYPE_NAMES[dtype]
+        table = np.load(os.path.join(_DATA, f"gelu_{_SHORT[name]}_table.npy"))
+        with open(os.path.join(_DATA, "gelu_window.json")) as f:
+            win = json.load(f)[name]
+        if table.shape != (1 << 16,) or table.dtype != np.uint32:
+            raise ValueError(f"gelu table for {name}: expected uint32 [65536], got {table.dtype} "
+                             f"{list(table.shape)}")
+        bias, mant, inf = _FORMATS[name]
+        lo, hi = ((win["lo_exp"] + bias) << mant) - 1, (win["hi_exp"] + bias) << mant
+        mags = np.arange(inf)
+        for sign in (0, 0x8000):
+            t = table[sign | mags]
+            if not (0 <= lo < hi < inf and np.all(t[:lo] == t[lo]) and np.all(t[hi:] == t[hi])):
+                raise ValueError(f"gelu table for {name}: not constant outside its window "
+                                 f"[{lo}, {hi}]")
+        hit = _TABLES[dtype] = (table, lo, hi)
+    return hit
+
+
+def _device_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The table of `gelu_window` on `device` as int32 [65536], loaded once
+    a device."""
+    key = (dtype, str(device))
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        t = _ON_DEVICE[key] = torch.from_numpy(gelu_window(dtype)[0].view(np.int32)).to(device)
+    return t
 
 
 def gelu_plain_grad(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The gradient autograd takes through `gelu_plain(v)` for the output
-    gradient g, op for op: the same products, casts and order."""
-    dt, c = v.dtype, -sqrt_half(v.dtype)
-    f = v.float()
-    a = f * c
-    e = torch.erfc(a).to(dt).float()
-    g32 = g.float()
-    ge = (g32 * (0.5 * f)).to(dt).float()
-    ga = _ERFC_GRAD * torch.exp(-(a.pow(2))) * ge
-    return (ga * c + g32 * e * 0.5).to(dt)
+    """The gradient of `gelu_plain` at v for the output gradient g (16-bit,
+    one dtype and shape) as XLA's CPU backend computes JAX's vjp of
+    `jax.nn.gelu(approximate=False)`: e = T(erfc(a)) and ex =
+    T(exp(-T(T(a)^2))) read from the table by v's bits, then, each product
+    rounded to T and denormals flushed,
+    T(T(T(g * e) * 0.5) - T(T(T(T(T(0.5 v) * g) * k) * ex) * s)),
+    k = T(-2/sqrt(pi)), s = T(sqrt(1/2))."""
+    dt = v.dtype
+    terms = _device_table(dt, v.device).view(torch.int16).view(-1, 2)
+    w = terms[v.reshape(-1).view(torch.int16).long() & 0xFFFF]
+    e, ex = (_ftz(w[:, i].view(dt).float().reshape(v.shape)) for i in (0, 1))
+    f, g32 = _ftz(v.float()), _ftz(g.float())
+    t = _rnd(_rnd(_rnd(_rnd(_rnd(0.5 * f, dt) * g32, dt) * erfc_grad(dt), dt) * ex, dt)
+             * sqrt_half(dt), dt)
+    return _ftz(_rnd(_rnd(g32 * e, dt) * 0.5, dt) - t).to(dt)
 
 
 def gelu_grad(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -122,12 +210,30 @@ def gelu_grad(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(g)
     if g.numel():
         if _GELU_GRAD is None:
-            _GELU_GRAD = entry("bias_act", "tt_gelu_grad", 3, 1, n_float=2, n_i64=1)
+            _GELU_GRAD = entry("bias_act", "tt_gelu_grad", 4, 3, n_float=2, n_i64=1)
+        _, lo, hi = gelu_window(g.dtype)
         code, s = _DTYPES[g.dtype]
-        _raise_on(_GELU_GRAD(g.data_ptr(), v.data_ptr(), out.data_ptr(), code, g.numel(), s,
-                             _ERFC_GRAD, _stream(g)), "tt_gelu_grad")
+        _raise_on(_GELU_GRAD(g.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             _device_table(g.dtype, g.device).data_ptr(), code, lo, hi,
+                             g.numel(), s, erfc_grad(g.dtype), _stream(g)), "tt_gelu_grad")
         LAUNCHES[GG] += 1
     return out
+
+
+class _GeluPlain(torch.autograd.Function):
+    """`gelu_plain` with `gelu_plain_grad` as its backward, so that autograd
+    through the plain version takes JAX's gradient (autograd's own, through
+    the forward's ops, rounds elsewhere)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        ctx.save_for_backward(v)
+        return gelu_plain(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, = ctx.saved_tensors
+        return gelu_plain_grad(g, v)
 
 
 def bias_view(bias: torch.Tensor, p: torch.Tensor, dim: int) -> torch.Tensor:
@@ -146,7 +252,7 @@ def bias_act_plain(p: torch.Tensor, bias: Optional[torch.Tensor], act: str,
     `keep_pre`, (the activation, the pre-activation value)."""
     _check_act(act)
     v = p if bias is None else p + bias_view(bias.to(p.dtype), p, dim)
-    y = F.relu(v) if act == "relu" else gelu_plain(v)
+    y = F.relu(v) if act == "relu" else _GeluPlain.apply(v)
     return (y, v) if keep_pre else y
 
 
